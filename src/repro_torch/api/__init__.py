@@ -1,0 +1,42 @@
+"""The workload-session API — the port's public surface.
+
+Training data is partitioned ONCE and stays resident across iterations
+(paper §2.2, Fig. 3):
+
+  System / make_system    execution targets: PimSystem (simulated PIM
+                          cores on one device) and HostSystem (the
+                          processor-centric baseline)
+  PimDataset              resident dataset handle (System.put); quantized
+                          views are lazy and cached
+  Workload / registry     LIN and LOG behind one TrainerSpec -> FitResult
+  make_estimator          sklearn-style facade over a registered workload
+  ReduceStrategy          pluggable cross-core reduction, per call
+
+Typical session::
+
+    from repro_torch.api import make_estimator, make_system
+
+    system = make_system("pim", n_cores=16)          # device="cuda"
+    ds = system.put(X, y)                            # one partition
+    for lr in (0.05, 0.1, 0.2):                      # sweep reuses it
+        make_estimator("linreg", version="int32", lr=lr,
+                       system=system).fit(ds)
+"""
+from ..systems import (FabricReduce, HierarchicalReduce, HostConfig,
+                       HostReduce, HostSystem, PimConfig, PimSystem,
+                       PimTopology, ReduceStrategy, System, TransferStats,
+                       make_system, resolve_reduce_strategy)
+from .dataset import PimDataset
+from .estimator import PimEstimator, make_estimator
+from .registry import (FitResult, TrainerSpec, Workload, get_workload,
+                       list_workloads, register_workload)
+from . import workloads  # noqa: F401 — registers LIN and LOG
+
+__all__ = [
+    "FabricReduce", "FitResult", "HierarchicalReduce", "HostConfig",
+    "HostReduce", "HostSystem", "PimConfig", "PimDataset", "PimEstimator",
+    "PimSystem", "PimTopology", "ReduceStrategy", "System", "TrainerSpec",
+    "TransferStats", "Workload", "get_workload", "list_workloads",
+    "make_estimator", "make_system", "register_workload",
+    "resolve_reduce_strategy",
+]

@@ -1,0 +1,106 @@
+"""Bank-resident dataset handles.
+
+A :class:`PimDataset` is created by ``System.put(X, y)`` and owns the
+host-side arrays, the row-validity mask, and the quantized, sharded
+device views of the gradient-descent workloads — built lazily and cached
+under the same keys as ``repro.api.dataset.PimDataset``, so repeated
+fits and sweeps reuse one CPU->PIM transfer per view.  The host
+quantizes once (``to_fixed`` on the CPU) and ships the shards.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.fixed_point import to_fixed
+
+_GD_DATA_VERSION = {
+    "fp32": "fp32", "int32": "int32", "hyb": "hyb", "bui": "hyb",
+    "int32_lut_mram": "int32", "int32_lut_wram": "int32",
+    "hyb_lut": "hyb", "bui_lut": "hyb",
+}
+
+
+def gd_data_version(version: str) -> str:
+    """Collapse a LIN/LOG version name to its on-bank data precision."""
+    try:
+        return _GD_DATA_VERSION[version]
+    except KeyError:
+        raise ValueError(f"unknown workload version {version!r}") from None
+
+
+class PimDataset:
+    """Handle to a dataset partitioned once across the simulated banks."""
+
+    def __init__(self, system, X, y=None):
+        X = np.asarray(X)
+        if X.ndim == 1:
+            X = X[:, None]
+        self.system = system
+        self.X = X
+        self.y = None if y is None else np.asarray(y)
+        self.n = int(X.shape[0])
+        self.n_features = int(X.shape[1])
+        self._views: dict[tuple, Any] = {}
+
+    def _cached(self, key: tuple, builder):
+        view = self._views.get(key)
+        if view is None:
+            view = self._views[key] = builder()
+        return view
+
+    @property
+    def n_views(self) -> int:
+        """Number of materialized (transferred) views — diagnostics."""
+        return sum(1 for k in self._views if k[0] != "mask")
+
+    def _require_y(self, who: str) -> np.ndarray:
+        if self.y is None:
+            raise ValueError(f"{who} needs labels/targets; create the "
+                             f"dataset with System.put(X, y)")
+        return self.y
+
+    def mask(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Row-validity mask, optionally cast (cached per dtype)."""
+        key = ("mask", None if dtype is None else str(dtype).split(".")[-1])
+        return self._cached(key, lambda: (
+            self.system.row_validity_mask(self.n) if dtype is None
+            else self.system.row_validity_mask(self.n).to(dtype)))
+
+    def gd_view(self, version: str, frac_bits: int = 10, x8_frac: int = 7):
+        """(Xs, ys, mask) for the gradient-descent workloads (LIN/LOG).
+
+        ``version`` collapses to its data precision, so HYB and BUI share
+        one transfer, as do the LUT placement variants."""
+        y = self._require_y("gd_view")
+        data_ver = gd_data_version(version)
+
+        if data_ver == "fp32":
+            key = ("gd", "fp32")
+
+            def build():
+                return (self.system.shard_rows(self.X.astype(np.float32)),
+                        self.system.shard_rows(y.astype(np.float32)),
+                        self.mask(torch.float32))
+        elif data_ver == "int32":
+            key = ("gd", "int32", frac_bits)
+
+            def build():
+                Xq = to_fixed(torch.from_numpy(self.X), frac_bits).numpy()
+                yq = to_fixed(torch.from_numpy(y), frac_bits).numpy()
+                return (self.system.shard_rows(Xq),
+                        self.system.shard_rows(yq),
+                        self.mask(torch.int32))
+        else:  # hyb: int8 inputs, fixed-point targets at frac_bits
+            key = ("gd", "hyb", x8_frac, frac_bits)
+
+            def build():
+                Xq8 = to_fixed(torch.from_numpy(self.X), x8_frac,
+                               dtype=torch.int8).numpy()
+                yq = to_fixed(torch.from_numpy(y), frac_bits).numpy()
+                return (self.system.shard_rows(Xq8),
+                        self.system.shard_rows(yq),
+                        self.mask(torch.int32))
+        return self._cached(key, build)

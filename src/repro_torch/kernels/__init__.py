@@ -1,0 +1,8 @@
+"""The kernel tier: hand-written CUDA kernels behind plain PyTorch twins.
+
+  dispatch        op registry and per-op launch counts; the tensor's
+                  device picks the implementation
+  build           nvcc build of ``csrc/*.cu`` at first use, ctypes binding
+  quant_matmul    ``fx_matvec`` (Q-format matvec of LIN/LOG INT32)
+  lut_activation  ``lut_sigmoid`` (LUT sigmoid of LOG, WRAM/MRAM)
+"""

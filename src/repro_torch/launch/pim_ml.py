@@ -1,0 +1,116 @@
+"""Workload-session launcher: train LIN or LOG on the port.
+
+One System session on one device, one resident PimDataset, N fits over
+it — version ladders and hyperparameter sweeps pay the data placement
+once (paper §2.2).  The device picks the kernel implementation: CUDA
+kernels on ``--device cuda`` (the default), their plain PyTorch versions
+on ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload linreg \\
+      --versions int32,hyb --samples 8192 --features 16 --iters 300 \\
+      --sweep lr=0.05,0.1,0.2 --reduce fabric
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload logreg \\
+      --system host --device cpu --versions fp32
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.api import (get_workload, list_workloads, make_estimator,
+                             make_system)
+from repro_torch.data.synthetic import make_linear_dataset
+
+
+def _parse_value(text: str):
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            continue
+    return text
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="linreg",
+                    choices=sorted(list_workloads()),
+                    help="linreg or logreg (the workloads ported so far)")
+    ap.add_argument("--versions", default="",
+                    help="comma list; default = all versions")
+    ap.add_argument("--samples", type=int, default=8192)
+    ap.add_argument("--features", type=int, default=16)
+    ap.add_argument("--cores", type=int, default=16)
+    ap.add_argument("--system", default="pim", choices=("pim", "host"),
+                    help="execution target: the simulated PIM machine or "
+                         "the processor-centric host baseline")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the system runs; cuda without a GPU fails")
+    ap.add_argument("--iters", type=int, default=0,
+                    help="override n_iters when > 0")
+    ap.add_argument("--reduce", default="fabric",
+                    choices=("fabric", "host", "hierarchical"))
+    ap.add_argument("--fuse-steps", type=int, default=1,
+                    help="step fusion is not ported yet: only 1 runs")
+    ap.add_argument("--sweep", default="",
+                    help="hyper sweep, e.g. lr=0.05,0.1,0.2")
+    ap.add_argument("--param", action="append", default=[],
+                    help="extra hyperparameter, e.g. minibatch=64")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if args.fuse_steps > 1:
+        ap.error(f"--fuse-steps {args.fuse_steps}: step fusion is not "
+                 f"ported to PyTorch yet; run with --fuse-steps 1")
+    wl = get_workload(args.workload)
+    versions = ([v for v in args.versions.split(",") if v]
+                or list(wl.versions))
+    params = dict(p.split("=", 1) for p in args.param)
+    params = {k: _parse_value(v) for k, v in params.items()}
+    if args.iters > 0:
+        params["n_iters"] = args.iters
+
+    sweep = [("", None)]
+    if args.sweep:
+        key, _, vals = args.sweep.partition("=")
+        sweep = [(key, _parse_value(v)) for v in vals.split(",")]
+
+    system = make_system(args.system, n_cores=args.cores,
+                         reduce=args.reduce, device=args.device)
+    X, y, _ = make_linear_dataset(args.samples, args.features,
+                                  seed=args.seed)
+    ds = system.put(X, y)
+    print(f"session: {wl.name} on {args.system} ({args.cores} cores, "
+          f"reduce={args.reduce}, device={system.device}), dataset "
+          f"{args.samples}x{args.features} (resident)")
+    print(f"  {'version':<16} {'sweep':<14} {'score':>9} {'fit_s':>7} "
+          f"{'shards':>6}")
+    for ver in versions:
+        for skey, sval in sweep:
+            p = dict(params)
+            if skey:
+                p[skey] = sval
+            t0 = time.perf_counter()
+            est = make_estimator(wl.name, version=ver, system=system,
+                                 **p).fit(ds)
+            dt = time.perf_counter() - t0
+            label = f"{skey}={sval}" if skey else ""
+            print(f"  {ver:<16} {label:<14} {est.score(X, y):>9.4f} "
+                  f"{dt:>7.2f} {system.stats.shard_transfers:>6d}")
+
+    s = system.stats
+    if system.kind == "pim":
+        print(f"transfers: cpu->pim {s.cpu_to_pim:,} B "
+              f"(dataset shards {s.shard_bytes:,} B in {s.shard_transfers} "
+              f"transfers), pim->cpu {s.pim_to_cpu:,} B, "
+              f"inter-core via host {s.inter_core_via_host:,} B")
+    else:
+        print(f"traffic: DRAM {s.dram_bytes:,} B streamed over "
+              f"{s.kernel_launches} launches "
+              f"({s.shard_transfers} view materializations, "
+              f"{s.shard_bytes:,} B resident)")
+
+
+if __name__ == "__main__":
+    main()
