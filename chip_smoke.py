@@ -10,17 +10,32 @@ Phases, in order; any failure exits non-zero:
   2. build    compile every CUDA kernel from ``src/repro_torch/csrc`` with
               nvcc (one process per source, all at once)
   3. kernels  each kernel against its plain PyTorch version on the card,
-              on the main path's shapes: they must be equal
-  4. main     the paper's LIN/LOG training at full size: 6,291,456 x 16
-              samples over 2048 simulated PIM cores, LIN int32/hyb/fp32
-              and LOG int32_lut_wram/int32_lut_mram, through the public
-              API.  The kernel launch counts, zeroed just before, must
-              show every kernel ran; the same fits on the CPU must give
-              bit-identical integer weights, fp32 weights within
-              FP32_RTOL/FP32_ATOL, and equal TransferStats
+              on the main paths' shapes and their edge cases: they must
+              be equal
+  4. main     the paper's training at full width (16 features) over 2048
+              simulated PIM cores, through the public API, one path at a
+              time with the kernel launch counts zeroed just before it
+              and checked exactly just after it:
+              - LIN int32/hyb/fp32 and LOG int32_lut_wram/int32_lut_mram
+                at 6,291,456 samples; the same fits on the CPU must give
+                bit-identical integer weights, fp32 weights within
+                FP32_RTOL/FP32_ATOL, and equal TransferStats
+              - KME int16 and fp32 at 25,600,000 samples, k=16, 10
+                iterations; then whether the int32 reduce of the cluster
+                sums across the cores left the int32 range (the same
+                reduce in int64 beside it, on the card)
+              - DTR at max_depth 10 on the largest of 153.6M / 76.8M /
+                38.4M samples whose generation fits half the host's
+                available memory
+              - KME (100,000) and DTR (600,000) at the paper's quality
+                sizes on the card and on the CPU: identical int16
+                centroids, labels and iteration counts, fp32 centroids
+                within KME_FP32_RTOL/KME_FP32_ATOL, identical trees, equal
+                TransferStats
   5. timing   each kernel and its plain version with CUDA events (median
               of TIMING_RUNS, L2 flushed between runs) beside its bound;
-              each fit's seconds per iteration and samples/s
+              each fit's milliseconds per iteration (per round for DTR)
+              and samples/s
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -35,6 +50,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 SEED = 0
 N_CORES = 2048
 N_SAMPLES = 6_291_456          # the paper's strong-scaling LIN/LOG dataset
@@ -44,11 +61,26 @@ TIMING_RUNS = 20
 #: fp32 CPU-vs-card tolerance: cuBLAS and ATen's CPU kernels sum the
 #: per-core products and the gradient rows in different orders
 FP32_RTOL, FP32_ATOL = 1e-4, 1e-6
-#: published peaks of the H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
-#: and float32 outside the tensor cores — the CUDA-core rate the integer
-#: kernels' operations are held to
+KME_SAMPLES = 25_600_000       # the paper's strong-scaling KME dataset
+KME_QUALITY = 100_000          # ... and its quality dataset
+KME_K = 16
+#: KME fp32 CPU-vs-card tolerance on the centroids (blob coordinates are
+#: ~10): the float32 distance and one-hot sum matmuls run in other orders
+KME_FP32_RTOL, KME_FP32_ATOL = 1e-4, 1e-3
+#: the paper's strong-scaling DTR dataset, then the cuts taken when the
+#: host cannot generate it: make_classification peaks at ~450 B of host
+#: memory per sample (float64 intermediates)
+DTR_SIZES = (153_600_000, 76_800_000, 38_400_000)
+DTR_HOST_BYTES_PER_SAMPLE = 450
+DTR_QUALITY = 600_000
+DTR_DEPTH = 10
+#: published peaks of the H100 SXM (NVIDIA data sheet): HBM3 bytes/s;
+#: int32 operations on the CUDA cores (64 INT32 lanes per SM, half the
+#: FP32 lanes; a multiply-add counts 2); float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_CUDA_CORE_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 33.5e12
+PEAK_FP32_OPS_PER_S = 67e12
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 LIN_VERSIONS = ("int32", "hyb", "fp32")
 LOG_VERSIONS = ("int32_lut_wram", "int32_lut_mram")
@@ -80,11 +112,176 @@ def cuda_ms(torch, fn, flush) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = PEAK_INT32_OPS_PER_S) -> tuple[float, str]:
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_CUDA_CORE_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def dtr_samples() -> tuple[int, int]:
+    """The largest DTR size whose generation fits half of MemAvailable,
+    and MemAvailable in bytes."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    for n in DTR_SIZES:
+        if n * DTR_HOST_BYTES_PER_SAMPLE <= avail / 2:
+            return n, avail
+    fail(f"MemAvailable {avail} B holds no DTR size of {DTR_SIZES}")
+
+
+def same(torch, outs, refs) -> int:
+    """Max abs difference of integer kernel outputs from their plain
+    version's; fails unless they are equal."""
+    torch.cuda.synchronize()
+    err = max(int((o.long() - r.long()).abs().max()) if o.numel() else 0
+              for o, r in zip(outs, refs))
+    if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
+        fail(f"kernel != plain (max abs err {err})")
+    return err
+
+
+def check_kmeans_assign(torch, dev, gen) -> tuple[int, dict]:
+    """kmeans_assign against its plain version: the KME main shape with
+    quantized and with full-range int16 (the products wrap), a ragged
+    shape, and duplicated centroids (ties).  Returns the max abs error and
+    the main-shape inputs."""
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
+                                                   kmeans_assign_plain)
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int16)
+    n_pc = KME_SAMPLES // N_CORES
+    main = (ints((N_CORES, n_pc, N_FEATURES), -2047, 2048),
+            ints((KME_K, N_FEATURES), -2047, 2048))
+    ties_c = ints((9, N_FEATURES), -1, 2)
+    ties_c[4], ties_c[8] = ties_c[2], ties_c[0]
+    cases = {
+        f"main {tuple(main[0].shape)} K={KME_K}": main,
+        "main shape, full-range int16": (
+            ints((N_CORES, n_pc, N_FEATURES), -32768, 32768),
+            ints((KME_K, N_FEATURES), -32768, 32768)),
+        "ragged (7, 100003, 13) K=5, full-range": (
+            ints((7, 100_003, 13), -32768, 32768), ints((5, 13), -32768,
+                                                       32768)),
+        "ties (16, 4097, 16) K=9, duplicated centroids": (
+            ints((16, 4097, N_FEATURES), -3, 4), ties_c),
+    }
+    err = 0
+    for name, (x, c) in cases.items():
+        out = kmeans_assign_cuda(x, c)
+        err = max(err, same(torch, out, kmeans_assign_plain(x, c)))
+        if name.startswith("ties") and torch.isin(
+                out[0], torch.tensor([4, 8], device=dev)).any():
+            fail("kmeans_assign: a duplicated centroid won a tie")
+        say(f"kernels: kmeans_assign == plain, {name}")
+    return err, {"x": main[0], "c": main[1]}
+
+
+def check_gini_counts(torch, dev, gen, n_dtr: int) -> tuple[int, dict]:
+    """gini_counts against its plain version at the DTR main shape with
+    L = 4096: every row at the root, and leaves spread over 2^10 values;
+    and a ragged shape with rows out of range.  Returns the max abs error
+    and the main-shape inputs."""
+    from repro_torch.kernels.gini_split import (gini_split_cuda,
+                                                gini_split_plain)
+    n_leaves = 2 ** (DTR_DEPTH + 2)
+    n_pc = n_dtr // N_CORES
+    x = torch.randn((N_CORES, n_pc, N_FEATURES), generator=gen, device=dev)
+    y = torch.randint(0, 2, (N_CORES, n_pc), generator=gen, device=dev,
+                      dtype=torch.int32)
+    th = torch.randn((n_leaves, N_FEATURES), generator=gen, device=dev)
+    spread = torch.randint(0, 1024, (N_CORES, n_pc), generator=gen,
+                           device=dev, dtype=torch.int32)
+    main = {"x": x, "y": y, "th": th, "spread": spread,
+            "root": torch.zeros_like(spread)}
+    rx = torch.randn((5, 100_003, 13), generator=gen, device=dev)
+    ry = torch.randint(0, 3, (5, 100_003), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rleaf = torch.randint(0, 37, (5, 100_003), generator=gen, device=dev,
+                          dtype=torch.int32)
+    rleaf[0, :9], ry[1, :9] = 37, 3          # count nowhere
+    cases = {
+        f"main {tuple(x.shape)} L={n_leaves}, all rows at the root":
+            (x, y, main["root"], th, 2),
+        "main shape, leaves spread over 2^10": (x, y, spread, th, 2),
+        "ragged (5, 100003, 13) L=37, 3 classes, rows out of range":
+            (rx, ry, rleaf, torch.randn((37, 13), generator=gen,
+                                        device=dev), 3),
+    }
+    err = 0
+    for name, args in cases.items():
+        err = max(err, same(torch, gini_split_cuda(*args),
+                            gini_split_plain(*args)))
+        say(f"kernels: gini_counts == plain, {name}")
+    return err, main
+
+
+def kme_fits(make_estimator, system, ds) -> dict:
+    """The KME int16 and fp32 fits of the main path and of the card-CPU
+    comparison: k=16, one restart, exactly ITERS iterations."""
+    return {v: make_estimator("kmeans", version=v, n_clusters=KME_K,
+                              n_init=1, max_iter=ITERS, tol=0.0,
+                              system=system).fit(ds)
+            for v in ("int16", "fp32")}
+
+
+def check_kme(est: dict, n: int) -> None:
+    for version, e in est.items():
+        c = e.cluster_centers_
+        if not (c.shape == (KME_K, N_FEATURES) and np.isfinite(c).all()
+                and e.n_iter_ == ITERS and e.labels_.shape == (n,)
+                and 0 <= e.labels_.min() and e.labels_.max() < KME_K
+                and np.isfinite(e.inertia_)):
+            fail(f"KME {version}: misshapen or non-finite result")
+
+
+def step_times(gen) -> tuple[list, object]:
+    """Wall seconds of each step of a ``fit_steps`` generator (the host
+    reads the reduced partials, a sync, at every step; the last entry is
+    the work after the last yield) and the fit's result."""
+    times, t = [], time.perf_counter()
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            times.append(time.perf_counter() - t)
+            return times, stop.value
+        now = time.perf_counter()
+        times.append(now - t)
+        t = now
+
+
+def device_profile(torch, fn, top: int = 6) -> str:
+    """Run ``fn`` under torch.profiler: the device's busy share of the
+    wall time and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(t for t, _, _ in kernels)
+    if not kernels:
+        return f"{wall_ms:.1f} ms wall, no device time traced"
+    return (f"{wall_ms:.1f} ms wall under the profiler, device busy "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); top: "
+            + "; ".join(f"{t:.1f} ms x{n} {k[:60]}"
+                        for t, k, n in kernels[:top]))
+
+
+def tree_rounds(tree) -> int:
+    """Frontier rounds a fit ran: one per depth level, plus the last
+    round, which evaluates the deepest leaves and splits none."""
+    return int(tree.depth[:tree.n_nodes].max()) + 1
 
 
 def main() -> int:
@@ -94,12 +291,16 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import numpy as np
-    from repro_torch.api import make_estimator, make_system
+    from repro_torch.api import get_workload, make_estimator, make_system
     from repro_torch.core.lut import build_sigmoid_lut
-    from repro_torch.data.synthetic import (make_classification,
+    from repro_torch.core.metrics import adjusted_rand_index
+    from repro_torch.data.synthetic import (make_blobs, make_classification,
                                             make_linear_dataset)
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.gini_split import (gini_split_cuda,
+                                                gini_split_plain)
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
+                                                   kmeans_assign_plain)
     from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                     lut_sigmoid_plain)
     from repro_torch.kernels.quant_matmul import (fx_matvec_cuda,
@@ -116,6 +317,11 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
+    n_dtr, mem_avail = dtr_samples()
+    say(f"host MemAvailable {mem_avail / 2 ** 30:.1f} GiB: DTR runs at "
+        f"{n_dtr:,} samples (the paper's {DTR_SIZES[0]:,} needs "
+        f"~{DTR_SIZES[0] * DTR_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB "
+        f"to generate; taken when under half of MemAvailable)")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -170,6 +376,9 @@ def main() -> int:
         err_lut = max(err_lut, int((out.long() - ref.long()).abs().max()))
     say(f"kernels: lut_sigmoid wram and mram == plain at {tuple(z.shape)} "
         f"with the edge values (max abs err {err_lut})")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err_km, km = check_kmeans_assign(torch, dev, gen)
+    err_gi, gi = check_gini_counts(torch, dev, gen, n_dtr)
 
     # -- 4. the main path at full size ---------------------------------------
     t0 = time.perf_counter()
@@ -222,6 +431,117 @@ def main() -> int:
         fail("TransferStats differ between the card and the CPU run")
     say(f"TransferStats equal on card and CPU: {results['cuda', 'stats']}")
 
+    # KME at the paper's strong-scaling size, on the card
+    t0 = time.perf_counter()
+    Xk, _, _ = make_blobs(KME_SAMPLES, N_FEATURES, centers=KME_K, seed=SEED)
+    say(f"data: {KME_SAMPLES}x{N_FEATURES} KME blobs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kme_system = make_system("pim", n_cores=N_CORES, device="cuda")
+    kme_ds = kme_system.put(Xk)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    kme = kme_fits(make_estimator, kme_system, kme_ds)
+    torch.cuda.synchronize()
+    kme_counts = dict(dispatch.launch_counts)
+    say(f"main path KME: int16 + fp32 fits x {ITERS} iterations in "
+        f"{time.perf_counter() - t0:.1f} s (views included); launch counts "
+        f"{kme_counts} (expected {{'kmeans_assign': {ITERS}}})")
+    if kme_counts != {"kmeans_assign": ITERS}:
+        fail(f"KME launch counts {kme_counts}")
+    check_kme(kme, KME_SAMPLES)
+    for version, e in kme.items():
+        say(f"  kmeans {version:<5} inertia {e.inertia_:.6g}, n_iter "
+            f"{e.n_iter_}, centroid[0][:3] {e.cluster_centers_[0, :3]}")
+    # the int32 range of the cross-core reduce of the cluster sums: the
+    # reference's fabric sum keeps int32 and wraps; hold it against int64
+    view = kme_ds.kmeans_view("int16")
+    init = view.host_q[np.random.RandomState(SEED).choice(
+        KME_SAMPLES, KME_K, replace=False)]
+    fitted = np.round(kme["int16"].cluster_centers_ / view.scale)
+    for name, cq in (("initial", init), ("fitted", fitted)):
+        _, sums, _ = kmeans_assign_cuda(
+            view.shards, torch.from_numpy(cq.astype(np.int16)).to(dev))
+        wide = torch.sum(sums, dim=0, dtype=torch.int64)
+        narrow = torch.sum(sums, dim=0, dtype=torch.int32)
+        n_out = int(((wide < INT32_MIN) | (wide > INT32_MAX)).sum())
+        say(f"int32 range: KME cluster sums over {N_CORES} cores with the "
+            f"{name} centroids: {n_out} of {wide.numel()} entries leave "
+            f"int32 (max |sum| {int(wide.abs().max()):,}; the int32 "
+            f"reduce wraps them: {int((narrow.long() != wide).sum())} "
+            f"differ)")
+    del Xk, view, sums, wide, narrow
+
+    # DTR at the largest size the host can generate, on the card
+    t0 = time.perf_counter()
+    Xd, yd = make_classification(n_dtr, N_FEATURES, seed=SEED,
+                                 class_sep=1.4)
+    say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dtr_system = make_system("pim", n_cores=N_CORES, device="cuda")
+    dtr_ds = dtr_system.put(Xd, yd)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    dtr = make_estimator("dtree", max_depth=DTR_DEPTH,
+                         system=dtr_system).fit(dtr_ds)
+    torch.cuda.synchronize()
+    dtr_counts = dict(dispatch.launch_counts)
+    rounds = tree_rounds(dtr.tree_)
+    say(f"main path DTR: max_depth {DTR_DEPTH}, {rounds} rounds, "
+        f"{dtr.n_nodes_} nodes in {time.perf_counter() - t0:.1f} s (view "
+        f"included); launch counts {dtr_counts} (expected "
+        f"{{'gini_split': {rounds}}}); training accuracy on the first "
+        f"1M samples {dtr.score(Xd[:1 << 20], yd[:1 << 20]):.4f}")
+    if dtr_counts != {"gini_split": rounds}:
+        fail(f"DTR launch counts {dtr_counts}")
+    if dtr_system.stats.kernel_launches != 3 * rounds - 1:
+        fail(f"DTR ran {dtr_system.stats.kernel_launches} map_* calls, "
+             f"not 3 per round less the last commit")
+    del Xd, yd
+
+    # KME and DTR at the paper's quality sizes: the card against the CPU
+    Xk, yk, _ = make_blobs(KME_QUALITY, N_FEATURES, centers=KME_K,
+                           seed=SEED)
+    Xd, yd = make_classification(DTR_QUALITY, N_FEATURES, seed=SEED,
+                                 class_sep=1.4)
+    quality = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        system = make_system("pim", n_cores=N_CORES, device=device)
+        quality[device] = (
+            kme_fits(make_estimator, system, system.put(Xk)),
+            make_estimator("dtree", max_depth=DTR_DEPTH,
+                           system=system).fit(Xd, yd).tree_,
+            system.stats.snapshot())
+        say(f"quality sizes on {device}: KME {KME_QUALITY} + DTR "
+            f"{DTR_QUALITY} in {time.perf_counter() - t0:.1f} s")
+    (gk, gt, gs), (ck, ct, cs) = quality["cuda"], quality["cpu"]
+    check_kme(gk, KME_QUALITY)
+    if not (np.array_equal(gk["int16"].cluster_centers_,
+                           ck["int16"].cluster_centers_)
+            and np.array_equal(gk["int16"].labels_, ck["int16"].labels_)
+            and gk["int16"].n_iter_ == ck["int16"].n_iter_):
+        fail("KME int16: card and CPU fits disagree")
+    if not np.allclose(gk["fp32"].cluster_centers_,
+                       ck["fp32"].cluster_centers_, rtol=KME_FP32_RTOL,
+                       atol=KME_FP32_ATOL):
+        fail("KME fp32: card and CPU centroids disagree")
+    flips = int((gk["fp32"].labels_ != ck["fp32"].labels_).sum())
+    dc = float(np.abs(gk["fp32"].cluster_centers_
+                      - ck["fp32"].cluster_centers_).max())
+    say(f"  KME int16 card == cpu (centroids, labels, n_iter {ITERS}); "
+        f"fp32 max |dC| {dc:.3g}, {flips} labels differ; ARI vs the blobs' "
+        f"truth: int16 {adjusted_rand_index(gk['int16'].labels_, yk):.4f}, "
+        f"fp32 {adjusted_rand_index(gk['fp32'].labels_, yk):.4f}")
+    fields = ("feature", "threshold", "left", "right", "leaf_class", "depth")
+    if not (all(np.array_equal(getattr(gt, f), getattr(ct, f))
+                for f in fields) and gt.n_nodes == ct.n_nodes):
+        fail("DTR: card and CPU trees differ")
+    say(f"  DTR tree card == cpu ({gt.n_nodes} nodes, {tree_rounds(gt)} "
+        f"rounds; training accuracy {np.mean(gt.predict(Xd) == yd):.4f})")
+    if gs != cs:
+        fail("KME/DTR TransferStats differ between the card and the CPU")
+    say(f"TransferStats equal on card and CPU: {gs}")
+
     # -- 5. timing -----------------------------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     n = x.numel() // N_FEATURES
@@ -245,7 +565,41 @@ def main() -> int:
                if "mram_ms" in t else "")
             + f", plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}; H100 SXM peaks {PEAK_BYTES_PER_S:.3g} B/s, "
-            f"{PEAK_CUDA_CORE_OPS_PER_S:.3g} op/s) on {smi}")
+            f"{PEAK_INT32_OPS_PER_S:.3g} int32 op/s) on {smi}")
+
+    kx, kc = km["x"], km["c"]
+    n_km = kx.shape[0] * kx.shape[1]
+    kt = dict(ms=cuda_ms(torch, lambda: kmeans_assign_cuda(kx, kc), flush),
+              plain_ms=cuda_ms(torch, lambda: kmeans_assign_plain(kx, kc),
+                               flush))
+    kt["bound_ms"], kt["bound_by"] = bound(
+        n_km * N_FEATURES * 2 + KME_K * N_FEATURES * 2 + n_km * 4
+        + N_CORES * KME_K * (N_FEATURES + 1) * 4,
+        2 * n_km * KME_K * N_FEATURES)
+    n_leaves = gi["th"].shape[0]
+    g_args = (gi["x"], gi["y"], gi["spread"], gi["th"], 2)
+    g_root = (gi["x"], gi["y"], gi["root"], gi["th"], 2)
+    n_gi = gi["x"].shape[0] * gi["x"].shape[1]
+    gt = dict(ms=cuda_ms(torch, lambda: gini_split_cuda(*g_args), flush),
+              root_ms=cuda_ms(torch, lambda: gini_split_cuda(*g_root),
+                              flush),
+              plain_ms=cuda_ms(torch, lambda: gini_split_plain(*g_args),
+                               flush))
+    gt["bound_ms"], gt["bound_by"] = bound(
+        n_gi * (N_FEATURES + 2) * 4 + n_leaves * N_FEATURES * 4
+        + N_CORES * n_leaves * 2 * (N_FEATURES + 1) * 4,
+        n_gi * N_FEATURES, PEAK_FP32_OPS_PER_S)
+    say(f"timing: kmeans_assign {kt['ms']:.4f} ms, plain "
+        f"{kt['plain_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
+        f"({kt['bound_by']}: {2 * n_km * KME_K * N_FEATURES:.4g} int32 ops "
+        f"at {PEAK_INT32_OPS_PER_S:.3g}/s) at {tuple(kx.shape)} K={KME_K} "
+        f"on {smi}")
+    say(f"timing: gini_counts {gt['ms']:.4f} ms (leaves spread over 2^10), "
+        f"{gt['root_ms']:.4f} ms (all at the root), plain "
+        f"{gt['plain_ms']:.4f} ms, bound {gt['bound_ms']:.4f} ms "
+        f"({gt['bound_by']}) at {tuple(gi['x'].shape)} L={n_leaves} "
+        f"on {smi}")
+    del km, gi, kx, kc, g_args, g_root
 
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
@@ -261,6 +615,30 @@ def main() -> int:
         dt = (time.perf_counter() - t0) / ITERS
         say(f"fit: {workload:<7} {version:<15} {dt * 1e3:.3f} ms/iteration, "
             f"{N_SAMPLES / dt:.4g} samples/s ({N_CORES} cores, on {smi})")
+    kme_wl, dtr_wl = get_workload("kmeans"), get_workload("dtree")
+    kme_params = dict(n_clusters=KME_K, max_iter=ITERS, tol=0.0)
+    for version in ("int16", "fp32"):          # views resident since phase 4
+        steps, _ = step_times(kme_wl.fit_steps(
+            kme_ds, kme_wl.spec(version, **kme_params)))
+        dt = statistics.median(steps[1:ITERS])
+        say(f"fit: kmeans  {version:<15} {dt * 1e3:.3f} ms/iteration "
+            f"(median of iterations 2-{ITERS}), {KME_SAMPLES / dt:.4g} "
+            f"samples/s; the first step with the init draw "
+            f"{steps[0] * 1e3:.1f} ms, the end-of-fit inertia and labels "
+            f"passes {steps[-1] * 1e3:.1f} ms ({N_CORES} cores, on {smi})")
+    steps, _ = step_times(dtr_wl.fit_steps(
+        dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH)))
+    dt = sum(steps) / len(steps)
+    say(f"fit: dtree   max_depth {DTR_DEPTH:<5} {dt * 1e3:.3f} ms/round "
+        f"(mean of {len(steps)}), {n_dtr / dt:.4g} samples/s per round; "
+        f"rounds {' '.join(f'{t * 1e3:.1f}' for t in steps)} ms "
+        f"({N_CORES} cores, {n_dtr:,} samples, on {smi})")
+    for name, fit in (
+            ("KME int16 fit", lambda: kme_wl.fit(
+                kme_ds, kme_wl.spec("int16", **kme_params))),
+            ("DTR fit", lambda: dtr_wl.fit(
+                dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH)))):
+        say(f"profile: {name}: " + device_profile(torch, fit))
 
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
@@ -277,6 +655,20 @@ def main() -> int:
          "ms": lu["ms"], "mram_ms": lu["mram_ms"],
          "plain_ms": lu["plain_ms"], "bound_ms": lu["bound_ms"],
          "bound_by": lu["bound_by"], "library_ms": None},
+        {"name": "kmeans_assign", "route": "cuda",
+         "source": "src/repro_torch/csrc/kmeans_assign.cu",
+         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:51",
+         "launches": kme_counts["kmeans_assign"], "max_abs_err": err_km,
+         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
+         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
+         "library_ms": None},
+        {"name": "gini_counts", "route": "cuda",
+         "source": "src/repro_torch/csrc/gini_counts.cu",
+         "replaces": "src/repro/kernels/gini_split/kernel.py:58",
+         "launches": dtr_counts["gini_split"], "max_abs_err": err_gi,
+         "ms": gt["ms"], "root_ms": gt["root_ms"],
+         "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
+         "bound_by": gt["bound_by"], "library_ms": None},
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

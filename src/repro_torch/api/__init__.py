@@ -8,7 +8,8 @@ Training data is partitioned ONCE and stays resident across iterations
                           processor-centric baseline)
   PimDataset              resident dataset handle (System.put); quantized
                           views are lazy and cached
-  Workload / registry     LIN and LOG behind one TrainerSpec -> FitResult
+  Workload / registry     LIN, LOG, DTR and KME behind one
+                          TrainerSpec -> FitResult
   make_estimator          sklearn-style facade over a registered workload
   ReduceStrategy          pluggable cross-core reduction, per call
 
@@ -30,7 +31,7 @@ from .dataset import PimDataset
 from .estimator import PimEstimator, make_estimator
 from .registry import (FitResult, TrainerSpec, Workload, get_workload,
                        list_workloads, register_workload)
-from . import workloads  # noqa: F401 — registers LIN and LOG
+from . import workloads  # noqa: F401 — registers the workloads
 
 __all__ = [
     "FabricReduce", "FitResult", "HierarchicalReduce", "HostConfig",

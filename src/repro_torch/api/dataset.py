@@ -2,19 +2,23 @@
 
 A :class:`PimDataset` is created by ``System.put(X, y)`` and owns the
 host-side arrays, the row-validity mask, and the quantized, sharded
-device views of the gradient-descent workloads — built lazily and cached
-under the same keys as ``repro.api.dataset.PimDataset``, so repeated
-fits and sweeps reuse one CPU->PIM transfer per view.  The host
-quantizes once (``to_fixed`` on the CPU) and ships the shards.
+device views of the workloads (gradient descent, tree, K-Means) — built
+lazily and cached under the same keys as ``repro.api.dataset.PimDataset``,
+so repeated fits, restarts and sweeps reuse one CPU->PIM transfer per
+view.  The host quantizes once (on the CPU) and ships the shards.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..core.fixed_point import to_fixed
+# 12-bit symmetric range stored in int16; single source of truth in
+# core/kmeans.py
+from ..core.kmeans import QUANT_RANGE as KMEANS_QUANT_RANGE
 
 _GD_DATA_VERSION = {
     "fp32": "fp32", "int32": "int32", "hyb": "hyb", "bui": "hyb",
@@ -29,6 +33,16 @@ def gd_data_version(version: str) -> str:
         return _GD_DATA_VERSION[version]
     except KeyError:
         raise ValueError(f"unknown workload version {version!r}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class KMeansView:
+    """K-Means view: device shards + host copy for centroid init."""
+
+    shards: torch.Tensor     # (n_shards, n_pc, F) int16 or float32
+    mask: torch.Tensor       # (n_shards, n_pc) bool
+    host_q: np.ndarray       # (n, F) — centroid init draws from it
+    scale: np.float32        # dequantization scale
 
 
 class PimDataset:
@@ -104,3 +118,44 @@ class PimDataset:
                         self.system.shard_rows(yq),
                         self.mask(torch.int32))
         return self._cached(key, build)
+
+    def tree_view(self):
+        """(Xs, ys, mask) for the decision-tree workload (float32/int32)."""
+        y = self._require_y("tree_view")
+
+        def build():
+            return (self.system.shard_rows(self.X.astype(np.float32)),
+                    self.system.shard_rows(y.astype(np.int32)),
+                    self.mask())
+        return self._cached(("tree",), build)
+
+    def kmeans_view(self, version: str = "int16") -> KMeansView:
+        """K-Means data view, cached per precision.
+
+        ``"int16"``: symmetric quantization to +-KMEANS_QUANT_RANGE
+        (the paper's PIM version).  ``"fp32"``: un-quantized float32 —
+        the processor-centric baseline precision (scale 1.0)."""
+        if version == "fp32":
+            def build():
+                Xf = np.asarray(self.X, np.float32)
+                return KMeansView(shards=self.system.shard_rows(Xf),
+                                  mask=self.mask(),
+                                  host_q=Xf,
+                                  scale=np.float32(1.0))
+            return self._cached(("kmeans", "fp32"), build)
+        if version != "int16":
+            raise ValueError(f"unknown kmeans view precision {version!r}; "
+                             f"known: ('int16', 'fp32')")
+
+        def build():
+            X = np.asarray(self.X, np.float32)
+            amax = float(np.abs(X).max())
+            scale = max(amax, 1e-12) / KMEANS_QUANT_RANGE
+            Xq = np.clip(np.round(X / scale),
+                         -KMEANS_QUANT_RANGE, KMEANS_QUANT_RANGE)
+            Xq = Xq.astype(np.int16)
+            return KMeansView(shards=self.system.shard_rows(Xq),
+                              mask=self.mask(),
+                              host_q=Xq,
+                              scale=np.float32(scale))
+        return self._cached(("kmeans", "int16"), build)

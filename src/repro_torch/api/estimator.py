@@ -84,7 +84,8 @@ class PimEstimator:
             self.system = ds.system
             self.n_cores = self.system.config.n_cores
         else:
-            ds = self.system.put(X, y)
+            ds = self.system.put(X, None if self.workload.unsupervised
+                                 else y)
         spec = self.workload.spec(self.version, **self._params)
         self.result_ = self.workload.fit(ds, spec)
         for name, value in self.result_.attributes.items():

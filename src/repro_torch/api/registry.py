@@ -41,9 +41,17 @@ class Workload:
     """Adapter base: one instance per registered workload."""
 
     name: str = ""
+    aliases: tuple = ()
     versions: tuple = ()
     #: default hyperparameters (the estimator facade's get_params surface)
     defaults: Mapping[str, Any] = {}
+    #: True when fit consumes (X,) only — no targets (K-Means)
+    unsupervised: bool = False
+    #: True when ``fit_steps`` accepts ``state=`` and yields
+    #: :class:`~repro_torch.systems.base.ChunkTick` snapshots; a
+    #: non-resumable workload (DTR grows its tree host-side in one
+    #: macro-pass) restarts from scratch
+    resumable: bool = False
 
     def spec(self, version: Optional[str] = None, **params) -> TrainerSpec:
         version = version or self.versions[0]
@@ -81,12 +89,13 @@ _REGISTRY: dict[str, Workload] = {}
 
 
 def register_workload(workload: Workload) -> Workload:
-    """Register a workload under its name (idempotent per type)."""
-    existing = _REGISTRY.get(workload.name)
-    if existing is not None and type(existing) is not type(workload):
-        raise ValueError(f"workload name {workload.name!r} already "
-                         f"registered by {type(existing).__name__}")
-    _REGISTRY[workload.name] = workload
+    """Register a workload under its name and aliases (idempotent)."""
+    for key in (workload.name, *workload.aliases):
+        existing = _REGISTRY.get(key)
+        if existing is not None and type(existing) is not type(workload):
+            raise ValueError(f"workload name {key!r} already registered "
+                             f"by {type(existing).__name__}")
+        _REGISTRY[key] = workload
     return workload
 
 
@@ -99,5 +108,5 @@ def get_workload(name: str) -> Workload:
 
 
 def list_workloads() -> dict[str, Workload]:
-    """Name -> workload."""
-    return dict(_REGISTRY)
+    """Canonical name -> workload (aliases folded away)."""
+    return {w.name: w for w in _REGISTRY.values()}

@@ -61,7 +61,8 @@ class GdResult:
         return np.asarray(X, np.float32) @ self.w + self.b
 
 
-def check_unfused(cfg: GdConfig) -> None:
+def check_unfused(cfg) -> None:
+    """Refuse step fusion (``cfg.fuse_steps > 1``) until it is ported."""
     if cfg.fuse_steps > 1:
         raise NotImplementedError(
             f"fuse_steps={cfg.fuse_steps}: step fusion is not ported to "

@@ -1,6 +1,6 @@
-"""Synthetic dataset generators (paper §4, Table 3) for LIN/LOG.
+"""Synthetic dataset generators (paper §4, Table 3) for LIN/LOG/DTR/KME.
 
-A numpy-only copy of the LIN/LOG generators of ``repro.data.synthetic``:
+A numpy-only copy of the generators of ``repro.data.synthetic``:
 the same seeds give the same arrays as the reference.
 
 The paper evaluates training quality on synthetic datasets with uniformly
@@ -69,3 +69,14 @@ def make_classification(n_samples: int = 600_000, n_features: int = 16,
     X = np.concatenate([X_inf, X_red, X_rand], axis=1)
     perm = rng.permutation(n_features)
     return X[:, perm].astype(np.float32), y.astype(np.int32)
+
+
+def make_blobs(n_samples: int = 100_000, n_features: int = 16,
+               centers: int = 16, cluster_std: float = 1.0,
+               center_box: tuple = (-10.0, 10.0), seed: int = 0):
+    """KME quality dataset (paper §4.1): 16 isotropic clusters, float32."""
+    rng = np.random.RandomState(seed)
+    C = rng.uniform(center_box[0], center_box[1], size=(centers, n_features))
+    y = rng.randint(0, centers, size=n_samples)
+    X = C[y] + rng.normal(0, cluster_std, size=(n_samples, n_features))
+    return X.astype(np.float32), y.astype(np.int32), C.astype(np.float32)

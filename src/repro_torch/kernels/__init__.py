@@ -5,4 +5,6 @@
   build           nvcc build of ``csrc/*.cu`` at first use, ctypes binding
   quant_matmul    ``fx_matvec`` (Q-format matvec of LIN/LOG INT32)
   lut_activation  ``lut_sigmoid`` (LUT sigmoid of LOG, WRAM/MRAM)
+  kmeans_assign   ``kmeans_assign`` (assign + accumulate of KME int16)
+  gini_split      ``gini_split`` (split-evaluate counts of DTR)
 """

@@ -32,7 +32,8 @@ class KernelOp:
 _OPS: Dict[str, KernelOp] = {}
 
 #: kernel families imported on first use; each registers its ops
-_FAMILIES = ("quant_matmul", "lut_activation")
+_FAMILIES = ("quant_matmul", "lut_activation", "kmeans_assign",
+             "gini_split")
 
 #: kernel launches per op, counted by the CUDA wrappers only
 launch_counts: Dict[str, int] = {}

@@ -1,0 +1,130 @@
+"""Op ``gini_split``: the split-evaluate counts of DTR.
+
+``dispatch.launch("gini_split", x, y, leaf, thresholds, n_classes)``:
+f32 points ``[C, n_pc, F]`` with int32 classes and leaf ids ``[C, n_pc]``
+(the cores' resident shards) and f32 candidate thresholds ``[L, F]`` ->
+per core, in one launch for all cores,
+
+  below  int32 ``[C, L, n_classes, F]``  rows with ``x <= th[leaf, f]``
+  total  int32 ``[C, L, n_classes]``     rows per (leaf, class)
+
+Rows whose leaf is outside ``[0, L)`` or class outside
+``[0, n_classes)`` count nowhere.  There is no pad handling here: the
+trainer routes its invalid rows and corrects for them itself.
+
+  :func:`gini_split_cuda`   the hand-written kernel
+                            (``csrc/gini_counts.cu``, port of
+                            ``repro/kernels/gini_split/kernel.py``
+                            ``gini_counts``)
+  :func:`gini_split_plain`  the plain PyTorch version (follows
+                            ``repro/kernels/gini_split/ref.py``)
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, dispatch
+
+#: the per-block leaf window lives in (static-limit) shared memory; the
+#: kernel keeps a few dozen bytes of its own beside it
+WINDOW_BYTES = 48 * 1024 - 256
+#: one launch covers every core on the grid's y axis
+MAX_CORES = 65535
+
+
+def gini_split_plain(x: torch.Tensor, y: torch.Tensor, leaf: torch.Tensor,
+                     thresholds: torch.Tensor, n_classes: int):
+    n_cores, n_pc, f_dim = x.shape
+    n_leaves = thresholds.shape[0]
+    ok = (leaf >= 0) & (leaf < n_leaves) & (y >= 0) & (y < n_classes)
+    lid = torch.where(ok, leaf, 0).long()
+    below = (x <= thresholds[lid]) & ok.unsqueeze(-1)
+    # one flat segment per (core, leaf, class); rows that count nowhere
+    # go to a spill segment past the end, dropped below
+    n_seg = n_leaves * n_classes
+    core = torch.arange(n_cores, device=x.device).unsqueeze(-1)
+    seg = torch.where(ok, core * n_seg + lid * n_classes + y.long(),
+                      n_cores * n_seg).reshape(-1)
+    counts = torch.zeros((n_cores * n_seg + 1, f_dim), dtype=torch.int32,
+                         device=x.device)
+    counts.index_add_(0, seg, below.reshape(-1, f_dim).to(torch.int32))
+    totals = torch.zeros(n_cores * n_seg + 1, dtype=torch.int32,
+                         device=x.device)
+    totals.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
+    return (counts[:-1].reshape(n_cores, n_leaves, n_classes, f_dim),
+            totals[:-1].reshape(n_cores, n_leaves, n_classes))
+
+
+def _bind() -> ctypes.CDLL:
+    lib = build.load("gini_counts")
+    fn = lib.gini_counts_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def window_leaves(n_leaves: int, n_classes: int, f_dim: int) -> int:
+    """Leaves a block keeps in its shared-memory window."""
+    return min(n_leaves, WINDOW_BYTES // (4 * n_classes * (f_dim + 1)))
+
+
+def gini_split_cuda(x: torch.Tensor, y: torch.Tensor, leaf: torch.Tensor,
+                    thresholds: torch.Tensor, n_classes: int):
+    """Launch the CUDA kernel on the current stream; raises on anything
+    it does not take and on a launch error."""
+    dev = x.device
+    if not (x.is_cuda and all(t.device == dev for t in (y, leaf,
+                                                         thresholds))):
+        raise ValueError("gini_split_cuda: every operand must be on one "
+                         "CUDA device")
+    if (x.dtype != torch.float32 or thresholds.dtype != torch.float32
+            or y.dtype != torch.int32 or leaf.dtype != torch.int32):
+        raise TypeError(f"gini_split_cuda: f32 x and thresholds, int32 y "
+                        f"and leaf required, got {x.dtype}, "
+                        f"{thresholds.dtype}, {y.dtype}, {leaf.dtype}")
+    if not (x.dim() == 3 and y.shape == x.shape[:2]
+            and leaf.shape == x.shape[:2] and thresholds.dim() == 2
+            and thresholds.shape[1] == x.shape[2]):
+        raise ValueError(f"gini_split_cuda: shapes x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, leaf {tuple(leaf.shape)}, "
+                         f"thresholds {tuple(thresholds.shape)} do not form "
+                         f"[C, n, F], [C, n], [C, n], [L, F]")
+    if not all(t.is_contiguous() for t in (x, y, leaf, thresholds)):
+        raise ValueError("gini_split_cuda: operands must be contiguous")
+    n_cores, n_pc, f_dim = x.shape
+    n_leaves = thresholds.shape[0]
+    if not (0 < n_classes and 0 < f_dim and n_cores <= MAX_CORES
+            and n_leaves * n_classes * (f_dim + 1) < 2 ** 31):
+        raise ValueError(f"gini_split_cuda: C={n_cores}, L={n_leaves}, "
+                         f"n_classes={n_classes} or F={f_dim} out of range")
+    below = torch.zeros((n_cores, n_leaves, n_classes, f_dim),
+                        dtype=torch.int32, device=dev)
+    total = torch.zeros((n_cores, n_leaves, n_classes), dtype=torch.int32,
+                        device=dev)
+    if n_cores == 0 or n_pc == 0 or n_leaves == 0:
+        return below, total
+    lib = _bind()
+    vec = int(f_dim % 4 == 0 and x.data_ptr() % 16 == 0
+              and thresholds.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gini_counts_launch(
+            x.data_ptr(), y.data_ptr(), leaf.data_ptr(),
+            thresholds.data_ptr(), below.data_ptr(), total.data_ptr(),
+            n_cores, n_pc, f_dim, n_leaves, n_classes,
+            window_leaves(n_leaves, n_classes, f_dim), vec, stream)
+    if err:
+        raise RuntimeError(f"gini_counts kernel launch failed: CUDA error "
+                           f"{err}")
+    dispatch.count_launch("gini_split")
+    return below, total
+
+
+dispatch.register_op("gini_split", cuda=gini_split_cuda,
+                     plain=gini_split_plain)

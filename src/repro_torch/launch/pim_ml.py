@@ -1,4 +1,4 @@
-"""Workload-session launcher: train LIN or LOG on the port.
+"""Workload-session launcher: train LIN, LOG, DTR or KME on the port.
 
 One System session on one device, one resident PimDataset, N fits over
 it — version ladders and hyperparameter sweeps pay the data placement
@@ -12,6 +12,12 @@ on ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload logreg \\
       --system host --device cpu --versions fp32
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload kmeans \\
+      --device cpu --samples 20000 --param n_clusters=16 --param n_init=2
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload dtree \\
+      --device cpu --samples 20000 --param max_depth=8
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import time
 
 from repro_torch.api import (get_workload, list_workloads, make_estimator,
                              make_system)
-from repro_torch.data.synthetic import make_linear_dataset
+from repro_torch.data.synthetic import (make_blobs, make_classification,
+                                        make_linear_dataset)
 
 
 def _parse_value(text: str):
@@ -32,11 +39,21 @@ def _parse_value(text: str):
     return text
 
 
+def _make_data(workload: str, n: int, f: int, seed: int):
+    if workload == "kmeans":
+        X, _, _ = make_blobs(n, f, centers=16, seed=seed)
+        return X, None
+    if workload == "dtree":
+        return make_classification(n, f, seed=seed, class_sep=1.4)
+    X, y, _ = make_linear_dataset(n, f, seed=seed)
+    return X, y
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="linreg",
                     choices=sorted(list_workloads()),
-                    help="linreg or logreg (the workloads ported so far)")
+                    help="the workloads ported so far")
     ap.add_argument("--versions", default="",
                     help="comma list; default = all versions")
     ap.add_argument("--samples", type=int, default=8192)
@@ -48,7 +65,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the system runs; cuda without a GPU fails")
     ap.add_argument("--iters", type=int, default=0,
-                    help="override n_iters when > 0")
+                    help="override n_iters/max_iter when > 0")
     ap.add_argument("--reduce", default="fabric",
                     choices=("fabric", "host", "hierarchical"))
     ap.add_argument("--fuse-steps", type=int, default=1,
@@ -69,7 +86,12 @@ def main(argv=None):
     params = dict(p.split("=", 1) for p in args.param)
     params = {k: _parse_value(v) for k, v in params.items()}
     if args.iters > 0:
-        params["n_iters"] = args.iters
+        iter_key = next((k for k in ("max_iter", "n_iters")
+                         if k in wl.defaults), None)
+        if iter_key is None:
+            ap.error(f"--iters does not apply to {wl.name} (no iteration "
+                     f"hyperparameter; try --param max_depth=N)")
+        params[iter_key] = args.iters
 
     sweep = [("", None)]
     if args.sweep:
@@ -78,8 +100,7 @@ def main(argv=None):
 
     system = make_system(args.system, n_cores=args.cores,
                          reduce=args.reduce, device=args.device)
-    X, y, _ = make_linear_dataset(args.samples, args.features,
-                                  seed=args.seed)
+    X, y = _make_data(wl.name, args.samples, args.features, args.seed)
     ds = system.put(X, y)
     print(f"session: {wl.name} on {args.system} ({args.cores} cores, "
           f"reduce={args.reduce}, device={system.device}), dataset "

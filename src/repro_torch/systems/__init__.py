@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from .base import (ChunkTick, FabricReduce, HierarchicalReduce, HostReduce,
                    ReduceStrategy, System, TransferStats, chunk_schedule,
-                   resolve_reduce_strategy, run_steps)
+                   host_array, resolve_reduce_strategy, run_steps)
 from .host import HostConfig, HostSystem
 from .pim import PimConfig, PimSystem
 from .topology import PimTopology, default_rank_size
@@ -38,6 +38,6 @@ __all__ = [
     "ChunkTick", "FabricReduce", "HierarchicalReduce", "HostConfig",
     "HostReduce", "HostSystem", "PimConfig", "PimSystem", "PimTopology",
     "ReduceStrategy", "SYSTEM_KINDS", "System", "TransferStats",
-    "chunk_schedule", "default_rank_size", "make_system",
+    "chunk_schedule", "default_rank_size", "host_array", "make_system",
     "resolve_reduce_strategy", "run_steps",
 ]

@@ -144,6 +144,14 @@ def _host_sum(tree):
     return _map(_sum, tree)
 
 
+def host_array(v) -> np.ndarray:
+    """A reduced result as a host array: fabric reduces leave tensors on
+    the device, host reduces numpy arrays."""
+    if isinstance(v, torch.Tensor):
+        return v.cpu().numpy()
+    return np.asarray(v)
+
+
 def _device_sum(v: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum keeping the partial's dtype (int32 stays int32, like jnp.sum)."""
     return torch.sum(v, dim=dim, dtype=v.dtype)

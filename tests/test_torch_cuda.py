@@ -12,8 +12,12 @@ import torch
 
 from repro_torch.api import make_estimator, make_system
 from repro_torch.core.lut import build_sigmoid_lut
-from repro_torch.data.synthetic import make_linear_dataset
+from repro_torch.data.synthetic import (make_blobs, make_classification,
+                                        make_linear_dataset)
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.gini_split import gini_split_cuda, gini_split_plain
+from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
+                                               kmeans_assign_plain)
 from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                 lut_sigmoid_plain)
 from repro_torch.kernels.quant_matmul import fx_matvec_cuda, fx_matvec_plain
@@ -90,3 +94,107 @@ def test_fit_on_the_card_equals_the_cpu_fit(cuda, workload, version):
     expected = {"fx_matvec": 5 * ("int32" in version),
                 "lut_sigmoid": 5 * ("lut" in version)}
     assert dispatch.launch_counts == {k: v for k, v in expected.items() if v}
+
+
+def _int16(gen, shape, lo, hi, dev):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int16)
+
+
+@pytest.mark.parametrize("case", ["main", "ragged_full_range", "ties",
+                                  "unaligned"])
+def test_kmeans_assign_kernel_equals_plain(cuda, case):
+    """The KME main shape [2048, 12500, 16] x K=16, a ragged shape with
+    full-range int16 (products and norms wrap), duplicated centroids
+    (ties: the first wins) and rows that are not 16-byte aligned (the
+    scalar-load path)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if case == "main":
+        x = _int16(gen, (2048, 12500, 16), -2047, 2048, cuda)
+        c = _int16(gen, (16, 16), -2047, 2048, cuda)
+    elif case == "ragged_full_range":
+        x = _int16(gen, (7, 1027, 13), -32768, 32768, cuda)
+        c = _int16(gen, (5, 13), -32768, 32768, cuda)
+        x[0, 0], c[0] = 32767, -32768
+    elif case == "ties":
+        x = _int16(gen, (3, 4097, 16), -3, 4, cuda)
+        c = _int16(gen, (9, 16), -1, 2, cuda)
+        c[4], c[8] = c[2], c[0]
+    else:
+        flat = _int16(gen, (5 * 999 * 16 + 1,), -32768, 32768, cuda)
+        x = flat[1:].view(5, 999, 16)
+        c = _int16(gen, (16, 16), -32768, 32768, cuda)
+        assert x.data_ptr() % 16
+    out = kmeans_assign_cuda(x, c)
+    torch.cuda.synchronize()
+    ref = kmeans_assign_plain(x, c)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    if case == "ties":
+        assert not torch.isin(out[0], torch.tensor([4, 8], device=cuda)).any()
+
+
+@pytest.mark.parametrize("case", ["root", "spread", "ragged"])
+def test_gini_counts_kernel_equals_plain(cuda, case):
+    """The DTR main shape (2048 cores x 37,500 rows x 16, L = 4096) with
+    every row at the root and with leaves spread over 2^10 values, and a
+    ragged shape with rows whose leaf or class is out of range."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n_cores, n_pc, f, n_leaves, n_cls = ((5, 1027, 13, 37, 3)
+                                         if case == "ragged"
+                                         else (2048, 37500, 16, 4096, 2))
+    x = torch.randn((n_cores, n_pc, f), generator=gen, device=cuda)
+    y = torch.randint(0, n_cls, (n_cores, n_pc), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    span = {"root": 1, "spread": 1024, "ragged": n_leaves}[case]
+    leaf = torch.randint(0, span, (n_cores, n_pc), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    if case == "ragged":
+        leaf[0, :9], y[1, :9] = n_leaves, n_cls
+    th = torch.randn((n_leaves, f), generator=gen, device=cuda)
+    th[0, 0] = x[0, 0, 0]                 # x == threshold counts as below
+    out = gini_split_cuda(x, y, leaf, th, n_cls)
+    torch.cuda.synchronize()
+    ref = gini_split_plain(x, y, leaf, th, n_cls)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+
+
+def test_kmeans_fit_on_the_card_equals_the_cpu_fit(cuda):
+    X, _, _ = make_blobs(100_000, 16, centers=16, seed=0)
+    fits = {}
+    dispatch.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        system = make_system("pim", n_cores=64, device=device)
+        ds = system.put(X)
+        est = {v: make_estimator("kmeans", version=v, max_iter=10, tol=0.0,
+                                 system=system).fit(ds)
+               for v in ("int16", "fp32")}
+        fits[device] = (est, system.stats)
+    (g, gs), (c, cs) = fits["cuda"], fits["cpu"]
+    np.testing.assert_array_equal(g["int16"].cluster_centers_,
+                                  c["int16"].cluster_centers_)
+    np.testing.assert_array_equal(g["int16"].labels_, c["int16"].labels_)
+    assert g["int16"].n_iter_ == c["int16"].n_iter_ == 10
+    np.testing.assert_allclose(g["fp32"].cluster_centers_,
+                               c["fp32"].cluster_centers_, rtol=1e-4,
+                               atol=1e-3)
+    assert gs == cs
+    assert dispatch.launch_counts == {"kmeans_assign": 10}
+
+
+def test_dtree_fit_on_the_card_equals_the_cpu_fit(cuda):
+    X, y = make_classification(200_000, 16, seed=0, class_sep=1.4)
+    fits = {}
+    dispatch.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        system = make_system("pim", n_cores=64, device=device)
+        est = make_estimator("dtree", max_depth=8, system=system).fit(X, y)
+        fits[device] = (est.tree_, system.stats)
+    (g, gs), (c, cs) = fits["cuda"], fits["cpu"]
+    for name in ("feature", "threshold", "left", "right", "leaf_class",
+                 "depth"):
+        np.testing.assert_array_equal(getattr(g, name), getattr(c, name))
+    assert g.n_nodes == c.n_nodes and gs == cs
+    rounds = int(g.depth[:g.n_nodes].max()) + 1
+    assert dispatch.launch_counts == {"gini_split": rounds}

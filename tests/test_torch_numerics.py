@@ -19,6 +19,9 @@ from repro.kernels import dispatch as jdispatch
 from repro_torch.core import fixed_point as tfx
 from repro_torch.core import lut as tlut
 from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.gini_split import gini_split_cuda, gini_split_plain
+from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
+                                               kmeans_assign_plain)
 from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                 lut_sigmoid_plain)
 from repro_torch.kernels.quant_matmul import fx_matvec_cuda, fx_matvec_plain
@@ -198,6 +201,112 @@ def test_lut_sigmoid_int32_min_follows_the_reference_oracle():
 
 
 # ---------------------------------------------------------------------------
+# kmeans_assign and gini_split: the plain versions against both JAX paths
+# ---------------------------------------------------------------------------
+
+def _kmeans_inputs(case, rng):
+    """int16 points [N, F] and centroids [K, F] for one named case."""
+    if case == "quantized":         # the KME view's +-2047 range
+        x = rng.randint(-2047, 2048, (1000, 16)).astype(np.int16)
+        c = rng.randint(-2047, 2048, (16, 16)).astype(np.int16)
+    elif case == "full_range":      # products and norms wrap int32
+        x = rng.randint(-32768, 32768, (1027, 13)).astype(np.int16)
+        c = rng.randint(-32768, 32768, (5, 13)).astype(np.int16)
+        x[0], c[0] = 32767, -32768
+    elif case == "ties":            # duplicated centroids: first one wins
+        x = rng.randint(-4, 5, (700, 4)).astype(np.int16)
+        c = rng.randint(-2, 3, (6, 4)).astype(np.int16)
+        c[3], c[5] = c[1], c[0]
+    else:                           # one row, one centroid
+        x = rng.randint(-2047, 2048, (1, 3)).astype(np.int16)
+        c = rng.randint(-2047, 2048, (1, 3)).astype(np.int16)
+    return x, c
+
+
+@pytest.mark.parametrize("case", ["quantized", "full_range", "ties",
+                                  "single"])
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+def test_kmeans_assign_plain_matches_jax(case, backend):
+    rng = np.random.RandomState(len(case))
+    x, c = _kmeans_inputs(case, rng)
+    ref = jdispatch.launch("kmeans_assign", jnp.asarray(x), jnp.asarray(c),
+                           backend=backend)
+    out = kmeans_assign_plain(torch.from_numpy(x)[None], torch.from_numpy(c))
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.int32
+        np.testing.assert_array_equal(_t(o)[0], _j(r))
+    if case == "ties":    # the duplicates never win
+        assert not np.isin(_t(out[0]), [3, 5]).any()
+
+
+def test_kmeans_assign_batched_cores_match_per_core():
+    """[C, n_pc, F] shards give each core's own labels, sums, counts."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(-2047, 2048, (7, 143, 16)).astype(np.int16)
+    c = rng.randint(-2047, 2048, (9, 16)).astype(np.int16)
+    out = dispatch.launch("kmeans_assign", torch.from_numpy(x),
+                          torch.from_numpy(c))
+    assert [tuple(o.shape) for o in out] == [(7, 143), (7, 9, 16), (7, 9)]
+    for core in range(7):
+        ref = jdispatch.launch("kmeans_assign", jnp.asarray(x[core]),
+                               jnp.asarray(c), backend="jnp_ref")
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(_t(o)[core], _j(r))
+
+
+def _gini_inputs(case, rng):
+    """x [N, F], y, leaf [N], thresholds [L, F] for one named case."""
+    n, f, n_leaves = {"root": (1000, 16, 64), "spread": (3000, 16, 1024),
+                      "ragged": (1027, 13, 37)}[case]
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    y = rng.randint(0, 2, n).astype(np.int32)
+    leaf = (np.zeros(n, np.int32) if case == "root"
+            else rng.randint(0, n_leaves, n).astype(np.int32))
+    th = rng.normal(size=(n_leaves, f)).astype(np.float32)
+    th[leaf[:5], 0] = x[:5, 0]          # x == threshold counts as below
+    return x, y, leaf, th
+
+
+@pytest.mark.parametrize("case", ["root", "spread", "ragged"])
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+def test_gini_split_plain_matches_jax(case, backend):
+    rng = np.random.RandomState(len(case))
+    x, y, leaf, th = _gini_inputs(case, rng)
+    ref = jdispatch.launch("gini_split", jnp.asarray(x), jnp.asarray(y),
+                           jnp.asarray(leaf), jnp.asarray(th), 2,
+                           backend=backend)
+    out = gini_split_plain(*(torch.from_numpy(a)[None] for a in (x, y, leaf)),
+                           torch.from_numpy(th), 2)
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.int32
+        np.testing.assert_array_equal(_t(o)[0], _j(r))
+
+
+def test_gini_split_batched_cores_and_out_of_range_rows():
+    """Each core counts its own rows; a leaf or class out of range counts
+    nowhere."""
+    rng = np.random.RandomState(3)
+    x = rng.normal(size=(5, 200, 16)).astype(np.float32)
+    y = rng.randint(0, 3, (5, 200)).astype(np.int32)
+    leaf = rng.randint(0, 40, (5, 200)).astype(np.int32)
+    th = rng.normal(size=(40, 16)).astype(np.float32)
+    below, total = dispatch.launch(
+        "gini_split", *(torch.from_numpy(a) for a in (x, y, leaf, th)), 3)
+    for core in range(5):
+        ref = jdispatch.launch("gini_split", jnp.asarray(x[core]),
+                               jnp.asarray(y[core]), jnp.asarray(leaf[core]),
+                               jnp.asarray(th), 3, backend="jnp_ref")
+        np.testing.assert_array_equal(_t(below)[core], _j(ref[0]))
+        np.testing.assert_array_equal(_t(total)[core], _j(ref[1]))
+    bad_leaf, bad_y = leaf.copy(), y.copy()
+    bad_leaf[0, :10], bad_y[1, :10] = 40, 3
+    below2, total2 = gini_split_plain(
+        *(torch.from_numpy(a) for a in (x, bad_y, bad_leaf, th)), 3)
+    assert int(total2.sum()) == 5 * 200 - 20
+    assert int(total2[2:].sum()) == int(total[2:].sum())
+
+
+# ---------------------------------------------------------------------------
 # dispatch: the device picks the implementation; counts are the kernel's
 # ---------------------------------------------------------------------------
 
@@ -220,18 +329,26 @@ def test_dispatch_rejects_unknown_ops_and_placements():
     with pytest.raises(ValueError):
         dispatch.launch("lut_sigmoid", torch.zeros(4, dtype=torch.int32),
                         tlut.build_sigmoid_lut(), placement="vmem")
-    assert set(dispatch._OPS) == {"fx_matvec", "lut_sigmoid"}
+    assert set(dispatch._OPS) == {"fx_matvec", "lut_sigmoid",
+                                  "kmeans_assign", "gini_split"}
 
 
-@pytest.mark.parametrize("op", ["fx_matvec", "lut_sigmoid"])
+@pytest.mark.parametrize("op", ["fx_matvec", "lut_sigmoid", "kmeans_assign",
+                                "gini_split"])
 def test_cuda_wrappers_refuse_cpu_tensors(op):
     """A CUDA wrapper launches or raises; it never computes on the CPU."""
     x = torch.zeros((4, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
         if op == "fx_matvec":
             fx_matvec_cuda(x, torch.zeros(16, dtype=torch.int32), 10)
-        else:
+        elif op == "lut_sigmoid":
             lut_sigmoid_cuda(x, tlut.build_sigmoid_lut())
+        elif op == "kmeans_assign":
+            kmeans_assign_cuda(torch.zeros((2, 4, 16), dtype=torch.int16),
+                               torch.zeros((3, 16), dtype=torch.int16))
+        else:
+            gini_split_cuda(torch.zeros((2, 4, 16)), x[:2], x[:2],
+                            torch.zeros((8, 16)), 2)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

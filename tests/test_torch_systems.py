@@ -204,6 +204,8 @@ def _cli(*args):
     ("--workload", "linreg", "--cores", "7", "--reduce", "hierarchical"),
     ("--workload", "logreg", "--system", "host",
      "--versions", "fp32,int32_lut_wram", "--sweep", "lr=2.0,5.0"),
+    ("--workload", "kmeans", "--cores", "7", "--param", "n_init=2"),
+    ("--workload", "kmeans", "--system", "host", "--versions", "fp32"),
 ])
 def test_cli_runs_end_to_end_on_cpu(args):
     out = _cli("--device", "cpu", "--samples", "1000", "--features", "13",
@@ -213,9 +215,17 @@ def test_cli_runs_end_to_end_on_cpu(args):
     assert ("transfers:" in out.stdout) or ("traffic:" in out.stdout)
 
 
+def test_cli_grows_a_tree_on_cpu():
+    out = _cli("--device", "cpu", "--samples", "1000", "--workload",
+               "dtree", "--cores", "7", "--param", "max_depth=4")
+    assert out.returncode == 0, out.stderr
+    assert "fp32" in out.stdout and "transfers:" in out.stdout
+
+
 @pytest.mark.parametrize("args,needle", [
     (("--fuse-steps", "4"), "step fusion"),
-    (("--workload", "kmeans"), "invalid choice"),
+    (("--workload", "emb"), "invalid choice"),
+    (("--workload", "dtree", "--iters", "3"), "does not apply"),
 ])
 def test_cli_refuses_what_is_not_ported(args, needle):
     out = _cli("--device", "cpu", "--samples", "100", *args)
