@@ -32,10 +32,19 @@ Phases, in order; any failure exits non-zero:
                 centroids, labels and iteration counts, fp32 centroids
                 within KME_FP32_RTOL/KME_FP32_ATOL, identical trees, equal
                 TransferStats
+              - EMB at the Netflix Prize matrix's size (480,189 users x
+                17,770 items, 100,480,507 ratings, cut when the host cannot
+                generate them), dim 16, batch 64, 200 steps: int32 eager,
+                int32 deferred D=8, int32 D=8 with compressed flushes and
+                fp32 eager, each timed per step; then 20,000 ratings on 1
+                and 16 cores under every reduce strategy on the card and
+                on the CPU: identical int32 tables, history and
+                TransferStats, fp32 tables within EMB_FP32_RTOL/ATOL
   5. timing   each kernel and its plain version with CUDA events (median
-              of TIMING_RUNS, L2 flushed between runs) beside its bound;
-              each fit's milliseconds per iteration (per round for DTR)
-              and samples/s
+              of TIMING_RUNS, L2 flushed between runs) beside its bound
+              and, for the EMB kernels, the nearest PyTorch call; each
+              fit's milliseconds per iteration (per round for DTR, per
+              step for EMB) and samples/s
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -74,6 +83,30 @@ DTR_SIZES = (153_600_000, 76_800_000, 38_400_000)
 DTR_HOST_BYTES_PER_SAMPLE = 450
 DTR_QUALITY = 600_000
 DTR_DEPTH = 10
+#: the Netflix Prize matrix (Bennett & Lanning, KDD Cup 2007): users and
+#: items; then its 100,480,507 ratings and the cuts taken when the host
+#: cannot generate them: make_recsys peaks at ~250 B of host memory per
+#: rating at dim 16 (the gathered user and item rows and their product)
+EMB_USERS, EMB_ITEMS = 480_189, 17_770
+EMB_SIZES = (100_480_507, 50_240_254, 25_120_127)
+EMB_HOST_BYTES_PER_SAMPLE = 250
+EMB_DIM, EMB_BATCH, EMB_ITERS, EMB_FLUSH = 16, 64, 200, 8
+#: the learning rate and Q format of the repo's EMB benchmark
+#: (benchmarks/emb_bench.py); at the defaults (0.05, Q10) the int32
+#: update lr/batch rounds to 1/1024 and most delta rows round to zero
+EMB_LR, EMB_FRAC_BITS = 1.0, 12
+#: the main path's EMB fits (name, hyperparameters)
+EMB_FITS = (("int32 eager", {"version": "int32"}),
+            ("int32 deferred D=8", {"version": "int32",
+                                    "flush_every": EMB_FLUSH}),
+            ("int32 D=8 compressed", {"version": "int32",
+                                      "flush_every": EMB_FLUSH,
+                                      "compress_flush": True}),
+            ("fp32 eager", {"version": "fp32"}))
+EMB_CHECK, EMB_CHECK_ITERS = 20_000, 40   # the card-vs-CPU EMB fits
+#: EMB fp32 CPU-vs-card tolerance on the tables: the prediction sums
+#: u * i over the 16 columns in another order on the card
+EMB_FP32_RTOL, EMB_FP32_ATOL = 1e-4, 1e-6
 #: published peaks of the H100 SXM (NVIDIA data sheet): HBM3 bytes/s;
 #: int32 operations on the CUDA cores (64 INT32 lanes per SM, half the
 #: FP32 lanes; a multiply-add counts 2); float32 outside the tensor cores
@@ -120,24 +153,27 @@ def bound(nbytes: float, ops: float,
                                    else "operations")
 
 
-def dtr_samples() -> tuple[int, int]:
-    """The largest DTR size whose generation fits half of MemAvailable,
-    and MemAvailable in bytes."""
+def host_samples(sizes, bytes_per_sample: int) -> tuple[int, int]:
+    """The largest of ``sizes`` whose generation fits half of
+    MemAvailable, and MemAvailable in bytes."""
     with open("/proc/meminfo") as f:
         avail = next(int(line.split()[1]) * 1024 for line in f
                      if line.startswith("MemAvailable:"))
-    for n in DTR_SIZES:
-        if n * DTR_HOST_BYTES_PER_SAMPLE <= avail / 2:
+    for n in sizes:
+        if n * bytes_per_sample <= avail / 2:
             return n, avail
-    fail(f"MemAvailable {avail} B holds no DTR size of {DTR_SIZES}")
+    fail(f"MemAvailable {avail} B holds no size of {sizes}")
 
 
-def same(torch, outs, refs) -> int:
-    """Max abs difference of integer kernel outputs from their plain
-    version's; fails unless they are equal."""
+def same(torch, outs, refs) -> float:
+    """Max abs difference of kernel outputs from their plain version's;
+    fails unless they are equal (shape, dtype and values)."""
     torch.cuda.synchronize()
-    err = max(int((o.long() - r.long()).abs().max()) if o.numel() else 0
-              for o, r in zip(outs, refs))
+    if any(o.shape != r.shape or o.dtype != r.dtype
+           for o, r in zip(outs, refs)):
+        fail("kernel output and plain version differ in shape or dtype")
+    err = max(float((o.double() - r.double()).abs().max()) if o.numel()
+              else 0.0 for o, r in zip(outs, refs))
     if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
         fail(f"kernel != plain (max abs err {err})")
     return err
@@ -220,6 +256,261 @@ def check_gini_counts(torch, dev, gen, n_dtr: int) -> tuple[int, dict]:
     return err, main
 
 
+def zipf_ids(rng, n: int, vocab: int) -> np.ndarray:
+    """``n`` ids from make_recsys's truncated Pareto popularity stream."""
+    return np.minimum(rng.pareto(1.2, n).astype(np.int64),
+                      vocab - 1).astype(np.int32)
+
+
+def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
+    """emb_gather and emb_scatter_add against their plain versions at the
+    EMB main shapes: the Netflix-size tables placed over 2048 cores
+    ([2048, 235, 16] users, [2048, 9, 16] items; both tails pad) with 64
+    Zipf lookups; a padded deferred flush (8 batches deduplicated, padded
+    with IDX_PAD to a multiple of 64); 64 copies of one hot id; and a
+    ragged shape with misses.  int32 tables and updates are full-range,
+    so the sums wrap.  Returns the max abs errors and the main inputs."""
+    from repro_torch.kernels.sparse_gather import (
+        IDX_PAD, emb_gather_cuda, emb_gather_plain, emb_scatter_add_cuda,
+        emb_scatter_add_plain)
+    rng = np.random.RandomState(SEED)
+    system = make_system("pim", n_cores=N_CORES, device="cuda")
+
+    def table(vocab, dtype):
+        t = system.put_table(np.zeros((vocab, 1), np.float32))
+        shape = (N_CORES, t.rows_per_shard, EMB_DIM)
+        if dtype == "int32":
+            v = rng.randint(INT32_MIN, INT32_MAX, shape, np.int64)
+            v = v.astype(np.int32)
+        else:
+            v = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+            v *= rng.choice([-1, 1], shape)           # finite, never 0
+        return torch.from_numpy(v).to(dev), t.ids_device(), t
+
+    def rows(n, dtype):
+        if dtype == "int32":
+            v = rng.randint(INT32_MIN, INT32_MAX, (n, EMB_DIM), np.int64)
+            return torch.from_numpy(v.astype(np.int32)).to(dev)
+        return torch.from_numpy(rng.randn(n, EMB_DIM)
+                                .astype(np.float32)).to(dev)
+
+    def ids_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    flush = np.unique(zipf_ids(rng, EMB_FLUSH * EMB_BATCH, EMB_USERS))
+    pad = -len(flush) % EMB_BATCH
+    flush = np.concatenate([flush, np.full(pad, IDX_PAD, np.int32)])
+    eager = zipf_ids(rng, EMB_BATCH, EMB_USERS)
+    err_g = err_s = 0
+    main = {}
+    for dtype in ("int32", "fp32"):
+        ut, uids, utable = table(EMB_USERS, dtype)
+        it, iids, _ = table(EMB_ITEMS, dtype)
+        rt = torch.from_numpy(rng.randint(-99, 99, (7, 13, 3))
+                              .astype(np.int32)).to(dev)
+        rt = rt if dtype == "int32" else rt.float() + 0.5
+        rids = ids_dev(np.arange(7 * 13).reshape(13, 7).T)
+        ragged = ids_dev([5, 90, IDX_PAD, 91, 5, 12, 300, 6, 5])
+        gathers = {
+            f"users {tuple(ut.shape)}, 64 Zipf lookups": (ut, uids,
+                                                          ids_dev(eager)),
+            f"items {tuple(it.shape)}, 64 Zipf lookups": (
+                it, iids, ids_dev(zipf_ids(rng, EMB_BATCH, EMB_ITEMS))),
+            "ragged (7, 13, 3), misses and IDX_PAD": (rt, rids, ragged)}
+        scatters = {
+            "users, one eager batch of 64 Zipf ids": (
+                ut, uids, ids_dev(eager), rows(EMB_BATCH, dtype)),
+            f"users, a padded D={EMB_FLUSH} flush of {len(flush)} rows": (
+                ut, uids, ids_dev(flush), rows(len(flush), dtype)),
+            "users, 64 copies of one hot id": (
+                ut, uids, ids_dev(np.zeros(EMB_BATCH)),
+                rows(EMB_BATCH, dtype)),
+            "items, one eager batch of 64 Zipf ids": (
+                it, iids, ids_dev(zipf_ids(rng, EMB_BATCH, EMB_ITEMS)),
+                rows(EMB_BATCH, dtype)),
+            "ragged (7, 13, 3), duplicates, misses and IDX_PAD": (
+                rt, rids, ragged, rows(9, dtype)[:, :3].contiguous()
+                .to(rt.dtype))}
+        for name, args in gathers.items():
+            err_g = max(err_g, same(torch, [emb_gather_cuda(*args)],
+                                    [emb_gather_plain(*args)]))
+            say(f"kernels: emb_gather == plain, {dtype} {name}")
+        for name, args in scatters.items():
+            before = args[0].clone()
+            out = emb_scatter_add_cuda(*args)
+            err_s = max(err_s, same(torch, [out],
+                                    [emb_scatter_add_plain(*args)]))
+            if not torch.equal(args[0], before):
+                fail("emb_scatter_add wrote its input table")
+            say(f"kernels: emb_scatter_add == plain, {dtype} {name}")
+        main[dtype] = {"table": ut, "ids": uids, "placement": utable,
+                       "idx": ids_dev(eager), "flush": ids_dev(flush),
+                       "upd": rows(EMB_BATCH, dtype),
+                       "flush_upd": rows(len(flush), dtype)}
+    return err_g, err_s, main
+
+
+def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
+                     ) -> tuple[dict, list]:
+    """EMB's main path at the Netflix matrix's size: every fit of
+    EMB_FITS through the workload's ``fit_steps`` with the launch counts
+    zeroed just before it and checked just after.  Returns the summed
+    launch counts and a profiler summary of 50 eager int32 steps."""
+    from repro_torch.data.synthetic import make_recsys
+    n_emb, avail = host_samples(EMB_SIZES, EMB_HOST_BYTES_PER_SAMPLE)
+    say(f"host MemAvailable {avail / 2 ** 30:.1f} GiB: EMB runs at {n_emb:,}"
+        f" ratings (the Netflix matrix's {EMB_SIZES[0]:,} need "
+        f"~{EMB_SIZES[0] * EMB_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB to "
+        f"generate; taken when under half of MemAvailable)")
+    t0 = time.perf_counter()
+    X, y = make_recsys(n_emb, n_users=EMB_USERS, n_items=EMB_ITEMS,
+                       dim=EMB_DIM, seed=SEED)
+    say(f"data: {n_emb:,} EMB ratings ({EMB_USERS:,} users x "
+        f"{EMB_ITEMS:,} items) in {time.perf_counter() - t0:.1f} s")
+    system = make_system("pim", n_cores=N_CORES, device="cuda")
+    ds = system.put(X, y)
+    wl = get_workload("emb")
+    base = dict(n_iters=EMB_ITERS, batch=EMB_BATCH, dim=EMB_DIM, lr=EMB_LR,
+                frac_bits=EMB_FRAC_BITS, n_users=EMB_USERS, n_items=EMB_ITEMS,
+                record_every=EMB_ITERS // 4, seed=SEED)
+    totals: dict = {}
+    for name, params in EMB_FITS:
+        spec = wl.spec(**base, **params)
+        dispatch.reset_launch_counts()
+        steps, res = step_times(wl.fit_steps(ds, spec))
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launch_counts)
+        m = res.model
+        expected = {"emb_gather": 2 * EMB_ITERS,
+                    "emb_scatter_add": 2 * m.n_flushes}
+        windows = EMB_ITERS // params.get("flush_every", 1)
+        if counts != expected or m.n_flushes != windows:
+            fail(f"EMB {name}: launch counts {counts}, {m.n_flushes} "
+                 f"flushes (expected {expected}, {windows} flushes)")
+        if not (m.user_emb.shape == (EMB_USERS, EMB_DIM)
+                and m.item_emb.shape == (EMB_ITEMS, EMB_DIM)
+                and np.isfinite(m.user_emb).all()
+                and np.isfinite(m.item_emb).all()
+                and all(np.isfinite(h) for _, h in m.history)):
+            fail(f"EMB {name}: misshapen or non-finite tables or loss")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        dt = statistics.median(steps[1:EMB_ITERS])
+        mean = statistics.mean(steps[1:EMB_ITERS])
+        say(f"fit: emb     {name:<21} {dt * 1e3:.3f} ms/step (median of "
+            f"steps 2-{EMB_ITERS}; mean {mean * 1e3:.3f}), "
+            f"{EMB_BATCH / dt:.4g} samples/s; setup and first step "
+            f"{steps[0] * 1e3:.1f} ms; launch counts {counts}, "
+            f"{m.n_flushes} flushes; batch MSE "
+            + " ".join(f"{h:.4g}" for _, h in m.history)
+            + f" ({N_CORES} cores, on {smi})")
+    gen = wl.fit_steps(ds, wl.spec(**base, version="int32"))
+    next(gen)                                # set-up and the first step
+    profile = device_profile(torch, lambda: [next(gen) for _ in range(50)])
+    gen.close()
+    del X, y, ds
+    return totals, profile
+
+
+def emb_card_equals_cpu(make_system, make_estimator) -> None:
+    """The EMB fits at EMB_CHECK ratings on 1 and 16 cores under every
+    reduce strategy, on the card and on the CPU."""
+    from repro_torch.data.synthetic import make_recsys
+    X, y = make_recsys(EMB_CHECK, n_users=max(64, EMB_CHECK // 16),
+                       n_items=max(48, EMB_CHECK // 24), dim=EMB_DIM,
+                       seed=SEED)
+    t0 = time.perf_counter()
+    n_int = n_fp = 0
+    for cores in (1, 16):
+        for reduce in ("fabric", "host", "hierarchical"):
+            fits, stats = {}, {}
+            for device in ("cuda", "cpu"):
+                system = make_system("pim", n_cores=cores, reduce=reduce,
+                                     device=device)
+                ds = system.put(X, y)
+                fits[device] = [make_estimator(
+                    "emb", n_iters=EMB_CHECK_ITERS, batch=EMB_BATCH,
+                    dim=EMB_DIM, lr=EMB_LR, frac_bits=EMB_FRAC_BITS,
+                    record_every=10, seed=SEED, system=system,
+                    **params).fit(ds).result_.model
+                    for _, params in EMB_FITS]
+                stats[device] = system.stats.snapshot()
+            for (name, params), g, c in zip(EMB_FITS, fits["cuda"],
+                                            fits["cpu"]):
+                what = f"EMB {name}, {cores} cores, {reduce} reduce"
+                if g.n_flushes != c.n_flushes:
+                    fail(f"{what}: flush counts differ")
+                if params["version"] == "int32":
+                    n_int += 1
+                    if not (np.array_equal(g.user_raw, c.user_raw)
+                            and np.array_equal(g.item_raw, c.item_raw)
+                            and g.history == c.history):
+                        fail(f"{what}: card and CPU fits differ")
+                    continue
+                n_fp += 1
+                if not all(np.allclose(a, b, rtol=EMB_FP32_RTOL,
+                                       atol=EMB_FP32_ATOL)
+                           for a, b in ((g.user_raw, c.user_raw),
+                                        (g.item_raw, c.item_raw))):
+                    fail(f"{what}: fp32 tables differ beyond tolerance")
+            if stats["cuda"] != stats["cpu"]:
+                fail(f"EMB TransferStats differ on {cores} cores, {reduce} "
+                     f"reduce: {stats['cuda']} != {stats['cpu']}")
+    say(f"  EMB at {EMB_CHECK:,} ratings, {EMB_CHECK_ITERS} steps, 1 and 16 "
+        f"cores x fabric/host/hierarchical: {n_int} int32 fits card == cpu "
+        f"(tables, history, flushes), {n_fp} fp32 fits within rtol "
+        f"{EMB_FP32_RTOL} atol {EMB_FP32_ATOL}, TransferStats equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def emb_kernel_times(torch, emb: dict, flush) -> dict:
+    """CUDA-event times of both EMB kernels at the main shapes (the user
+    table, one eager batch; the scatter also on the padded flush), their
+    plain versions, their bounds, and the nearest PyTorch call on the flat
+    (C*R, D) table with the lookups' slots computed on the host."""
+    from repro_torch.kernels.sparse_gather import (
+        emb_gather_cuda, emb_gather_plain, emb_scatter_add_cuda,
+        emb_scatter_add_plain)
+    e, f = emb["int32"], emb["fp32"]
+    n_cores, n_rows, dim = e["table"].shape
+    ids = e["placement"].ids
+    slot_of = np.full(e["placement"].n_rows, -1, np.int64)
+    slot_of[ids[ids >= 0]] = np.flatnonzero(ids >= 0)
+    slot = torch.from_numpy(slot_of[e["idx"].cpu().numpy()]).to(
+        e["table"].device)
+    flat = e["table"].view(-1, dim)
+    b = e["idx"].numel()
+
+    def gather(d):
+        return emb_gather_cuda(d["table"], d["ids"], d["idx"])
+
+    def scatter(d, key="idx", upd="upd"):
+        return emb_scatter_add_cuda(d["table"], d["ids"], d[key], d[upd])
+    g = dict(ms=cuda_ms(torch, lambda: gather(e), flush),
+             fp32_ms=cuda_ms(torch, lambda: gather(f), flush),
+             plain_ms=cuda_ms(torch, lambda: emb_gather_plain(
+                 e["table"], e["ids"], e["idx"]), flush),
+             library_call="torch.index_select",
+             library_ms=cuda_ms(torch, lambda: torch.index_select(
+                 flat, 0, slot), flush))
+    g["bound_ms"], g["bound_by"] = bound(
+        n_cores * n_rows * 4 + b * 4 + n_cores * b * dim * 4,
+        n_cores * n_rows * b)
+    s = dict(ms=cuda_ms(torch, lambda: scatter(e), flush),
+             fp32_ms=cuda_ms(torch, lambda: scatter(f), flush),
+             flush_ms=cuda_ms(torch, lambda: scatter(e, "flush", "flush_upd"),
+                              flush),
+             plain_ms=cuda_ms(torch, lambda: emb_scatter_add_plain(
+                 e["table"], e["ids"], e["idx"], e["upd"]), flush),
+             library_call="torch.index_add",
+             library_ms=cuda_ms(torch, lambda: torch.index_add(
+                 flat, 0, slot, e["upd"]), flush))
+    s["bound_ms"], s["bound_by"] = bound(
+        2 * n_cores * n_rows * dim * 4 + n_cores * n_rows * 4 + b * 4
+        + b * dim * 4, n_cores * n_rows * b)
+    return {"emb_gather": g, "emb_scatter_add": s}
+
+
 def kme_fits(make_estimator, system, ds) -> dict:
     """The KME int16 and fp32 fits of the main path and of the card-CPU
     comparison: k=16, one restart, exactly ITERS iterations."""
@@ -257,15 +548,17 @@ def step_times(gen) -> tuple[list, object]:
 
 def device_profile(torch, fn, top: int = 6) -> str:
     """Run ``fn`` under torch.profiler: the device's busy share of the
-    wall time and the kernels with the most device time."""
+    wall time ``fn`` took inside the profiler (its start-up and the trace's
+    processing at exit excluded) and the kernels with the most device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), reverse=True)
@@ -317,7 +610,7 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
-    n_dtr, mem_avail = dtr_samples()
+    n_dtr, mem_avail = host_samples(DTR_SIZES, DTR_HOST_BYTES_PER_SAMPLE)
     say(f"host MemAvailable {mem_avail / 2 ** 30:.1f} GiB: DTR runs at "
         f"{n_dtr:,} samples (the paper's {DTR_SIZES[0]:,} needs "
         f"~{DTR_SIZES[0] * DTR_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB "
@@ -379,6 +672,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     err_km, km = check_kmeans_assign(torch, dev, gen)
     err_gi, gi = check_gini_counts(torch, dev, gen, n_dtr)
+    err_eg, err_es, emb = check_emb_kernels(torch, dev, make_system)
 
     # -- 4. the main path at full size ---------------------------------------
     t0 = time.perf_counter()
@@ -542,6 +836,11 @@ def main() -> int:
         fail("KME/DTR TransferStats differ between the card and the CPU")
     say(f"TransferStats equal on card and CPU: {gs}")
 
+    # EMB at the Netflix matrix's size, on the card; then card == CPU
+    emb_counts, emb_profile = emb_fits_on_card(
+        torch, make_system, get_workload, dispatch, smi)
+    emb_card_equals_cpu(make_system, make_estimator)
+
     # -- 5. timing -----------------------------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     n = x.numel() // N_FEATURES
@@ -600,6 +899,17 @@ def main() -> int:
         f"({gt['bound_by']}) at {tuple(gi['x'].shape)} L={n_leaves} "
         f"on {smi}")
     del km, gi, kx, kc, g_args, g_root
+    et = emb_kernel_times(torch, emb, flush)
+    for name in ("emb_gather", "emb_scatter_add"):
+        t = et[name]
+        say(f"timing: {name} {t['ms']:.4f} ms int32, {t['fp32_ms']:.4f} ms "
+            f"fp32" + (f", padded D={EMB_FLUSH} flush {t['flush_ms']:.4f} ms"
+                       if "flush_ms" in t else "")
+            + f"; plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']}); {t['library_call']} "
+            f"{t['library_ms']:.4f} ms (it needs a slot map the kernel "
+            f"does not receive) at {tuple(emb['int32']['table'].shape)}, "
+            f"B={EMB_BATCH}, on {smi}")
 
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
@@ -639,6 +949,8 @@ def main() -> int:
             ("DTR fit", lambda: dtr_wl.fit(
                 dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH)))):
         say(f"profile: {name}: " + device_profile(torch, fit))
+    say(f"profile: EMB int32 eager, 50 steps at the Netflix size: "
+        f"{emb_profile}")
 
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
@@ -669,6 +981,16 @@ def main() -> int:
          "ms": gt["ms"], "root_ms": gt["root_ms"],
          "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
          "bound_by": gt["bound_by"], "library_ms": None},
+        {"name": "emb_gather", "route": "cuda",
+         "source": "src/repro_torch/csrc/emb_gather.cu",
+         "replaces": "src/repro/kernels/sparse_gather/kernel.py:48",
+         "launches": emb_counts["emb_gather"], "max_abs_err": err_eg,
+         **et["emb_gather"]},
+        {"name": "emb_scatter_add", "route": "cuda",
+         "source": "src/repro_torch/csrc/emb_scatter_add.cu",
+         "replaces": "src/repro/kernels/sparse_gather/kernel.py:81",
+         "launches": emb_counts["emb_scatter_add"], "max_abs_err": err_es,
+         **et["emb_scatter_add"]},
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ Training data is partitioned ONCE and stays resident across iterations
                           processor-centric baseline)
   PimDataset              resident dataset handle (System.put); quantized
                           views are lazy and cached
-  Workload / registry     LIN, LOG, DTR and KME behind one
+  ShardedTable            row-sharded embedding table handle
+                          (System.put_table) with the deferred-update
+                          ledger
+  Workload / registry     LIN, LOG, DTR, KME and EMB behind one
                           TrainerSpec -> FitResult
   make_estimator          sklearn-style facade over a registered workload
   ReduceStrategy          pluggable cross-core reduction, per call
@@ -31,13 +34,14 @@ from .dataset import PimDataset
 from .estimator import PimEstimator, make_estimator
 from .registry import (FitResult, TrainerSpec, Workload, get_workload,
                        list_workloads, register_workload)
+from .table import ShardedTable
 from . import workloads  # noqa: F401 — registers the workloads
 
 __all__ = [
     "FabricReduce", "FitResult", "HierarchicalReduce", "HostConfig",
     "HostReduce", "HostSystem", "PimConfig", "PimDataset", "PimEstimator",
-    "PimSystem", "PimTopology", "ReduceStrategy", "System", "TrainerSpec",
-    "TransferStats", "Workload", "get_workload", "list_workloads",
-    "make_estimator", "make_system", "register_workload",
+    "PimSystem", "PimTopology", "ReduceStrategy", "ShardedTable", "System",
+    "TrainerSpec", "TransferStats", "Workload", "get_workload",
+    "list_workloads", "make_estimator", "make_system", "register_workload",
     "resolve_reduce_strategy",
 ]

@@ -5,7 +5,8 @@ host-side arrays, the row-validity mask, and the quantized, sharded
 device views of the workloads (gradient descent, tree, K-Means) — built
 lazily and cached under the same keys as ``repro.api.dataset.PimDataset``,
 so repeated fits, restarts and sweeps reuse one CPU->PIM transfer per
-view.  The host quantizes once (on the CPU) and ships the shards.
+view.  The host quantizes once (on the CPU) and ships the shards.  EMB's
+index pairs stay on the host (:meth:`PimDataset.emb_view`).
 """
 from __future__ import annotations
 
@@ -128,6 +129,30 @@ class PimDataset:
                     self.system.shard_rows(y.astype(np.int32)),
                     self.mask())
         return self._cached(("tree",), build)
+
+    def emb_view(self) -> tuple:
+        """(pairs, targets) for the EMB workload: host-side ``(n, 2)``
+        int32 (user, item) index pairs plus float32 ratings.
+
+        EMB keeps the dataset on the host: each step's minibatch of
+        index pairs is broadcast to the shards, while the sharded state
+        is the embedding TABLE (``System.put_table``)."""
+        y = self._require_y("emb_view")
+        if self.n_features != 2:
+            raise ValueError(
+                f"emb_view needs (n, 2) (user, item) index pairs, got "
+                f"{self.n_features} columns")
+
+        def build():
+            X = self.X
+            if not np.issubdtype(X.dtype, np.integer):
+                if not np.all(X == np.round(X)):
+                    raise ValueError("emb_view indices must be integral")
+            Xi = X.astype(np.int32)
+            if Xi.size and Xi.min() < 0:
+                raise ValueError("emb_view indices must be non-negative")
+            return Xi, y.astype(np.float32)
+        return self._cached(("emb",), build)
 
     def kmeans_view(self, version: str = "int16") -> KMeansView:
         """K-Means data view, cached per precision.

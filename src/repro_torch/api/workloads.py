@@ -4,7 +4,8 @@ Each adapter maps the unified ``TrainerSpec`` onto the native trainer
 config (``GdConfig``/``LogRegConfig``/``TreeConfig``/``KMeansConfig``),
 fits on a resident :class:`~repro_torch.api.dataset.PimDataset`, and
 serves host-side prediction as the paper's sklearn deployment does
-(§4).  EMB is not ported yet.
+(§4).  EMB lives in its own subsystem (:mod:`repro_torch.emb`); the
+import at the end of this module registers it.
 """
 from __future__ import annotations
 
@@ -184,3 +185,6 @@ register_workload(LinRegWorkload())
 register_workload(LogRegWorkload())
 register_workload(DecisionTreeWorkload())
 register_workload(KMeansWorkload())
+
+# EMB lives in its own subsystem: importing its adapter registers it
+from ..emb.workload import EmbWorkload  # noqa: E402,F401

@@ -1,4 +1,5 @@
-"""Synthetic dataset generators (paper §4, Table 3) for LIN/LOG/DTR/KME.
+"""Synthetic dataset generators (paper §4, Table 3) for LIN/LOG/DTR/KME,
+and the recommender triples of EMB.
 
 A numpy-only copy of the generators of ``repro.data.synthetic``:
 the same seeds give the same arrays as the reference.
@@ -80,3 +81,27 @@ def make_blobs(n_samples: int = 100_000, n_features: int = 16,
     y = rng.randint(0, centers, size=n_samples)
     X = C[y] + rng.normal(0, cluster_std, size=(n_samples, n_features))
     return X.astype(np.float32), y.astype(np.int32), C.astype(np.float32)
+
+
+def make_recsys(n_samples: int = 16384, n_users: int = 512,
+                n_items: int = 256, dim: int = 8, zipf_a: float = 1.2,
+                noise: float = 0.02, seed: int = 0):
+    """EMB dataset: (user, item, rating) triples.
+
+    Ids draw from a truncated Zipf-like (Pareto) distribution, the
+    power-law popularity skew of real recommender traffic: hot rows are
+    touched many times per deferred-update window but ship once.
+    Ratings come from a ground-truth low-rank model, so a dot-product
+    embedding can drive the loss down.  Returns (pairs int32 [n, 2],
+    y float32 [n]).
+    """
+    rng = np.random.RandomState(seed)
+    U = (rng.randn(n_users, dim) * (0.5 / np.sqrt(dim))).astype(np.float32)
+    I = (rng.randn(n_items, dim) * (0.5 / np.sqrt(dim))).astype(np.float32)
+    u = np.minimum(rng.pareto(zipf_a, n_samples).astype(np.int64), n_users - 1)
+    i = np.minimum(rng.pareto(zipf_a, n_samples).astype(np.int64), n_items - 1)
+    y = np.sum(U[u] * I[i], axis=1)
+    if noise:
+        y = y + rng.normal(0.0, noise, size=n_samples)
+    pairs = np.stack([u, i], axis=1).astype(np.int32)
+    return pairs, y.astype(np.float32)

@@ -7,4 +7,6 @@
   lut_activation  ``lut_sigmoid`` (LUT sigmoid of LOG, WRAM/MRAM)
   kmeans_assign   ``kmeans_assign`` (assign + accumulate of KME int16)
   gini_split      ``gini_split`` (split-evaluate counts of DTR)
+  sparse_gather   ``emb_gather`` and ``emb_scatter_add`` (the sharded
+                  embedding row lookup and update of EMB)
 """

@@ -1,0 +1,196 @@
+"""Ops ``emb_gather`` and ``emb_scatter_add``: the sparse row access of EMB.
+
+Both run against a row-sharded embedding table: core ``c`` holds rows
+``table[c, r]`` whose global row ids are ``ids[c, r]`` (``ROW_PAD_ID``
+marks the slots past the vocabulary tail).  One launch covers every core.
+
+``dispatch.launch("emb_gather", table, ids, idx)``: table ``[C, R, D]``
+(int32 Q(f) or float32), ids int32 ``[C, R]``, lookups int32 ``[B]`` ->
+``[C, B, D]`` with ``out[c, b] = table[c, r]`` where ``ids[c, r] ==
+idx[b]``, zeros where core ``c`` does not own ``idx[b]`` (summing the
+cores' partials, the fabric reduce, rebuilds the looked-up rows).
+
+``dispatch.launch("emb_scatter_add", table, ids, idx, upd)``: table
+``[C, R, D]``, ids ``[C, R]``, idx int32 ``[B]``, update rows ``[B, D]``
+-> a new table ``[C, R, D]`` with ``out[c, r] = table[c, r] +
+sum_b [ids[c, r] == idx[b]] upd[b]``: duplicate ids accumulate, summed
+in batch order from zero and added to the row once, the order of the
+reference's one dot over the batch axis.  The input table is never
+written.
+
+Integer arithmetic wraps in int32 as the reference's does.  The two
+sentinels never match a real id (those are >= 0) nor each other.
+
+  :func:`emb_gather_cuda`, :func:`emb_scatter_add_cuda`
+      the hand-written kernels (``csrc/emb_gather.cu``,
+      ``csrc/emb_scatter_add.cu``, ports of
+      ``repro/kernels/sparse_gather/kernel.py`` ``emb_gather`` and
+      ``emb_scatter_add``)
+  :func:`emb_gather_plain`, :func:`emb_scatter_add_plain`
+      the plain PyTorch versions (follow
+      ``repro/kernels/sparse_gather/ref.py``)
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, dispatch
+
+#: global-id sentinel for padded table slots (vocabulary tail rounded up
+#: to the shard grid); never matches a real lookup id (those are >= 0)
+ROW_PAD_ID = -1
+#: lookup-id sentinel for padded batch slots; distinct from ROW_PAD_ID so
+#: a padded lookup cannot hit a padded row
+IDX_PAD = -2
+
+#: one launch covers every core on the grid's y (gather) axis
+MAX_CORES = 65535
+#: the plain versions materialize a [chunk, R, D] product per step; this
+#: many elements at most
+_PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def _check_table(name: str, table: torch.Tensor, ids: torch.Tensor) -> None:
+    if table.dim() != 3 or ids.shape != table.shape[:2]:
+        raise ValueError(f"{name}: table {tuple(table.shape)} and ids "
+                         f"{tuple(ids.shape)} do not form [C, R, D] and "
+                         f"[C, R]")
+
+
+def emb_gather_plain(table: torch.Tensor, ids: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Masked product-and-sum over the rows, as the reference's one-hot
+    dot: each lookup matches at most one row of a shard, so the sum is a
+    selection, exact in every dtype."""
+    _check_table("emb_gather", table, ids)
+    n_cores, n_rows, dim = table.shape
+    out = torch.zeros((n_cores, idx.shape[0], dim), dtype=table.dtype,
+                      device=table.device)
+    if out.numel() == 0 or n_rows == 0:
+        return out
+    step = max(1, _PLAIN_CHUNK_ELEMS // (idx.shape[0] * n_rows * dim))
+    for c0 in range(0, n_cores, step):
+        tab, key = table[c0:c0 + step], ids[c0:c0 + step]
+        hit = (key[:, None, :] == idx[None, :, None]).to(table.dtype)
+        out[c0:c0 + step] = torch.sum(hit[..., None] * tab[:, None],
+                                      dim=2, dtype=table.dtype)
+    return out
+
+
+def emb_scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
+                          idx: torch.Tensor,
+                          upd: torch.Tensor) -> torch.Tensor:
+    """The masked update rows summed in batch order into an accumulator
+    that starts at zero, then added to the table once."""
+    _check_table("emb_scatter_add", table, ids)
+    upd = upd.to(table.dtype)
+    acc = torch.zeros_like(table)
+    for b in range(idx.shape[0]):
+        hit = (ids == idx[b]).to(table.dtype)
+        acc = acc + hit[..., None] * upd[b]
+    return table + acc
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C entry points' arguments (the last one is the stream)
+_ARGTYPES = {
+    "emb_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "emb_scatter_add": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                        _P],
+}
+
+
+def _bind(name: str):
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``."""
+    fn = getattr(build.load(name), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(name: str, table: torch.Tensor, ids: torch.Tensor,
+                idx: torch.Tensor, *rest: torch.Tensor) -> None:
+    tensors = (table, ids, idx, *rest)
+    if not (table.is_cuda and all(t.device == table.device
+                                  for t in tensors)):
+        raise ValueError(f"{name}_cuda: operands must be on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if table.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"{name}_cuda: int32 or float32 table required, got "
+                        f"{table.dtype}")
+    if ids.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError(f"{name}_cuda: int32 ids and lookups required, got "
+                        f"{ids.dtype} and {idx.dtype}")
+    _check_table(name, table, ids)
+    if idx.dim() != 1:
+        raise ValueError(f"{name}_cuda: lookups must be [B], got "
+                         f"{tuple(idx.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}_cuda: operands must be contiguous")
+
+
+def _count_or_raise(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    dispatch.count_launch(name)
+
+
+def emb_gather_cuda(table: torch.Tensor, ids: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """Launch the gather kernel on the current stream; raises on anything
+    it does not take and on a launch error.  An empty batch or table
+    launches nothing."""
+    _check_cuda("emb_gather", table, ids, idx)
+    n_cores, n_rows, dim = table.shape
+    n_idx = idx.shape[0]
+    if n_cores > MAX_CORES:
+        raise ValueError(f"emb_gather_cuda: C={n_cores} > {MAX_CORES}")
+    out = torch.empty((n_cores, n_idx, dim), dtype=table.dtype,
+                      device=table.device)
+    if out.numel() == 0:
+        return out
+    if n_rows == 0:
+        return out.zero_()
+    launch = _bind("emb_gather")
+    with torch.cuda.device(table.device):
+        err = launch(
+            table.data_ptr(), ids.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            n_cores, n_rows, dim, n_idx, int(table.dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+    _count_or_raise("emb_gather", err)
+    return out
+
+
+def emb_scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
+                         idx: torch.Tensor,
+                         upd: torch.Tensor) -> torch.Tensor:
+    """Launch the scatter-add kernel on the current stream into a new
+    table; raises on anything it does not take and on a launch error.  An
+    empty batch returns a copy of the table and launches nothing."""
+    upd = upd.to(table.dtype)
+    _check_cuda("emb_scatter_add", table, ids, idx, upd)
+    n_cores, n_rows, dim = table.shape
+    n_idx = idx.shape[0]
+    if upd.shape != (n_idx, dim):
+        raise ValueError(f"emb_scatter_add_cuda: upd {tuple(upd.shape)} is "
+                         f"not [B, D] = {(n_idx, dim)}")
+    if n_idx == 0 or table.numel() == 0:
+        return table.clone()
+    out = torch.empty_like(table)
+    launch = _bind("emb_scatter_add")
+    with torch.cuda.device(table.device):
+        err = launch(
+            table.data_ptr(), ids.data_ptr(), idx.data_ptr(), upd.data_ptr(),
+            out.data_ptr(), n_cores * n_rows, dim, n_idx,
+            int(table.dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+    _count_or_raise("emb_scatter_add", err)
+    return out
+
+
+dispatch.register_op("emb_gather", cuda=emb_gather_cuda,
+                     plain=emb_gather_plain)
+dispatch.register_op("emb_scatter_add", cuda=emb_scatter_add_cuda,
+                     plain=emb_scatter_add_plain)

@@ -1,4 +1,4 @@
-"""Workload-session launcher: train LIN, LOG, DTR or KME on the port.
+"""Workload-session launcher: train LIN, LOG, DTR, KME or EMB on the port.
 
 One System session on one device, one resident PimDataset, N fits over
 it — version ladders and hyperparameter sweeps pay the data placement
@@ -18,6 +18,9 @@ on ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload dtree \\
       --device cpu --samples 20000 --param max_depth=8
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload emb \\
+      --device cpu --samples 20000 --iters 100 --param flush_every=8
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import time
 from repro_torch.api import (get_workload, list_workloads, make_estimator,
                              make_system)
 from repro_torch.data.synthetic import (make_blobs, make_classification,
-                                        make_linear_dataset)
+                                        make_linear_dataset, make_recsys)
 
 
 def _parse_value(text: str):
@@ -45,6 +48,11 @@ def _make_data(workload: str, n: int, f: int, seed: int):
         return X, None
     if workload == "dtree":
         return make_classification(n, f, seed=seed, class_sep=1.4)
+    if workload == "emb":
+        # --features rides as the embedding dim; the pair width is 2
+        return make_recsys(n, n_users=max(64, n // 16),
+                           n_items=max(48, n // 24), dim=max(2, f),
+                           seed=seed)
     X, y, _ = make_linear_dataset(n, f, seed=seed)
     return X, y
 

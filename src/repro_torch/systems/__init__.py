@@ -11,6 +11,7 @@ from __future__ import annotations
 from .base import (ChunkTick, FabricReduce, HierarchicalReduce, HostReduce,
                    ReduceStrategy, System, TransferStats, chunk_schedule,
                    host_array, resolve_reduce_strategy, run_steps)
+from .compress import CompressedReduce
 from .host import HostConfig, HostSystem
 from .pim import PimConfig, PimSystem
 from .topology import PimTopology, default_rank_size
@@ -35,8 +36,9 @@ def make_system(kind: str = "pim", **config_kwargs) -> System:
 
 
 __all__ = [
-    "ChunkTick", "FabricReduce", "HierarchicalReduce", "HostConfig",
-    "HostReduce", "HostSystem", "PimConfig", "PimSystem", "PimTopology",
+    "ChunkTick", "CompressedReduce", "FabricReduce", "HierarchicalReduce",
+    "HostConfig", "HostReduce", "HostSystem", "PimConfig", "PimSystem",
+    "PimTopology",
     "ReduceStrategy", "SYSTEM_KINDS", "System", "TransferStats",
     "chunk_schedule", "default_rank_size", "host_array", "make_system",
     "resolve_reduce_strategy", "run_steps",

@@ -116,8 +116,9 @@ def _leaves(tree) -> list:
 
 
 def _map(fn, tree):
+    """``fn`` over the leaves, visited in ``_leaves`` order."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: _map(fn, tree[k]) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
@@ -137,7 +138,7 @@ def _host_sum(tree):
     """Copy per-core partials to the host and reduce them with numpy's
     promoted accumulators (int64 / float64), as the reference does."""
     def _sum(v):
-        a = v.detach().cpu().numpy()
+        a = host_array(v)
         if np.issubdtype(a.dtype, np.integer):
             return np.sum(a.astype(np.int64), axis=0)
         return np.sum(a.astype(np.float64), axis=0)
@@ -359,6 +360,13 @@ class System:
         its quantized views."""
         from ..api.dataset import PimDataset  # local import: api -> systems
         return PimDataset(self, X, y)
+
+    def put_table(self, weights, *, placement: str = "mod", seed: int = 0):
+        """Row-shard an embedding table across this system's shards ONCE
+        and return a :class:`repro_torch.api.table.ShardedTable` handle
+        (the PimDataset sibling for sharded model state)."""
+        from ..api.table import ShardedTable  # local import: api -> systems
+        return ShardedTable(self, weights, placement=placement, seed=seed)
 
     def shard_rows(self, x: np.ndarray, pad_value=0) -> torch.Tensor:
         """Partition rows: (n, ...) -> (n_shards, n_per_shard, ...)."""

@@ -13,7 +13,7 @@ import torch
 from repro_torch.api import make_estimator, make_system
 from repro_torch.core.lut import build_sigmoid_lut
 from repro_torch.data.synthetic import (make_blobs, make_classification,
-                                        make_linear_dataset)
+                                        make_linear_dataset, make_recsys)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.gini_split import gini_split_cuda, gini_split_plain
 from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
@@ -21,6 +21,11 @@ from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
 from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                 lut_sigmoid_plain)
 from repro_torch.kernels.quant_matmul import fx_matvec_cuda, fx_matvec_plain
+from repro_torch.kernels.sparse_gather import (IDX_PAD, ROW_PAD_ID,
+                                               emb_gather_cuda,
+                                               emb_gather_plain,
+                                               emb_scatter_add_cuda,
+                                               emb_scatter_add_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +203,86 @@ def test_dtree_fit_on_the_card_equals_the_cpu_fit(cuda):
     assert g.n_nodes == c.n_nodes and gs == cs
     rounds = int(g.depth[:g.n_nodes].max()) + 1
     assert dispatch.launch_counts == {"gini_split": rounds}
+
+
+def _emb_case(case, dtype, dev):
+    """A table [C, R, D] with its id map (the tail slots ROW_PAD_ID), and
+    lookups: the EMB main shape with Zipf ids, a ragged shape with misses
+    and IDX_PAD, 64 copies of one id, a wide row (D > 32) with a batch
+    over one shared-memory tile, or one shard too long for the gather to
+    stage its ids (a host-target table).  int32 values are full-range,
+    so the scatter's sums wrap; float32 values are finite and never 0."""
+    n_cores, n_rows, dim, b = {"main": (2048, 235, 16, 64),
+                               "ragged": (7, 13, 3, 37),
+                               "all_same": (16, 40, 16, 64),
+                               "wide": (3, 50, 40, 1500),
+                               "one_shard": (1, 20000, 5, 33)}[case]
+    rng = np.random.RandomState(n_rows)
+    vocab = n_cores * n_rows - 5
+    ids = np.full(n_cores * n_rows, ROW_PAD_ID, np.int32)
+    ids[:vocab] = np.arange(vocab)
+    ids = np.ascontiguousarray(ids.reshape(n_rows, n_cores).T)
+    idx = np.minimum(rng.pareto(1.2, b).astype(np.int64),
+                     vocab - 1).astype(np.int32)
+    if case == "ragged":
+        idx[::4], idx[1::4] = IDX_PAD, vocab + 3
+    if case == "all_same":
+        idx[:] = 7
+    if dtype == torch.int32:
+        tab = _ints(rng, (n_cores, n_rows, dim))
+        upd = _ints(rng, (b, dim))
+    else:
+        tab = torch.from_numpy(rng.uniform(0.5, 2, (n_cores, n_rows, dim))
+                               .astype(np.float32))
+        upd = torch.from_numpy(rng.randn(b, dim).astype(np.float32))
+    return [t.to(dev) for t in (tab, torch.from_numpy(ids),
+                                torch.from_numpy(idx), upd)]
+
+
+@pytest.mark.parametrize("case", ["main", "ragged", "all_same", "wide",
+                                  "one_shard"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_kernels_equal_plain(cuda, dtype, case):
+    tab, ids, idx, upd = _emb_case(case, dtype, cuda)
+    before = tab.clone()
+    gathered = emb_gather_cuda(tab, ids, idx)
+    scattered = emb_scatter_add_cuda(tab, ids, idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(gathered, emb_gather_plain(tab, ids, idx))
+    assert torch.equal(scattered, emb_scatter_add_plain(tab, ids, idx, upd))
+    assert torch.equal(tab, before)           # a new table, out of place
+
+
+def test_emb_kernels_empty_batch(cuda):
+    tab, ids, _, _ = _emb_case("ragged", torch.int32, cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    dispatch.reset_launch_counts()
+    assert emb_gather_cuda(tab, ids, none).shape == (7, 0, 3)
+    out = emb_scatter_add_cuda(tab, ids, none,
+                               torch.zeros((0, 3), dtype=torch.int32,
+                                           device=cuda))
+    assert torch.equal(out, tab) and out.data_ptr() != tab.data_ptr()
+    assert dispatch.launch_counts == {}
+
+
+def test_emb_fit_on_the_card_equals_the_cpu_fit(cuda):
+    X, y = make_recsys(20_000, 1250, 833, dim=16, seed=0)
+    fits = {}
+    dispatch.reset_launch_counts()
+    for device in ("cuda", "cpu"):
+        system = make_system("pim", n_cores=64, device=device)
+        ds = system.put(X, y)
+        est = {d: make_estimator("emb", version="int32", n_iters=40,
+                                 dim=16, lr=1.0, frac_bits=12,
+                                 flush_every=d, record_every=10,
+                                 system=system).fit(ds).result_.model
+               for d in (1, 8)}
+        fits[device] = (est, system.stats)
+    (g, gs), (c, cs) = fits["cuda"], fits["cpu"]
+    for d in (1, 8):
+        np.testing.assert_array_equal(g[d].user_raw, c[d].user_raw)
+        np.testing.assert_array_equal(g[d].item_raw, c[d].item_raw)
+        assert g[d].history == c[d].history
+    assert gs == cs
+    assert dispatch.launch_counts == {"emb_gather": 160,
+                                      "emb_scatter_add": 80 + 10}

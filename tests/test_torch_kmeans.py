@@ -198,8 +198,8 @@ def test_estimator_surface(blobs):
     assert tapi.get_workload("kmeans").unsupervised
     assert tapi.get_workload("kmeans").resumable
     assert not tapi.get_workload("dtree").resumable
-    assert sorted(tapi.list_workloads()) == ["dtree", "kmeans", "linreg",
-                                             "logreg"]
+    assert sorted(tapi.list_workloads()) == ["dtree", "emb", "kmeans",
+                                             "linreg", "logreg"]
 
 
 def test_step_fusion_is_refused_until_ported(blobs):

@@ -25,6 +25,8 @@ from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
 from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                 lut_sigmoid_plain)
 from repro_torch.kernels.quant_matmul import fx_matvec_cuda, fx_matvec_plain
+from repro_torch.kernels.sparse_gather import (emb_gather_cuda,
+                                               emb_scatter_add_cuda)
 
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
@@ -330,11 +332,13 @@ def test_dispatch_rejects_unknown_ops_and_placements():
         dispatch.launch("lut_sigmoid", torch.zeros(4, dtype=torch.int32),
                         tlut.build_sigmoid_lut(), placement="vmem")
     assert set(dispatch._OPS) == {"fx_matvec", "lut_sigmoid",
-                                  "kmeans_assign", "gini_split"}
+                                  "kmeans_assign", "gini_split",
+                                  "emb_gather", "emb_scatter_add"}
 
 
 @pytest.mark.parametrize("op", ["fx_matvec", "lut_sigmoid", "kmeans_assign",
-                                "gini_split"])
+                                "gini_split", "emb_gather",
+                                "emb_scatter_add"])
 def test_cuda_wrappers_refuse_cpu_tensors(op):
     """A CUDA wrapper launches or raises; it never computes on the CPU."""
     x = torch.zeros((4, 16), dtype=torch.int32)
@@ -346,6 +350,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
         elif op == "kmeans_assign":
             kmeans_assign_cuda(torch.zeros((2, 4, 16), dtype=torch.int16),
                                torch.zeros((3, 16), dtype=torch.int16))
+        elif op == "emb_gather":
+            emb_gather_cuda(x[None], x[:1], x[0])
+        elif op == "emb_scatter_add":
+            emb_scatter_add_cuda(x[None], x[:1], x[0, :2], x[:2])
         else:
             gini_split_cuda(torch.zeros((2, 4, 16)), x[:2], x[:2],
                             torch.zeros((8, 16)), 2)

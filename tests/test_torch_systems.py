@@ -224,7 +224,7 @@ def test_cli_grows_a_tree_on_cpu():
 
 @pytest.mark.parametrize("args,needle", [
     (("--fuse-steps", "4"), "step fusion"),
-    (("--workload", "emb"), "invalid choice"),
+    (("--system", "gpu-model"), "invalid choice"),
     (("--workload", "dtree", "--iters", "3"), "does not apply"),
 ])
 def test_cli_refuses_what_is_not_ported(args, needle):

@@ -221,8 +221,8 @@ def test_estimator_surface(data):
         est.set_params(kernel_backend="cuda")
     with pytest.raises(ValueError):
         tapi.make_estimator("linreg", version="int64", system=ts)
-    assert sorted(tapi.list_workloads()) == ["dtree", "kmeans", "linreg",
-                                             "logreg"]
+    assert sorted(tapi.list_workloads()) == ["dtree", "emb", "kmeans",
+                                             "linreg", "logreg"]
 
 
 @pytest.mark.parametrize("workload", ["linreg", "logreg"])
