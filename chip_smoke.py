@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
               nvcc (one process per source, all at once)
   3. kernels  each kernel against its plain PyTorch version on the card,
               on the main paths' shapes and their edge cases: they must
-              be equal
+              be equal (flash_attention: within MHA_F32_ATOL /
+              MHA_BF16_ATOL, as float32 in another order)
   4. main     the paper's training at full width (16 features) over 2048
               simulated PIM cores, through the public API, one path at a
               time with the kernel launch counts zeroed just before it
@@ -40,11 +41,21 @@ Phases, in order; any failure exits non-zero:
                 and 16 cores under every reduce strategy on the card and
                 on the CPU: identical int32 tables, history and
                 TransferStats, fp32 tables within EMB_FP32_RTOL/ATOL
+              - qwen3-8b served at full width and depth (36 layers, bf16,
+                quantize_dense on, seeded random weights) through Model
+                and ServeEngine: 8 requests over 4 slots, prompt lengths
+                drawn from 128-1024, 32 new tokens each; launch counts
+                exactly 3 int_matmul per layer per forward call and 1
+                flash_attention per layer per prefill; the same load with
+                quantize_dense off; the busy share over decode steps;
+                prefill + decode against the forward's last position;
+                then the reduced model in float32 on the card and the CPU
   5. timing   each kernel and its plain version with CUDA events (median
               of TIMING_RUNS, L2 flushed between runs) beside its bound
-              and, for the EMB kernels, the nearest PyTorch call; each
-              fit's milliseconds per iteration (per round for DTR, per
-              step for EMB) and samples/s
+              and, for the EMB and LM kernels, the nearest PyTorch call;
+              each fit's milliseconds per iteration (per round for DTR,
+              per step for EMB) and samples/s; the serve runs' time to
+              first token, ms per decode token and tokens/s
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -52,6 +63,7 @@ imported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -113,7 +125,41 @@ EMB_FP32_RTOL, EMB_FP32_ATOL = 1e-4, 1e-6
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 33.5e12
 PEAK_FP32_OPS_PER_S = 67e12
+#: ... and the dense tensor-core rates: int8 operations, bf16 flops
+PEAK_INT8_OPS_PER_S = 1979e12
+PEAK_BF16_FLOPS = 989e12
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+#: the LM serve load: the repo's serving model (launch/serve.py's default)
+#: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
+#: by SEED from 128-1024, 32 new tokens each, greedy
+LM_ARCH = "qwen3-8b"
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 32, 2048
+LM_PROMPT_MIN, LM_PROMPT_MAX = 128, 1024
+LM_PROFILE_STEPS = 8
+#: qwen3-8b's MLP linears as (K, N): up and gate, then down
+LM_MLP_SHAPES = ((4096, 12288), (12288, 4096))
+#: flash_attention against its plain version: both compute in float32 in
+#: other orders (expf against ATen's exp), so float32 outputs agree to
+#: ~1e-6 of their O(1) size, and a bf16 output may round to the
+#: neighbouring bf16 value (one ulp is 2**-6 below 4)
+MHA_F32_ATOL, MHA_BF16_ATOL = 1e-5, 2e-2
+#: prefill + decode against the forward at full width, on one prompt.
+#: float32: the repo's float32 tolerance for that property
+#: (tests/test_arch_smoke.py).  bf16 keeps 8 significant bits (2**-8 per
+#: rounding); the decode step rounds the residual stream of its one token
+#: through 36 layers in other orders than the prompt's batched path
+#: (cuBLAS gemv against gemm) and casts the softmax weights to bf16
+#: before p @ v (the reference's attention.py:184) where the prefill's
+#: kernel keeps them float32: ~10 roundings a layer, a random walk of
+#: ~2**-8 * sqrt(360) ~ 7% of a logit's scale (~1 here), whose largest of
+#: 151,936 logits lies ~4 sigma out
+LM_F32_PROPERTY_TOL, LM_BF16_TOL = 1e-3, 0.25
+#: reduced qwen3-8b in float32, card against CPU: float32 in other orders
+#: (tests/test_torch_lm.py's LOGIT_ATOL); with quantize_dense on, one int8
+#: rounding step of one activation moves a logit by up to 0.145 there, so
+#: two such steps (QUANT_LOGIT_ATOL)
+LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
 
 LIN_VERSIONS = ("int32", "hyb", "fp32")
 LOG_VERSIONS = ("int32_lut_wram", "int32_lut_mram")
@@ -571,6 +617,326 @@ def device_profile(torch, fn, top: int = 6) -> str:
                         for t, k, n in kernels[:top]))
 
 
+# -- the LM serving path (qwen3-8b) -------------------------------------------
+
+def lm_requests(vocab: int) -> list:
+    """The serve load: LM_REQUESTS prompts whose lengths and tokens are
+    drawn by SEED, LM_NEW tokens each."""
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(LM_PROMPT_MIN, LM_PROMPT_MAX + 1, LM_REQUESTS)
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
+    """int_matmul (exact on full-range int8, -128 included) at the MLP
+    shapes of qwen3-8b for M = 1, 7, 513 and the longest prompt, plus
+    ragged shapes; flash_attention (within MHA_BF16_ATOL / MHA_F32_ATOL
+    of its plain version) on bf16 [1, 32, S, 128] over 16 KV heads for
+    every prompt length S, causal and not, one-token decode with
+    q_offset, a window, and float32.  Returns the max abs errors."""
+    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+
+    def int8(shape):
+        t = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        t.view(-1)[:3] = -128
+        return t
+    err_mm = 0
+    shapes = [(m, k, n) for m in (1, 7, 513, max(prompt_lens))
+              for k, n in LM_MLP_SHAPES] + [(33, 4099, 1000), (17, 61, 13)]
+    for m, k, n in shapes:
+        a, b = int8((m, k)), int8((k, n))
+        err_mm = max(err_mm, same(torch, [int_matmul_cuda(a, b)],
+                                  [int_matmul_plain(a, b)]))
+    say(f"kernels: int_matmul == plain at (M, K, N) {shapes}")
+
+    def qkv(b, hq, hkv, sq, skv, d, dtype):
+        # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv does
+        return [torch.randn((b, s, h, d), generator=gen, device=dev)
+                .to(dtype).transpose(1, 2)
+                for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"bf16 [1, 32, {s}, 128] over 16 KV heads, causal",
+              qkv(1, 32, 16, s, s, 128, bf16), {}) for s in prompt_lens]
+    s = int(prompt_lens[0])
+    cases += [
+        (f"bf16 [1, 32, {s}, 128], not causal",
+         qkv(1, 32, 16, s, s, 128, bf16), {"causal": False}),
+        (f"bf16 decode: 1 query at q_offset {s - 1} of {s} keys",
+         qkv(1, 32, 16, 1, s, 128, bf16), {"q_offset": s - 1}),
+        (f"bf16 [1, 32, {s}, 128], window 256",
+         qkv(1, 32, 16, s, s, 128, bf16), {"window": 256}),
+        ("f32 [2, 8, 300, 64] over 2 KV heads, causal",
+         qkv(2, 8, 2, 300, 300, 64, f32), {}),
+        ("f32 [1, 4, 5, 80], q_offset 255 of 260 keys, window 64",
+         qkv(1, 4, 4, 5, 260, 80, f32), {"q_offset": 255, "window": 64}),
+    ]
+    err_fa = 0.0
+    for name, (q, k, v), kw in cases:
+        out, ref = mha_cuda(q, k, v, **kw), mha_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            fail(f"flash_attention: {name}: dtype or shape differs")
+        e = float((out.float() - ref.float()).abs().max())
+        tol = MHA_BF16_ATOL if q.dtype == bf16 else MHA_F32_ATOL
+        if not e <= tol:
+            fail(f"flash_attention: {name}: max abs err {e} > {tol}")
+        err_fa = max(err_fa, e)
+        say(f"kernels: flash_attention ~ plain, {name} (max abs err {e:.3g}"
+            f" <= {tol})")
+    return err_mm, err_fa
+
+
+class TimedModel:
+    """A Model as the ServeEngine sees it, timing each synchronised
+    prefill and decode call (host clock) and when each prefill ended."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.cfg = torch, model, model.cfg
+        self.prefill_s, self.decode_s, self.prefill_end = [], [], []
+
+    def prefill(self, params, batch, max_seq):
+        t0 = time.perf_counter()
+        out = self.model.prefill(params, batch, max_seq)
+        self.torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.prefill_s.append(t1 - t0)
+        self.prefill_end.append(t1)
+        return out
+
+    def decode_step(self, params, tokens, cache, extras=None):
+        t0 = time.perf_counter()
+        out = self.model.decode_step(params, tokens, cache)
+        self.torch.cuda.synchronize()
+        self.decode_s.append(time.perf_counter() - t0)
+        return out
+
+
+def serve_timed(torch, Model, Request, ServeEngine, cfg, params,
+                prompts) -> dict:
+    """Serve ``prompts`` through ServeEngine on the card: the outputs and
+    time to first token, ms per decode call and tokens/s."""
+    timed = TimedModel(torch, Model(cfg, device="cuda"))
+    reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
+    engine = ServeEngine(timed, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.output) for r in reqs)
+    return {"outputs": [r.output for r in reqs], "wall_s": wall,
+            "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "ttft_ms": [(t - t0) * 1e3 for t in timed.prefill_end],
+            "prefill_ms": [t * 1e3 for t in timed.prefill_s],
+            "decode_ms": statistics.median(timed.decode_s) * 1e3,
+            "decode_calls": len(timed.decode_s)}
+
+
+def serve_line(name: str, r: dict, prompts, smi: str) -> str:
+    return (f"serve: {name}: {len(prompts)} requests over {LM_SLOTS} slots, "
+            f"prompts {[len(p) for p in prompts]}, {LM_NEW} new tokens each:"
+            f" {r['tokens']} tokens in {r['wall_s']:.2f} s, "
+            f"{r['tokens_per_s']:.2f} tokens/s; time to first token "
+            f"{', '.join(f'{t:.0f}' for t in r['ttft_ms'])} ms (prefill "
+            f"alone {', '.join(f'{t:.0f}' for t in r['prefill_ms'])} ms); "
+            f"{r['decode_ms']:.2f} ms per decode token (median of "
+            f"{r['decode_calls']} batch-1 decode calls) on {smi}")
+
+
+def lm_serve_on_card(torch, dispatch, smi: str) -> dict:
+    """qwen3-8b at full width and depth in bf16 with quantize_dense on,
+    random weights from SEED, served through Model and ServeEngine with
+    the launch counts zeroed just before and checked exactly after; then
+    the same load with quantize_dense off (no int_matmul launches); the
+    card's busy share over decode steps; and prefill + one decode step
+    against the forward's last position (quantize_dense off, the repo's
+    own property, tests/test_arch_smoke.py)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.models.transformer import attn_spec
+    from repro_torch.serve.engine import Request, ServeEngine
+    base = get_config(LM_ARCH)
+    cfg_q = dataclasses.replace(base, quantize_dense=True)
+    t0 = time.perf_counter()
+    model = Model(cfg_q, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = Model.param_count(params)
+    plan = attn_spec(cfg_q).plan
+    say(f"model: {LM_ARCH} at full width: {cfg_q.n_layers} layers, d_model "
+        f"{cfg_q.d_model}, {cfg_q.n_heads} query / {cfg_q.n_kv_heads} KV "
+        f"heads (padded to {plan.n_q} / {plan.n_kv}), d_ff {cfg_q.d_ff}, vocab "
+        f"{cfg_q.vocab_size}, {cfg_q.dtype}, {n_params:,} parameters drawn "
+        f"in {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB")
+    prompts = lm_requests(cfg_q.vocab_size)
+    calls = LM_REQUESTS + LM_REQUESTS * (LM_NEW - 1)
+    expected = {"int_matmul": 3 * cfg_q.n_layers * calls,
+                "mha": cfg_q.n_layers * LM_REQUESTS}
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    on = serve_timed(torch, Model, Request, ServeEngine, cfg_q, params,
+                     prompts)
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    say(f"launch counts on the main path (quantize_dense on): {counts} "
+        f"(expected {expected}: 3 per layer per forward call over "
+        f"{LM_REQUESTS} prefills + {calls - LM_REQUESTS} decode calls, 1 "
+        f"per layer per prefill)")
+    if counts != expected:
+        fail(f"qwen3-8b serve launch counts {counts} != {expected}")
+    if any(len(o) != LM_NEW or not all(0 <= t < cfg_q.vocab_size for t in o)
+           for o in on["outputs"]):
+        fail("qwen3-8b serve: an output has the wrong length or an id "
+             "outside the vocabulary")
+    say(serve_line("qwen3-8b quantize_dense on", on, prompts, smi)
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+
+    cfg_f = dataclasses.replace(base, quantize_dense=False)
+    dispatch.reset_launch_counts()
+    off = serve_timed(torch, Model, Request, ServeEngine, cfg_f, params,
+                      prompts)
+    torch.cuda.synchronize()
+    if dict(dispatch.launch_counts) != {"mha": expected["mha"]}:
+        fail(f"quantize_dense off: launch counts {dispatch.launch_counts}")
+    say(serve_line("qwen3-8b quantize_dense off (same weights)", off,
+                   prompts, smi))
+    agree = sum(a == b for x, y in zip(on["outputs"], off["outputs"])
+                for a, b in zip(x, y))
+    say(f"  greedy tokens equal with quantize_dense on and off: {agree} of "
+        f"{on['tokens']}")
+
+    # the card's busy share over decode steps, quantize_dense on and off
+    profiles = {}
+    for name, cfg in (("on", cfg_q), ("off", cfg_f)):
+        m = Model(cfg, device="cuda")
+        _, cache = m.prefill(params, {"tokens": prompts[0][None]},
+                             LM_MAX_SEQ)
+        tok = np.zeros((1, 1), np.int32)
+        profiles[name] = device_profile(torch, lambda: [
+            m.decode_step(params, tok, cache) for _ in range(LM_PROFILE_STEPS)])
+        say(f"profile: {LM_PROFILE_STEPS} decode steps, quantize_dense "
+            f"{name}: {profiles[name]}")
+
+    # prefill + one decode step == the forward's last position (the repo's
+    # property, tests/test_arch_smoke.py), in bf16 and then, the same
+    # weights cast exactly to float32, at the repo's float32 tolerance
+    toks = prompts[0][None]
+    for cfg, (atol, rtol) in ((cfg_f, (LM_BF16_TOL, 0.0)),
+                              (dataclasses.replace(cfg_f, dtype="float32"),
+                               (LM_F32_PROPERTY_TOL, LM_F32_PROPERTY_TOL))):
+        if cfg.dtype == "float32":
+            params.float()                    # in place: frees the bf16
+        m = Model(cfg, device="cuda")
+        _, cache = m.prefill(params, {"tokens": toks[:, :-1]}, LM_MAX_SEQ)
+        dec, _ = m.decode_step(params, toks[:, -1:], cache)
+        full = m.forward(params, {"tokens": toks})[:, -1]
+        dec, full = dec[:, 0].float(), full.float()
+        if not bool(torch.isfinite(full).all()):
+            fail(f"qwen3-8b forward ({cfg.dtype}): non-finite logits")
+        diff = (dec - full).abs()
+        ok = bool((diff <= atol + rtol * full.abs()).all())
+        say(f"  prefill({toks.shape[1] - 1}) + decode == forward's last "
+            f"position at full width, {cfg.dtype}: {ok} (max |dlogit| "
+            f"{float(diff.max()):.4g}, RMS logit "
+            f"{float(full.square().mean().sqrt()):.4g}, max |logit| "
+            f"{float(full.abs().max()):.4g}; atol {atol}, rtol {rtol}; argmax "
+            f"{int(dec.argmax())} vs {int(full.argmax())})")
+        if not ok:
+            fail(f"qwen3-8b {cfg.dtype}: prefill + decode disagrees with "
+                 f"the forward")
+    del params, cache, full, dec
+    torch.cuda.empty_cache()
+    return {"on": on, "off": off, "counts": counts, "profiles": profiles,
+            "prompts": prompts}
+
+
+def lm_card_equals_cpu(torch) -> None:
+    """qwen3-8b reduced, float32, the same weights on the card and the CPU:
+    with quantize_dense off the greedy tokens are identical and the
+    forward logits within LM_F32_ATOL; with it on the logits are within
+    LM_QUANT_ATOL (one int8 rounding step, tests/test_torch_lm.py) and the
+    token agreement is printed."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, 512, n).astype(np.int32) for n in (40, 9, 77,
+                                                                 23)]
+    toks = rng.randint(0, 512, (2, 48)).astype(np.int32)
+    for quantize in (False, True):
+        cfg = get_config(LM_ARCH).reduced(quantize_dense=quantize)
+        weights = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = Model(cfg, device=device)
+            params = copy.deepcopy(weights).to(device)
+            reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts]
+            ServeEngine(model, params, n_slots=2, max_seq=128).run(reqs)
+            logits = model.forward(params, {"tokens": toks}).cpu()
+            res[device] = ([r.output for r in reqs], logits)
+        (tg, lg), (tc, lc) = res["cuda"], res["cpu"]
+        err = float((lg - lc).abs().max())
+        agree = sum(a == b for x, y in zip(tg, tc) for a, b in zip(x, y))
+        tol = LM_QUANT_ATOL if quantize else LM_F32_ATOL
+        say(f"  {LM_ARCH} reduced f32, quantize_dense "
+            f"{'on' if quantize else 'off'}: card vs CPU forward max "
+            f"|dlogit| {err:.3g} (tolerance {tol}); greedy tokens equal "
+            f"{agree} of {sum(len(t) for t in tg)}")
+        if not err <= tol:
+            fail(f"reduced {LM_ARCH}: card and CPU logits disagree")
+        if not quantize and tg != tc:
+            fail(f"reduced {LM_ARCH}: card and CPU greedy tokens differ")
+
+
+def lm_kernel_times(torch, flush, prompt_len: int) -> dict:
+    """int_matmul at decode (M = 1) and at the longest prefill, both MLP
+    shapes, and flash_attention at the longest prefill: kernel, plain,
+    bound and the nearest PyTorch call (torch._int_mm where its shape rules
+    allow; F.scaled_dot_product_attention with enable_gqa)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for m in (1, prompt_len):
+        for k, n in LM_MLP_SHAPES:
+            a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+            b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+            t = dict(ms=cuda_ms(torch, lambda: int_matmul_cuda(a, b), flush),
+                     plain_ms=cuda_ms(torch, lambda: int_matmul_plain(a, b),
+                                      flush))
+            t["bound_ms"], t["bound_by"] = bound(
+                m * k + k * n + 4 * m * n, 2 * m * k * n, PEAK_INT8_OPS_PER_S)
+            # torch._int_mm: M > 16, K and N multiples of 8
+            t["library_ms"] = (cuda_ms(torch, lambda: torch._int_mm(a, b),
+                                       flush)
+                               if m > 16 and k % 8 == 0 and n % 8 == 0
+                               else None)
+            out["int_matmul", m, k, n] = t
+    s = prompt_len
+    q, k, v = [torch.randn((1, s, h, 128), generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for h in (32, 16, 16)]
+    pairs = s * (s + 1) // 2 * 32                 # unmasked (query, key)
+    t = dict(ms=cuda_ms(torch, lambda: mha_cuda(q, k, v), flush),
+             plain_ms=cuda_ms(torch, lambda: mha_plain(q, k, v), flush),
+             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True), flush))
+    t["bound_ms"], t["bound_by"] = bound(
+        2 * (q.numel() * 2 + k.numel() * 2), 4 * 128 * pairs,
+        PEAK_BF16_FLOPS)
+    out["flash_attention",] = t
+    return out
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -585,6 +951,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.api import get_workload, make_estimator, make_system
+    from repro_torch.configs.base import get_config
     from repro_torch.core.lut import build_sigmoid_lut
     from repro_torch.core.metrics import adjusted_rand_index
     from repro_torch.data.synthetic import (make_blobs, make_classification,
@@ -673,6 +1040,9 @@ def main() -> int:
     err_km, km = check_kmeans_assign(torch, dev, gen)
     err_gi, gi = check_gini_counts(torch, dev, gen, n_dtr)
     err_eg, err_es, emb = check_emb_kernels(torch, dev, make_system)
+    lm_prompt_lens = sorted(len(p) for p in lm_requests(
+        get_config(LM_ARCH).vocab_size))
+    err_mm, err_fa = check_lm_kernels(torch, dev, gen, lm_prompt_lens)
 
     # -- 4. the main path at full size ---------------------------------------
     t0 = time.perf_counter()
@@ -841,6 +1211,11 @@ def main() -> int:
         torch, make_system, get_workload, dispatch, smi)
     emb_card_equals_cpu(make_system, make_estimator)
 
+    # qwen3-8b served at full width through Model and ServeEngine; then
+    # the reduced model on the card against the CPU
+    lm = lm_serve_on_card(torch, dispatch, smi)
+    lm_card_equals_cpu(torch)
+
     # -- 5. timing -----------------------------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     n = x.numel() // N_FEATURES
@@ -910,6 +1285,17 @@ def main() -> int:
             f"{t['library_ms']:.4f} ms (it needs a slot map the kernel "
             f"does not receive) at {tuple(emb['int32']['table'].shape)}, "
             f"B={EMB_BATCH}, on {smi}")
+
+    lt = lm_kernel_times(torch, flush, lm_prompt_lens[-1])
+    for (name, *shape), t in lt.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        say(f"timing: {name} {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            + (f"torch._int_mm {lib} at (M, K, N) {tuple(shape)}"
+               if shape else f"F.scaled_dot_product_attention {lib} at "
+               f"bf16 [1, 32, {lm_prompt_lens[-1]}, 128] over 16 KV heads, "
+               f"causal") + f" on {smi}")
 
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
@@ -991,7 +1377,26 @@ def main() -> int:
          "replaces": "src/repro/kernels/sparse_gather/kernel.py:81",
          "launches": emb_counts["emb_scatter_add"], "max_abs_err": err_es,
          **et["emb_scatter_add"]},
+        {"name": "int_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/int_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul/kernel.py:43",
+         "launches": lm["counts"]["int_matmul"], "max_abs_err": err_mm,
+         "shape": [lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
+         **lt["int_matmul", lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
+         "decode": {f"{k}x{n}": lt["int_matmul", 1, k, n]
+                    for k, n in LM_MLP_SHAPES},
+         "prefill_down": lt["int_matmul", lm_prompt_lens[-1],
+                            *LM_MLP_SHAPES[1]]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": lm["counts"]["mha"], "max_abs_err": err_fa,
+         "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",]},
     ]
+    say("serve: " + json.dumps({
+        name: {k: lm[name][k] for k in ("tokens_per_s", "ttft_ms",
+                                        "prefill_ms", "decode_ms", "wall_s")}
+        for name in ("on", "off")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

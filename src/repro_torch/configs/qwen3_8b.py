@@ -1,0 +1,10 @@
+"""qwen3-8b [dense] — qk_norm, GQA. [hf:Qwen/Qwen3-8B; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12288, vocab_size=151_936,
+    qk_norm=True, head_dim=128, rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B; hf",
+)

@@ -33,7 +33,7 @@ _OPS: Dict[str, KernelOp] = {}
 
 #: kernel families imported on first use; each registers its ops
 _FAMILIES = ("quant_matmul", "lut_activation", "kmeans_assign",
-             "gini_split", "sparse_gather")
+             "gini_split", "sparse_gather", "flash_attention")
 
 #: kernel launches per op, counted by the CUDA wrappers only
 launch_counts: Dict[str, int] = {}

@@ -1,4 +1,4 @@
-"""Op ``fx_matvec``: the Q-format matvec of the LIN/LOG INT32 versions.
+"""The quantized matmul family: ``fx_matvec``, ``int_matmul``, ``quant_matmul``.
 
 ``dispatch.launch("fx_matvec", x_q, w_q, frac_bits)``: int32 Q(f)
 ``[..., F]`` · int32 ``[F]`` -> int32 ``[...]``, each product rounded
@@ -6,10 +6,22 @@ back to Q(f) by ``(p + 2^(f-1)) >> f`` before the int32 sum.  The
 trainers pass the cores' shards ``[C, n_pc, F]`` whole, so one launch
 covers every core.
 
+``dispatch.launch("int_matmul", a_q, b_q)``: int8 ``[M, K]`` @ int8
+``[K, N]`` -> int32 ``[M, N]``, exact (``|sum| <= K * 128**2 < 2**31`` for
+``K <= MAX_K``).  ``quant_matmul`` adds the dequant of
+``repro/kernels/quant_matmul/ops.py::_quant_matmul_pallas``, and
+:func:`quant_dense` is the float-in, float-out int8 linear of the LM
+stack's ``quantize_dense`` path: the activations quantized per tensor on
+the fly against int8 weights with per-column scales.
+
   :func:`fx_matvec_cuda`   the hand-written kernel (``csrc/fx_matvec.cu``,
                            port of ``repro/kernels/quant_matmul/kernel.py``
                            ``fx_matvec``)
   :func:`fx_matvec_plain`  the plain PyTorch version (``fixed_point.fx_dot``)
+  :func:`int_matmul_cuda`  the hand-written kernel (``csrc/int_matmul.cu``,
+                           port of ``kernel.py`` ``int_matmul``)
+  :func:`int_matmul_plain`, :func:`quant_matmul_plain`
+                           the plain PyTorch versions (``ref.py``)
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ import ctypes
 import torch
 
 from ..core.fixed_point import fx_dot
+from ..core.quantization import symmetric_quantize
 from . import build, dispatch
 
 #: w is staged in the kernel's (static-limit) shared memory
@@ -77,3 +90,103 @@ def fx_matvec_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
 
 
 dispatch.register_op("fx_matvec", cuda=fx_matvec_cuda, plain=fx_matvec_plain)
+
+
+#: the largest K whose int32 sum cannot overflow: K * 128**2 <= 2**31
+MAX_K = 1 << 17
+#: rows of the kernel's grid: 65535 tiles of 64
+MAX_M = 65535 * 64
+
+
+def int_matmul_plain(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """``ref.py::int_matmul_ref``.  The product runs in float64, exact here:
+    every partial sum is an integer below 2**31 < 2**53 (ATen has no CUDA
+    integer matmul)."""
+    return (a_q.to(torch.float64) @ b_q.to(torch.float64)).to(torch.int32)
+
+
+def _dequant(acc: torch.Tensor, a_scale: torch.Tensor,
+             b_scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``acc.astype(f32) * (a_scale * b_scale)`` with jnp's promotion: a
+    bf16 per-tensor scale times the f32 per-column scales is f32."""
+    scale = a_scale.to(torch.float32) * b_scale.to(torch.float32)
+    return (acc.to(torch.float32) * scale).to(out_dtype)
+
+
+def quant_matmul_plain(a_q: torch.Tensor, b_q: torch.Tensor,
+                       a_scale: torch.Tensor, b_scale: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """``ref.py::quant_matmul_ref``: a_q int8 [M, K], b_q int8 [K, N],
+    a_scale [] or [M, 1], b_scale [] or [1, N]."""
+    return _dequant(int_matmul_plain(a_q, b_q), a_scale, b_scale, out_dtype)
+
+
+def _bind_int_matmul():
+    fn = build.load("int_matmul").int_matmul_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int_matmul_cuda(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """Launch the int8 matmul kernel on the current stream; raises on
+    anything it does not take and on a launch error.  An empty product
+    launches nothing."""
+    if not (a_q.is_cuda and b_q.device == a_q.device):
+        raise ValueError(f"int_matmul_cuda: a and b must be on one CUDA "
+                         f"device, got {a_q.device} and {b_q.device}")
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise TypeError(f"int_matmul_cuda: int8 operands required, got "
+                        f"{a_q.dtype} and {b_q.dtype}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[0]:
+        raise ValueError(f"int_matmul_cuda: shapes {tuple(a_q.shape)} and "
+                         f"{tuple(b_q.shape)} do not form [M, K] @ [K, N]")
+    if not (a_q.is_contiguous() and b_q.is_contiguous()):
+        raise ValueError("int_matmul_cuda: operands must be contiguous")
+    (m, k), n = a_q.shape, b_q.shape[1]
+    if k > MAX_K or m > MAX_M:
+        raise ValueError(f"int_matmul_cuda: K={k} > {MAX_K} could overflow "
+                         f"int32, or M={m} > {MAX_M}")
+    out = torch.empty((m, n), dtype=torch.int32, device=a_q.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    launch = _bind_int_matmul()
+    with torch.cuda.device(a_q.device):
+        err = launch(a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n, k,
+                     torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"int_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    dispatch.count_launch("int_matmul")
+    return out
+
+
+def quant_matmul_cuda(a_q: torch.Tensor, b_q: torch.Tensor,
+                      a_scale: torch.Tensor, b_scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """The int8 kernel, then the f32 dequant (``_quant_matmul_pallas``)."""
+    return _dequant(int_matmul_cuda(a_q, b_q), a_scale, b_scale, out_dtype)
+
+
+def quant_dense(x: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """x float [..., K]; w_q int8 [K, N]; w_scale [1, N] per column.
+
+    The activations are quantized per tensor on the fly (symmetric, in
+    x's dtype), multiplied in int8 -> int32 and dequantized in f32; the
+    result has x's dtype."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x_q, xp = symmetric_quantize(x.reshape(-1, k), bits=8)
+    out = dispatch.launch("quant_matmul", x_q, w_q, xp.scale, w_scale)
+    return out.reshape(*lead, -1).to(x.dtype)
+
+
+dispatch.register_op("int_matmul", cuda=int_matmul_cuda,
+                     plain=int_matmul_plain)
+dispatch.register_op("quant_matmul", cuda=quant_matmul_cuda,
+                     plain=quant_matmul_plain)

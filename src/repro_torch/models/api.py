@@ -1,0 +1,109 @@
+"""Model facade of the LM stack (port of ``repro.models.api``, dense family).
+
+``Model(cfg, device)`` exposes init / forward / prefill / decode_step /
+init_cache.  Parameters are a :class:`~repro_torch.models.layers.Params`
+tree whose names are the reference's dict keys, one group per layer under
+``layers``.  :func:`params_from_jax` builds that tree from the reference's
+parameters (as numpy arrays), so both packages can compute the same
+function from the same weights.
+
+Init draws from a ``torch.Generator`` on the target device: the
+reference's threefry stream cannot be reproduced, and LM parity goes
+through :func:`params_from_jax` instead.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..systems.base import resolve_device
+from . import transformer
+from .layers import Params
+
+
+class Model:
+    """The dense decoder LM of ``cfg`` on ``device`` (``"cuda"`` unless
+    the caller asks for ``"cpu"``; ``"cuda"`` without a GPU raises)."""
+
+    def __init__(self, cfg: ArchConfig,
+                 device: Union[str, torch.device] = "cuda"):
+        transformer.check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- init -----------------------------------------------------------------
+    def init(self, generator: Optional[torch.Generator] = None) -> Params:
+        """Random weights from ``generator`` (seed 0 on the model's device
+        when None)."""
+        gen = generator or torch.Generator(device=self.device).manual_seed(0)
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        return transformer.init_lm(self.cfg, gen)
+
+    @staticmethod
+    def param_count(params: Params) -> int:
+        return sum(p.numel() for p in params.parameters())
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device)
+
+    # -- training-style forward -------------------------------------------------
+    def forward(self, params: Params, batch: dict) -> torch.Tensor:
+        logits, _ = transformer.lm_forward(self.cfg, params,
+                                           self._tokens(batch["tokens"]))
+        return logits
+
+    # -- serving ----------------------------------------------------------------
+    def prefill(self, params: Params, batch: dict, max_seq: int):
+        return transformer.lm_prefill(self.cfg, params,
+                                      self._tokens(batch["tokens"]), max_seq)
+
+    def decode_step(self, params: Params, tokens, cache):
+        return transformer.lm_decode_step(self.cfg, params,
+                                          self._tokens(tokens), cache)
+
+    def init_cache(self, batch: int, max_seq: int) -> list[dict]:
+        return transformer.init_cache(self.cfg, batch, max_seq, self.device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact via f32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def _params(tree: dict, index: Optional[int], device) -> Params:
+    """A Params group from a dict of arrays, taking ``[index]`` of each
+    leaf when the tree is stacked."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            out[name] = _params(value, index, device)
+        else:
+            out[name] = _tensor(value if index is None else value[index],
+                                device)
+    return Params(**out)
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict,
+                    device: Union[str, torch.device] = "cuda") -> Params:
+    """The reference's parameter tree (``init_lm``'s dict, leaves as numpy
+    arrays) as the port's: the scanned ``unit`` axis ``[reps, ...]`` is
+    unstacked into one group per layer, layer ``r * len(unit) + u`` from
+    rep ``r`` of unit slot ``u``."""
+    transformer.check_ported(cfg)
+    dev = resolve_device(device)
+    unit, reps = transformer.unit_pattern(cfg)
+    layers = [_params(tree["unit"][u], r, dev)
+              for r in range(reps) for u in range(len(unit))]
+    return Params(tok_emb=_tensor(tree["tok_emb"], dev),
+                  final_norm=_tensor(tree["final_norm"], dev),
+                  lm_head=_tensor(tree["lm_head"], dev),
+                  layers=nn.ModuleList(layers))

@@ -1,0 +1,153 @@
+"""Shared layers of the LM stack (port of ``repro.models.layers``).
+
+Conventions, as in the reference:
+  - a layer's parameters live in a :class:`Params` module whose names are
+    the reference's dict keys, read as ``params["wq"]``;
+  - matmuls run in the config dtype (bf16 by default) with float32
+    normalization statistics;
+  - ``quantize_dense`` routes every MLP linear through the int8 path
+    (``models/quantized.py``), the paper's LIN-HYB analogue.  The LUT
+    activations (``lut_activations``, the LOG-LUT analogue) are not
+    ported yet and raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: ROADMAP item that ports the LUT activations of the LM stack
+LUT_TODO = ("lut_activations (silu/gelu LUTs) are not ported yet: ROADMAP "
+            "queue 1 item 12")
+
+
+class Params(nn.Module):
+    """A group of named parameters and sub-groups, read like the reference's
+    parameter dicts: ``p["wq"]``, ``"gate" in p``."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, value in entries.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def activation(x: torch.Tensor, name: str, lut: bool = False
+               ) -> torch.Tensor:
+    if lut:
+        raise NotImplementedError(LUT_TODO)
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x)
+    raise ValueError(name)
+
+
+# -- initializers -----------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/d_in) in float32, cast to ``dtype``, on ``gen``'s device."""
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(0.02).to(dtype)
+
+
+# -- norms -------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)).to(x.dtype)
+
+
+# -- rotary embeddings --------------------------------------------------------
+
+def rope_frequencies(head_dim: int, fraction: float, theta: float
+                     ) -> np.ndarray:
+    """Inverse frequencies for the rotary fraction of the head dim."""
+    rot = int(head_dim * fraction) // 2 * 2
+    return 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
+               theta: float) -> torch.Tensor:
+    """x: [B, H, S, D]; positions: [B, S] or [S].  Partial rotary
+    (stablelm-style): only the first ``fraction`` of D is rotated, its
+    even and odd columns as pairs."""
+    d = x.shape[-1]
+    rot = int(d * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    inv = torch.as_tensor(rope_frequencies(d, fraction, theta),
+                          dtype=torch.float32, device=x.device)
+    ang = positions.to(torch.float32)[..., None] * inv  # [B?, S, rot/2]
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos = torch.cos(ang)[:, None]                        # [B, 1, S, rot/2]
+    sin = torch.sin(ang)[:, None]
+    xr = x[..., :rot].to(torch.float32)
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).reshape(xr.shape)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# -- dense layer with the paper's quantized path -------------------------------
+
+def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
+           quantized: bool = False) -> torch.Tensor:
+    """``w`` is a float [K, N] weight or a quantized one
+    (``models/quantized.py``); ``quantized`` takes the int8 path."""
+    if quantized:
+        from .quantized import pim_dense
+        out = pim_dense(x, w)
+    else:
+        out = x @ w.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+# -- MLP blocks ----------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype, gated: bool = True) -> Params:
+    p = {"up": dense_init(gen, d_model, d_ff, dtype),
+         "down": dense_init(gen, d_ff, d_model, dtype)}
+    if gated:
+        p["gate"] = dense_init(gen, d_model, d_ff, dtype)
+    return Params(**p)
+
+
+def mlp(params, x: torch.Tensor, act: str = "silu", lut: bool = False,
+        quantized: bool = False) -> torch.Tensor:
+    up = linear(x, params["up"], quantized=quantized)
+    if "gate" in params:
+        h = activation(linear(x, params["gate"], quantized=quantized),
+                       act, lut) * up
+    else:
+        h = activation(up, act, lut)
+    return linear(h, params["down"], quantized=quantized)

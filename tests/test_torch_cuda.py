@@ -6,6 +6,8 @@ runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,13 @@ from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
                                                kmeans_assign_plain)
 from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
                                                 lut_sigmoid_plain)
-from repro_torch.kernels.quant_matmul import fx_matvec_cuda, fx_matvec_plain
+from repro_torch.configs.base import get_config
+from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+from repro_torch.kernels.quant_matmul import (fx_matvec_cuda, fx_matvec_plain,
+                                              int_matmul_cuda,
+                                              int_matmul_plain, quant_dense)
+from repro_torch.models.api import Model
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.kernels.sparse_gather import (IDX_PAD, ROW_PAD_ID,
                                                emb_gather_cuda,
                                                emb_gather_plain,
@@ -286,3 +294,118 @@ def test_emb_fit_on_the_card_equals_the_cpu_fit(cuda):
     assert gs == cs
     assert dispatch.launch_counts == {"emb_gather": 160,
                                       "emb_scatter_add": 80 + 10}
+
+
+# -- the LM serving path: int_matmul and flash_attention -------------------
+
+#: the kernel and its plain version both compute attention in float32, in
+#: other orders (and expf against ATen's exp): float32 outputs agree to
+#: ~1e-6 of their O(1) size; a bf16 output may round to the neighbouring
+#: bf16 value (one ulp is 2**-6 below 4)
+MHA_F32_ATOL, MHA_BF16_ATOL = 1e-5, 2e-2
+
+
+def _int8(gen, shape, dev):
+    return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 12288), (7, 12288, 4096), (513, 4096, 12288),   # qwen3-8b MLP
+    (64, 4099, 70), (5, 64, 13), (17, 3, 1), (1, 1, 1), (130, 257, 66)])
+def test_int_matmul_kernel_equals_plain(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+    a[0], b[:, 0] = -128, -128            # the extreme product, K times
+    out = int_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32
+    assert torch.equal(out, int_matmul_plain(a, b))
+
+
+def test_int_matmul_unaligned_operands_take_the_byte_path(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = _int8(gen, (1 + 40 * 64 + 64 * 36,), cuda)
+    a = flat[1:1 + 40 * 64].view(40, 64)           # 1 byte past alignment
+    b = flat[1 + 40 * 64:].view(64, 36)
+    assert a.data_ptr() % 4 and a.is_contiguous()
+    out = int_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, int_matmul_plain(a, b))
+
+
+def test_int_matmul_counts_and_refuses(cuda):
+    dispatch.reset_launch_counts()
+    a = torch.ones((2, 3), dtype=torch.int8, device=cuda)
+    assert int_matmul_cuda(a, a.T.contiguous()).sum() == 12
+    assert int_matmul_cuda(a[:0], a.T.contiguous()).shape == (0, 2)
+    assert dispatch.launch_counts == {"int_matmul": 1}
+    with pytest.raises(TypeError):
+        int_matmul_cuda(a.int(), a.T.contiguous())
+    with pytest.raises(ValueError):
+        int_matmul_cuda(a, a.T)                     # not contiguous
+    x = torch.randn((3, 5, 64), device=cuda)
+    w = _int8(torch.Generator(device=cuda).manual_seed(0), (64, 32), cuda)
+    s = torch.rand((1, 32), device=cuda)
+    assert torch.equal(quant_dense(x, w, s),
+                       quant_dense(x.cpu(), w.cpu(), s.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=1, hq=32, hkv=16, sq=128, skv=128, d=128, dtype=torch.bfloat16),
+    dict(b=1, hq=32, hkv=16, sq=1000, skv=1000, d=128,
+         dtype=torch.bfloat16),
+    dict(b=2, hq=8, hkv=2, sq=77, skv=77, d=64, causal=False),
+    dict(b=2, hq=4, hkv=4, sq=1, skv=300, d=128, q_offset=299),  # decode
+    dict(b=1, hq=4, hkv=2, sq=200, skv=200, d=32, window=37),
+    dict(b=1, hq=4, hkv=4, sq=5, skv=260, d=80, q_offset=255, window=64),
+    dict(b=1, hq=2, hkv=1, sq=130, skv=130, d=128, causal=False, window=50),
+])
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    case = dict(case)
+    b, hq, hkv, sq, skv, d = (case.pop(n) for n in ("b", "hq", "hkv", "sq",
+                                                    "skv", "d"))
+    dtype = case.pop("dtype", torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv does
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda)
+               .to(dtype).transpose(1, 2)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    out = mha_cuda(q, k, v, **case)
+    torch.cuda.synchronize()
+    ref = mha_plain(q, k, v, **case)
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = MHA_BF16_ATOL if dtype == torch.bfloat16 else MHA_F32_ATOL
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_serve_on_the_card_counts_launches_and_matches_the_cpu(cuda):
+    """A reduced qwen3-8b in float32: the same greedy tokens on the card
+    and the CPU (quantize_dense off), and exactly 3 int_matmul launches per
+    layer per forward call and one flash_attention launch per layer per
+    prefill (quantize_dense on)."""
+    prompts = [np.random.RandomState(i).randint(0, 512, n).astype(np.int32)
+               for i, n in enumerate((40, 9, 17))]
+    news = (5, 3, 4)
+    out = {}
+    for quantize in (False, True):
+        cfg = get_config("qwen3-8b").reduced(quantize_dense=quantize)
+        weights = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for device in ("cuda", "cpu"):
+            model = Model(cfg, device=device)
+            params = copy.deepcopy(weights).to(device)
+            reqs = [Request(prompt=p, max_new_tokens=n)
+                    for p, n in zip(prompts, news)]
+            dispatch.reset_launch_counts()
+            ServeEngine(model, params, n_slots=2, max_seq=64).run(reqs)
+            torch.cuda.synchronize()
+            out[quantize, device] = ([r.output for r in reqs],
+                                     dict(dispatch.launch_counts))
+    assert out[False, "cuda"][0] == out[False, "cpu"][0]
+    calls = len(prompts) + sum(n - 1 for n in news)     # prefills + decodes
+    layers = get_config("qwen3-8b").reduced().n_layers
+    assert out[False, "cuda"][1] == {"mha": layers * len(prompts)}
+    assert out[True, "cuda"][1] == {"int_matmul": 3 * layers * calls,
+                                    "mha": layers * len(prompts)}
+    assert out[True, "cpu"][1] == {}

@@ -333,12 +333,14 @@ def test_dispatch_rejects_unknown_ops_and_placements():
                         tlut.build_sigmoid_lut(), placement="vmem")
     assert set(dispatch._OPS) == {"fx_matvec", "lut_sigmoid",
                                   "kmeans_assign", "gini_split",
-                                  "emb_gather", "emb_scatter_add"}
+                                  "emb_gather", "emb_scatter_add",
+                                  "int_matmul", "quant_matmul", "mha"}
 
 
 @pytest.mark.parametrize("op", ["fx_matvec", "lut_sigmoid", "kmeans_assign",
                                 "gini_split", "emb_gather",
-                                "emb_scatter_add"])
+                                "emb_scatter_add", "int_matmul",
+                                "quant_matmul", "mha"])
 def test_cuda_wrappers_refuse_cpu_tensors(op):
     """A CUDA wrapper launches or raises; it never computes on the CPU."""
     x = torch.zeros((4, 16), dtype=torch.int32)
@@ -354,6 +356,13 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
             emb_gather_cuda(x[None], x[:1], x[0])
         elif op == "emb_scatter_add":
             emb_scatter_add_cuda(x[None], x[:1], x[0, :2], x[:2])
+        elif op in ("int_matmul", "quant_matmul"):
+            a = torch.zeros((4, 16), dtype=torch.int8)
+            scales = () if op == "int_matmul" else (torch.ones(()),) * 2
+            dispatch.get_op(op).cuda(a, a.T.contiguous(), *scales)
+        elif op == "mha":
+            q = torch.zeros((1, 2, 4, 8))
+            dispatch.get_op(op).cuda(q, q, q)
         else:
             gini_split_cuda(torch.zeros((2, 4, 16)), x[:2], x[:2],
                             torch.zeros((8, 16)), 2)
