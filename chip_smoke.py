@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
   3. kernels  each kernel against its plain PyTorch version on the card,
               on the main paths' shapes and their edge cases: they must
               be equal (flash_attention: within MHA_F32_ATOL /
-              MHA_BF16_ATOL, as float32 in another order)
+              MHA_BF16_ATOL: float32 in another order; bf16 rounds P to
+              bf16 for the tensor cores)
   4. main     the paper's training at full width (16 features) over 2048
               simulated PIM cores, through the public API, one path at a
               time with the kernel launch counts zeroed just before it
@@ -52,7 +53,10 @@ Phases, in order; any failure exits non-zero:
                 then the reduced model in float32 on the card and the CPU
   5. timing   each kernel and its plain version with CUDA events (median
               of TIMING_RUNS, L2 flushed between runs) beside its bound
-              and, for the EMB and LM kernels, the nearest PyTorch call;
+              and, for the EMB and LM kernels, the nearest PyTorch call
+              (int_matmul at M = 1 and at the shortest and longest
+              prompts, with the rate reached, its share of the bound and
+              the host's time per wrapper call; flash_attention likewise);
               each fit's milliseconds per iteration (per round for DTR,
               per step for EMB) and samples/s; the serve runs' time to
               first token, ms per decode token and tokens/s
@@ -141,8 +145,10 @@ LM_PROFILE_STEPS = 8
 LM_MLP_SHAPES = ((4096, 12288), (12288, 4096))
 #: flash_attention against its plain version: both compute in float32 in
 #: other orders (expf against ATen's exp), so float32 outputs agree to
-#: ~1e-6 of their O(1) size, and a bf16 output may round to the
-#: neighbouring bf16 value (one ulp is 2**-6 below 4)
+#: ~1e-6 of their O(1) size; in bf16 the kernel also rounds the softmax
+#: weights to bf16 (2**-9 relative) for the tensor cores' P @ V, and the
+#: output may round to the neighbouring bf16 value (one ulp is 2**-6
+#: below 4)
 MHA_F32_ATOL, MHA_BF16_ATOL = 1e-5, 2e-2
 #: prefill + decode against the forward at full width, on one prompt.
 #: float32: the repo's float32 tolerance for that property
@@ -189,6 +195,19 @@ def cuda_ms(torch, fn, flush) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, n: int = 50) -> float:
+    """Host microseconds per call of ``fn`` (enqueue only: the card runs
+    behind), over ``n`` calls after a synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def bound(nbytes: float, ops: float,
@@ -629,14 +648,18 @@ def lm_requests(vocab: int) -> list:
 
 def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
     """int_matmul (exact on full-range int8, -128 included) at the MLP
-    shapes of qwen3-8b for M = 1, 7, 513 and the longest prompt, plus
-    ragged shapes; flash_attention (within MHA_BF16_ATOL / MHA_F32_ATOL
-    of its plain version) on bf16 [1, 32, S, 128] over 16 KV heads for
-    every prompt length S, causal and not, one-token decode with
-    q_offset, a window, and float32.  Returns the max abs errors."""
+    shapes of qwen3-8b for M = 1, 7, 16 and 17 (the streaming and
+    tensor-core paths' boundary), 513 and the shortest and longest
+    prompts, plus ragged and unaligned shapes on both paths;
+    flash_attention (within MHA_BF16_ATOL / MHA_F32_ATOL of its plain
+    version) on bf16 [1, 32, S, 128] over 16 KV heads for every prompt
+    length S, causal and not, one-token decode with q_offset, a window,
+    D = 64 and 80, GQA groups 1 and 4, and float32.  Returns the max abs
+    errors."""
     from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
     from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
-                                                  int_matmul_plain)
+                                                  int_matmul_plain,
+                                                  int_matmul_plan)
 
     def int8(shape):
         t = torch.randint(-128, 128, shape, generator=gen, device=dev,
@@ -644,13 +667,22 @@ def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
         t.view(-1)[:3] = -128
         return t
     err_mm = 0
-    shapes = [(m, k, n) for m in (1, 7, 513, max(prompt_lens))
-              for k, n in LM_MLP_SHAPES] + [(33, 4099, 1000), (17, 61, 13)]
+    shapes = [(m, k, n) for m in (1, 7, 16, 17, 513, min(prompt_lens),
+                                  max(prompt_lens))
+              for k, n in LM_MLP_SHAPES] + [(33, 4099, 1000), (17, 61, 13),
+                                            (5, 4099, 70)]
     for m, k, n in shapes:
         a, b = int8((m, k)), int8((k, n))
         err_mm = max(err_mm, same(torch, [int_matmul_cuda(a, b)],
                                   [int_matmul_plain(a, b)]))
     say(f"kernels: int_matmul == plain at (M, K, N) {shapes}")
+    for m in (7, 40):                 # 1 byte past alignment: both paths
+        flat = int8((1 + m * 64 + 64 * 36,))
+        a, b = flat[1:1 + m * 64].view(m, 64), flat[1 + m * 64:].view(64, 36)
+        err_mm = max(err_mm, same(torch, [int_matmul_cuda(a, b)],
+                                  [int_matmul_plain(a, b)]))
+        say(f"kernels: int_matmul == plain, unaligned ({m}, 64) @ (64, 36)"
+            f" on the {int_matmul_plan(m, 36, 64).path} path")
 
     def qkv(b, hq, hkv, sq, skv, d, dtype):
         # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv does
@@ -668,6 +700,10 @@ def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
          qkv(1, 32, 16, 1, s, 128, bf16), {"q_offset": s - 1}),
         (f"bf16 [1, 32, {s}, 128], window 256",
          qkv(1, 32, 16, s, s, 128, bf16), {"window": 256}),
+        ("bf16 [2, 8, 77, 64] over 2 KV heads (group 4), causal",
+         qkv(2, 8, 2, 77, 77, 64, bf16), {}),
+        ("bf16 [1, 8, 300, 80] over 8 KV heads (group 1), window 100",
+         qkv(1, 8, 8, 300, 300, 80, bf16), {"window": 100}),
         ("f32 [2, 8, 300, 64] over 2 KV heads, causal",
          qkv(2, 8, 2, 300, 300, 64, f32), {}),
         ("f32 [1, 4, 5, 80], q_offset 255 of 260 keys, window 64",
@@ -894,18 +930,21 @@ def lm_card_equals_cpu(torch) -> None:
             fail(f"reduced {LM_ARCH}: card and CPU greedy tokens differ")
 
 
-def lm_kernel_times(torch, flush, prompt_len: int) -> dict:
-    """int_matmul at decode (M = 1) and at the longest prefill, both MLP
-    shapes, and flash_attention at the longest prefill: kernel, plain,
-    bound and the nearest PyTorch call (torch._int_mm where its shape rules
-    allow; F.scaled_dot_product_attention with enable_gqa)."""
+def lm_kernel_times(torch, flush, prompt_lens) -> dict:
+    """int_matmul at decode (M = 1) and at the shortest and longest
+    prefills, both MLP shapes, and flash_attention at the longest prefill:
+    kernel, plain, bound and the nearest PyTorch call (torch._int_mm where
+    its shape rules allow; F.scaled_dot_product_attention with
+    enable_gqa), with the achieved rate (TOP/s or TFLOP/s, the bound's
+    operations over the kernel's time), its share of the bound, and the
+    host's microseconds per wrapper call."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
     from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
                                                   int_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
-    for m in (1, prompt_len):
+    for m in (1, min(prompt_lens), max(prompt_lens)):
         for k, n in LM_MLP_SHAPES:
             a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                               dtype=torch.int32).to(torch.int8)
@@ -921,8 +960,11 @@ def lm_kernel_times(torch, flush, prompt_len: int) -> dict:
                                        flush)
                                if m > 16 and k % 8 == 0 and n % 8 == 0
                                else None)
+            t["tops"] = 2 * m * k * n / t["ms"] / 1e9
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            t["host_us"] = host_us(torch, lambda: int_matmul_cuda(a, b))
             out["int_matmul", m, k, n] = t
-    s = prompt_len
+    s = max(prompt_lens)
     q, k, v = [torch.randn((1, s, h, 128), generator=gen, device="cuda")
                .to(torch.bfloat16).transpose(1, 2) for h in (32, 16, 16)]
     pairs = s * (s + 1) // 2 * 32                 # unmasked (query, key)
@@ -933,6 +975,9 @@ def lm_kernel_times(torch, flush, prompt_len: int) -> dict:
     t["bound_ms"], t["bound_by"] = bound(
         2 * (q.numel() * 2 + k.numel() * 2), 4 * 128 * pairs,
         PEAK_BF16_FLOPS)
+    t["tflops"] = 4 * 128 * pairs / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    t["host_us"] = host_us(torch, lambda: mha_cuda(q, k, v))
     out["flash_attention",] = t
     return out
 
@@ -989,9 +1034,12 @@ def main() -> int:
     say(f"build: {len(logs)} of {len(build.SOURCES)} libraries compiled in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][:90]
+            elif "registers" in line or "spill" in line:
+                say(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
 
     # -- 3. kernels against their plain versions, on the card ----------------
     rng = np.random.RandomState(SEED)
@@ -1286,16 +1334,21 @@ def main() -> int:
             f"does not receive) at {tuple(emb['int32']['table'].shape)}, "
             f"B={EMB_BATCH}, on {smi}")
 
-    lt = lm_kernel_times(torch, flush, lm_prompt_lens[-1])
+    lt = lm_kernel_times(torch, flush, lm_prompt_lens)
     for (name, *shape), t in lt.items():
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        say(f"timing: {name} {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+        rate = (f"{t['tops']:.1f} TOP/s" if shape
+                else f"{t['tflops']:.1f} TFLOP/s")
+        say(f"timing: {name} {t['ms']:.4f} ms ({rate}, "
+            f"{100 * t['bound_share']:.1f}% of the bound), plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), "
             + (f"torch._int_mm {lib} at (M, K, N) {tuple(shape)}"
                if shape else f"F.scaled_dot_product_attention {lib} at "
                f"bf16 [1, 32, {lm_prompt_lens[-1]}, 128] over 16 KV heads, "
-               f"causal") + f" on {smi}")
+               f"causal") + f"; host {t['host_us']:.1f} us per wrapper call"
+            f" on {smi}")
 
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
@@ -1386,7 +1439,10 @@ def main() -> int:
          "decode": {f"{k}x{n}": lt["int_matmul", 1, k, n]
                     for k, n in LM_MLP_SHAPES},
          "prefill_down": lt["int_matmul", lm_prompt_lens[-1],
-                            *LM_MLP_SHAPES[1]]},
+                            *LM_MLP_SHAPES[1]],
+         "prefill_shortest": {f"{lm_prompt_lens[0]}x{k}x{n}":
+                              lt["int_matmul", lm_prompt_lens[0], k, n]
+                              for k, n in LM_MLP_SHAPES}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",

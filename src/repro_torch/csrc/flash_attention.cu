@@ -10,35 +10,68 @@
 //   out[b,h,i] = sum_j p_ij v[b,h',j] / sum_j p_ij,
 //   p_ij = exp(s_ij - max_j s_ij), s_ij = (q_i . k_j) / sqrt(D) where
 //   (causal: qpos >= kpos) and (window > 0: qpos - kpos < window), else -1e30.
-// All arithmetic is float32 (the inputs are float32 or bf16, the output has
-// q's dtype), in the order of _flash_kernel (kernel.py:25-75): a running max
-// m, sum l and accumulator per query row, rescaled by exp(m_old - m_new) at
-// every key tile, NEG_INF = -1e30 for masked keys, l clamped at 1e-30 at the
-// end.  Whole key tiles above the causal diagonal or before the window are
-// skipped.  Keys past Skv (the ragged last tile) count as exp(-inf) = 0.  A
-// row with no unmasked key is outside the contract, as in the reference.
-// Equal to repro/kernels/flash_attention/ref.py::attention_ref and the plain
-// version in repro_torch/kernels/flash_attention.py within float32 rounding.
+// The softmax runs in float32 in the order of _flash_kernel
+// (kernel.py:25-75): a running max m, sum l and accumulator per query row,
+// rescaled by exp(m_old - m_new) at every key tile, NEG_INF = -1e30 for
+// masked keys, l clamped at 1e-30 at the end.  Whole key tiles above the
+// causal diagonal or before the window are skipped.  Keys past Skv (the
+// ragged last tile) count as exp(-inf) = 0.  A row with no unmasked key is
+// outside the contract, as in the reference.  Inputs are read through their
+// [B, H, S, D] strides (D contiguous), as _project_qkv's transposed views
+// lie; the output is contiguous.
 //
 // Bound on the H100: for serving prefill (Sq = Skv = prompt length, causal)
-// the 4 * D operations per unmasked (query, key) pair, against the bf16 tensor
-// cores at 989 TFLOP/s; at the smallest prompts the bytes of q, k, v and out.
-// This first design runs on the CUDA cores in float32, not on the tensor
-// cores: a wgmma/TMA design is later work.
+// the 4 * D operations per unmasked (query, key) pair against the bf16
+// tensor cores at 989 TFLOP/s; at the smallest prompts the bytes of q, k, v
+// and out.  Two designs, chosen by dtype in the wrapper:
 //
-// Design: one block of 8 warps per (batch * head, tile of 64 query rows).
-// The query tile is staged once in shared memory as float32; key and value
+// bf16 (the serving path): flash_attention_bf16, on the tensor cores, at
+// 1.2% of the bound before this design (float32 FMAs, issue-bound).  One
+// CTA per (batch x query head, 128 query rows); CTAs start in the order
+// of their linear index, which runs over the heads of the last (for a
+// causal mask, heaviest) query tile first.  Three roles: a producer warp
+// whose first lane loads the q tile once and keeps K and V tiles of 64
+// keys in flight in a ring of three stages, by TMA (4-D tensor maps over
+// the strided views, 128-byte swizzle, out-of-range rows and D columns
+// zero-filled; a stage completes on one mbarrier and is released on
+// another once both consumers are done with it), and two consumer
+// warpgroups of 64 query rows each.  A consumer computes S = Q K^T with
+// wgmma.m64n64k16.f32.bf16.bf16 from shared memory (q and k are both
+// D-contiguous: K-major), scales and masks the float32 accumulator
+// fragments in registers (masks by selects, only on tiles that cross the
+// diagonal, the window's edge or Skv: a branch per element cost a
+// reconvergence barrier per element), reduces row max and sum across the
+// 4 lanes of a row by shuffles, takes exp2 on the special-function unit
+// (ex2.approx; scale and log2(e) in one FFMA with the max), packs P to
+// bf16 in registers as wgmma's A operand and adds P V with
+// wgmma.m64n{64,128}k16, whose B, V as [keys, D] (MN-major), is read with
+// the transpose bit.  Each consumer warp releases a stage once.  D is
+// padded to 64 or 128 by the tensor maps' zero fill.  A CTA serves one
+// query head: the CTAs of the heads that share a KV head read its tiles
+// from L2.  P is rounded to bf16 before P V (the reference keeps it
+// float32): within MHA_BF16_ATOL of the plain version.  Ping-pong
+// ordering of the two consumers' products (named barriers) and
+// overlapping a tile's softmax with the previous tile's P V were measured
+// and did not help here (PERF.md, PR 15).
+//
+// float32: flash_attention_kernel, on the CUDA cores, in float32
+// throughout.  One block of 8 warps per (batch * head, tile of 64 query
+// rows).  The query tile is staged once in shared memory; key and value
 // tiles of 32 rows follow it through shared memory.  Each warp owns 8 query
 // rows and each lane one key of the tile: a lane computes its key's 8 scores
 // from 16-byte shared-memory reads (the query rows are broadcasts, the key
 // rows are padded by 4 floats so the lanes' reads hit distinct banks), the
 // warp reduces the row max and sum with shuffles, and each lane then owns
 // D / 32 columns of the 8 accumulators, taking p from the key's lane by
-// shuffle.  Inputs are read through their [B, H, S, D] strides (D contiguous),
-// as _project_qkv's transposed views lie; the output is contiguous.
-#include <cstdint>
+// shuffle.  Equal to ref.py::attention_ref within float32 rounding.
+//
+// ptxas -v (sm_90a, nvcc 12.9): flash_attention_bf16 138 registers (D
+// padded to 128) / 107 (64), no spills, 132,152 / 66,616 bytes of dynamic
+// shared memory; flash_attention_kernel (float32) 80-128 registers, 8
+// bytes of spill at D <= 32.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -50,17 +83,10 @@ constexpr int kBKV = 32;                    // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;           // NEG_INF of kernel.py
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -241,27 +267,380 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
                               ks, vs, scale, causal, q_offset, window, s);
 }
 
+// ---- bf16: the tensor cores ------------------------------------------------
+
+constexpr int kFaBM = 128;      // query rows per CTA: 64 per consumer warpgroup
+constexpr int kFaBN = 64;       // keys per K / V tile
+constexpr int kFaStages = 3;    // K / V ring
+constexpr int kFaThreads = 288; // two consumer warpgroups + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInfL2 = kNegInf * kLog2e;  // NEG_INF in exp2's domain
+
+// which of a view's 4-D tensor-map dims (1-3) hold S, H and B
+struct MapDims {
+  int s, h, b;
+};
+
+__device__ __forceinline__ void tma_bhsd(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, MapDims md, int col,
+                                         int row, int head, int batch) {
+  const int c1 = md.s == 1 ? row : md.h == 1 ? head : batch;
+  const int c2 = md.s == 2 ? row : md.h == 2 ? head : batch;
+  const int c3 = md.s == 3 ? row : md.h == 3 ? head : batch;
+  sm90::tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (exp2f adds a denormal path)
+__device__ __forceinline__ float fexp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// O *= corr (per row), then O += P V for one tile: P (bf16, registers) as
+// wgmma's A, V [keys, D] from shared memory as its B, MN-major (transpose
+// bit), 64-column chunks kKVChunk apart.  Issued and committed, not waited.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&pa)[kFaBN / 16][4],
+                                         const uint8_t* v_t, float corr_a,
+                                         float corr_b) {
+  using namespace sm90;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    o[4 * j] *= corr_a;
+    o[4 * j + 1] *= corr_a;
+    o[4 * j + 2] *= corr_b;
+    o[4 * j + 3] *= corr_b;
+  }
+  fence_operand(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kFaBN / 16; ++kk) {
+    const uint64_t dv = sw128_desc(v_t + kk * 16 * 128, kFaBN * 128, 1024);
+    if constexpr (DP == 128)
+      wgmma_m64n128k16_bf16_rs_tb(o, pa[kk], dv, 1);
+    else
+      wgmma_m64n64k16_bf16_rs_tb(o, pa[kk], dv, 1);
+  }
+  wgmma_commit();
+}
+
+// DP: 64 or 128, the tensor maps' padded D (one or two 128-byte chunks)
+template <int DP>
+__global__ void __launch_bounds__(kFaThreads, 1)
+    flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         __nv_bfloat16* __restrict__ out, int hq, int group,
+                         int sq, int skv, int d, MapDims qd, MapDims kd,
+                         MapDims vd, float scale_log2, int causal,
+                         int q_offset, int window) {
+  using namespace sm90;
+  constexpr int kChunks = DP / 64;
+  constexpr int kQChunk = kFaBM * 128;   // bytes of one 64-column q chunk
+  constexpr int kKVChunk = kFaBN * 128;
+  constexpr int kKVTile = kChunks * kKVChunk;
+  constexpr int kOut = DP / 2;           // O floats per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* k_s = q_s + kChunks * kQChunk;
+  uint8_t* v_s = k_s + kFaStages * kKVTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kFaStages * kKVTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kFaStages;
+
+  const int tid = threadIdx.x;
+  // CTAs start in the order of their linear index: the last (for a causal
+  // mask, heaviest) query tile of every head first, then the next
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int q0 = (gridDim.x - 1 - lin / gridDim.y) * kFaBM;
+  const int bh = lin % gridDim.y, b = bh / hq, h = bh % hq, hk = h / group;
+  // the key tiles any row of this CTA may attend
+  const int q_lo = q_offset + q0;
+  const int q_hi = q_offset + min(q0 + kFaBM, sq) - 1;
+  const int kv_end = causal ? min(skv, q_hi + 1) : skv;
+  const int kv_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_begin = kv_begin / kFaBN;
+  const int t_end =
+      kv_end > kv_begin ? (kv_end + kFaBN - 1) / kFaBN : t_begin;
+  const int ntiles = t_end - t_begin;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kFaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // each consumer warp, once per tile
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp
+    if (tid == 256) {
+      mbar_expect_tx(q_full, kChunks * kQChunk);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        tma_bhsd(q_s + c * kQChunk, &tq, q_full, qd, 64 * c, q0, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kFaStages, kv0 = (t_begin + i) * kFaBN;
+        if (i >= kFaStages) mbar_wait(&empty[s], (i / kFaStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kKVTile);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          tma_bhsd(k_s + s * kKVTile + c * kKVChunk, &tk, &full[s], kd,
+                   64 * c, kv0, hk, b);
+          tma_bhsd(v_s + s * kKVTile + c * kKVChunk, &tv, &full[s], vd,
+                   64 * c, kv0, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows r_lo .. r_lo + 63 of the CTA's tile;
+  // this thread holds rows row_a and row_a + 8 of them
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r_lo = q0 + 64 * wg;
+  const bool has_rows = r_lo < sq;
+  const int wq_lo = q_offset + r_lo;
+  const int wq_hi = q_offset + min(r_lo + 64, sq) - 1;
+  const int row_a = r_lo + 16 * warp + (lane >> 2);
+  const int qpos_a = q_offset + row_a;
+
+  float o[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) o[i] = 0.f;
+  float m_a = kNegInfL2, m_b = kNegInfL2, l_a = 0.f, l_b = 0.f;
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kFaStages, kv0 = (t_begin + i) * kFaBN;
+    mbar_wait(&full[s], (i / kFaStages) & 1);
+    // tiles wholly masked for this warpgroup's rows change nothing
+    const bool active =
+        has_rows && !(causal && kv0 > wq_hi) &&
+        !(window > 0 && kv0 + kFaBN - 1 < wq_lo - window + 1);
+    float sc[kFaBN / 2];
+    if (active) {
+      const uint8_t* q_t = q_s + wg * 64 * 128;
+      const uint8_t* k_t = k_s + s * kKVTile;
+      fence_operand(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_bf16_ss(
+              sc, sw128_desc(q_t + c * kQChunk + 32 * kk, 16, 1024),
+              sw128_desc(k_t + c * kKVChunk + 32 * kk, 16, 1024),
+              (c | kk) != 0);  // the first product overwrites S
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sc);
+      // tiles that cross the diagonal, the window's edge or Skv are scaled
+      // and masked here, by selects (a branch per element cost a
+      // reconvergence barrier per element); the others keep raw scores
+      // and take the scale inside exp2's argument
+      const bool edge = kv0 + kFaBN > skv ||
+                        (causal && kv0 + kFaBN - 1 > wq_lo) ||
+                        (window > 0 && wq_hi - kv0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kFaBN / 2; ++j) sc[j] *= scale_log2;
+#pragma unroll
+        for (int j = 0; j < kFaBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = kv0 + 8 * j + 2 * (lane & 3) + (e & 1);
+            const int qpos = qpos_a + 8 * (e >> 1);
+            const bool out = (causal && qpos < kpos) ||
+                             (window > 0 && qpos - kpos >= window);
+            float& x = sc[4 * j + e];
+            x = kpos >= skv ? -INFINITY : out ? kNegInfL2 : x;
+          }
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kFaBN / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      const float fs = edge ? 1.f : scale_log2;
+      const float mn_a = fmaxf(m_a, quad_max(mx_a) * fs);
+      const float mn_b = fmaxf(m_b, quad_max(mx_b) * fs);
+      const float corr_a = fexp2(m_a - mn_a), corr_b = fexp2(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFaBN / 8; ++j) {
+        sc[4 * j] = fexp2(fmaf(sc[4 * j], fs, -m_a));
+        sc[4 * j + 1] = fexp2(fmaf(sc[4 * j + 1], fs, -m_a));
+        sc[4 * j + 2] = fexp2(fmaf(sc[4 * j + 2], fs, -m_b));
+        sc[4 * j + 3] = fexp2(fmaf(sc[4 * j + 3], fs, -m_b));
+        sum_a += sc[4 * j] + sc[4 * j + 1];
+        sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l_a = l_a * corr_a + sum_a;  // this thread's part of the row sum
+      l_b = l_b * corr_b + sum_b;
+      // P as wgmma's A operand: keys 16 kk .. 16 kk + 15 are S's 8-column
+      // blocks 2 kk and 2 kk + 1
+      uint32_t pa[kFaBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kFaBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      issue_pv<DP>(o, pa, v_s + s * kKVTile, corr_a, corr_b);
+      wgmma_wait<0>();
+      fence_operand(o);
+    }
+    __syncwarp();  // the warp's lanes are done with the stage
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (!has_rows) return;
+
+  const float inv[2] = {1.f / fmaxf(quad_sum(l_a), 1e-30f),
+                        1.f / fmaxf(quad_sum(l_b), 1e-30f)};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row_a + 8 * hf;
+    if (row >= sq) continue;
+    __nv_bfloat16* o_row = out + (static_cast<long long>(bh) * sq + row) * d;
+#pragma unroll
+    for (int j = 0; j < kOut / 4; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      const float v0 = o[4 * j + 2 * hf] * inv[hf];
+      const float v1 = o[4 * j + 2 * hf + 1] * inv[hf];
+      if (col + 1 < d && (d & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < d) o_row[col] = __float2bfloat16_rn(v0);
+        if (col + 1 < d) o_row[col + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// the 4-D tensor map of a bf16 [B, H, S, D] view with D contiguous: D
+// innermost, then S, H and B by increasing stride (a dim of size 1 last,
+// with any valid stride); a box of 64 columns x box_rows rows
+int map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int batch,
+             int heads, int seq, int d, long long sb, long long sh,
+             long long ss, int box_rows) {
+  struct Dim {
+    long long size, stride;
+    int which;  // 0 S, 1 H, 2 B
+  } dims[3] = {{seq, ss, 0}, {heads, sh, 1}, {batch, sb, 2}};
+  auto later = [](const Dim& x, const Dim& y) {  // x after y
+    if ((x.size == 1) != (y.size == 1)) return x.size == 1;
+    return x.size != 1 && x.stride > y.stride;
+  };
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && later(dims[j - 1], dims[j]); --j) {
+      const Dim t = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = t;
+    }
+  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  int* slot[3] = {&md->s, &md->h, &md->b};
+  unsigned long long extent = 2ull * d;  // bytes spanned by the dims so far
+  for (int i = 0; i < 3; ++i) {
+    gdim[i + 1] = static_cast<cuuint64_t>(dims[i].size);
+    gstride[i] = dims[i].size == 1 ? (extent + 15) / 16 * 16
+                                   : 2ull * dims[i].stride;
+    extent = gstride[i] * gdim[i + 1];
+    *slot[dims[i].which] = i + 1;
+    if (dims[i].which == 0) box[i + 1] = static_cast<cuuint32_t>(box_rows);
+  }
+  return sm90::encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr,
+                            gdim, gstride, box);
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int batch, int hq, int hkv, int sq, int skv, int d, int d_out,
+                Strides qs, Strides ks, Strides vs, float scale, int causal,
+                int q_offset, int window, cudaStream_t s) {
+  constexpr int kSmem = kFaBM * DP * 2 + 2 * kFaStages * kFaBN * DP * 2 +
+                        (1 + 2 * kFaStages) * 8 + 1024;
+  CUtensorMap tq, tk, tv;
+  MapDims qd{}, kd{}, vd{};
+  int err = map_bhsd(&tq, &qd, q, batch, hq, sq, d, qs.b, qs.h, qs.s, kFaBM);
+  if (!err)
+    err = map_bhsd(&tk, &kd, k, batch, hkv, skv, d, ks.b, ks.h, ks.s, kFaBN);
+  if (!err)
+    err = map_bhsd(&tv, &vd, v, batch, hkv, skv, d, vs.b, vs.h, vs.s, kFaBN);
+  if (err) return err;
+  auto kernel = flash_attention_bf16<DP>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((sq + kFaBM - 1) / kFaBM, batch * hq);
+  kernel<<<grid, kFaThreads, kSmem, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, skv,
+      d_out, qd, kd, vd, scale * kLog2e, causal, q_offset, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// C entry point bound with ctypes.  Launches on `stream`; returns the first
-// CUDA error (0 = launched).  The caller checks types, shapes, that D is
-// contiguous, 1 <= D <= 128, Hq % Hkv == 0, B * Hq <= 65535, q_offset >= 0
-// and window >= 0; is_bf16 picks bf16 over float32.  Strides are in
-// elements, in the order b, h, s.
-extern "C" int flash_attention_launch(
+// C entry points bound with ctypes.  Each launches on `stream` and returns
+// the first CUDA error (0 = launched), or sm90::kErrNoEncoder /
+// sm90::kErrEncode (-1 / -2) when a TMA tensor map cannot be made.  The
+// caller checks types, shapes, that D is contiguous, 1 <= D <= 128,
+// Hq % Hkv == 0, B * Hq <= 65535, q_offset >= 0 and window >= 0.  Strides
+// are in elements, in the order b, h, s.
+
+// float32 q, k, v on the CUDA cores
+extern "C" int flash_attention_f32_launch(
     const void* q, const void* k, const void* v, void* out, int batch, int hq,
     int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
-    int q_offset, int window, int is_bf16, void* stream) {
+    int q_offset, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss};
-  const int group = hq / hkv;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, batch, hq, group, sq, skv, d,
-                                 qs, ks, vs, scale, causal, q_offset, window,
-                                 s);
-  return launch<float>(q, k, v, out, batch, hq, group, sq, skv, d, qs, ks, vs,
-                       scale, causal, q_offset, window, s);
+  return launch<float>(q, k, v, out, batch, hq, hq / hkv, sq, skv, d, qs, ks,
+                       vs, scale, causal, q_offset, window, s);
+}
+
+// bf16 q, k, v on the tensor cores: 16-byte aligned, every stride of a dim
+// longer than 1 a multiple of 8 elements.  d is their last dim (at most
+// 128), d_out <= d the width of out [B, Hq, Sq, d_out] (the wrapper pads D
+// with zeros to meet the strides' rule); scale is 1 / sqrt(d_out).
+extern "C" int flash_attention_bf16_launch(
+    const void* q, const void* k, const void* v, void* out, int batch, int hq,
+    int hkv, int sq, int skv, int d, int d_out, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
+    int q_offset, int window, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
+      vs{v_sb, v_sh, v_ss};
+  if (d <= 64)
+    return launch_bf16<64>(q, k, v, out, batch, hq, hkv, sq, skv, d, d_out,
+                           qs, ks, vs, scale, causal, q_offset, window, s);
+  return launch_bf16<128>(q, k, v, out, batch, hq, hkv, sq, skv, d, d_out, qs,
+                          ks, vs, scale, causal, q_offset, window, s);
 }

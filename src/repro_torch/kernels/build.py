@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/repro_torch/``
-at the repository root.  The file name carries a hash of the source and
-the flags, so a stale library is never loaded.  :func:`build` starts one
-``nvcc`` per missing library, all at once, and waits for every one.
+at the repository root; ``csrc/sm90.cuh`` holds the Hopper helpers (TMA,
+mbarrier, wgmma) that two of them include.  The file name carries a hash
+of the source, the headers and the flags, so a stale library is never
+loaded.  No library links ``-lcuda``: the TMA tensor maps' encoder comes
+from the driver through the runtime's entry-point query.  :func:`build`
+starts one ``nvcc`` per missing library, all at once, and waits for
+every one.
 Nothing falls back: a missing ``nvcc`` or a failed compile raises.
 """
 from __future__ import annotations
@@ -37,7 +41,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """The library's path; its hash covers the source, the shared headers
+    of ``csrc/`` and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -9,22 +9,25 @@ with scale ``1 / sqrt(D)``; query row i sits at absolute position
 before it, ``window > 0`` only the last ``window`` of them.  A row with no
 unmasked key is outside the contract.
 
-  :func:`mha_cuda`   the hand-written kernel (``csrc/flash_attention.cu``,
+  :func:`mha_cuda`   the hand-written kernels (``csrc/flash_attention.cu``,
                      port of ``repro/kernels/flash_attention/kernel.py``
-                     ``flash_attention`` with ``ops.py`` ``_gqa_repeat``)
+                     ``flash_attention`` with ``ops.py`` ``_gqa_repeat``):
+                     bf16 on the tensor cores, float32 on the CUDA cores
   :func:`mha_plain`  the plain PyTorch version (``ref.py::attention_ref``
                      after ``_gqa_repeat``)
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import build, dispatch
 
-#: head dims the kernel takes (its shared tiles are padded to 32, 64, 96
-#: or 128 columns)
+#: head dims the kernels take (float32: shared tiles padded to 32, 64, 96
+#: or 128 columns; bf16: 64 or 128)
 MAX_HEAD_DIM = 128
 #: batch * query heads: the kernel grid's y axis
 MAX_BATCH_HEADS = 65535
@@ -76,13 +79,44 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether a [B, H, S, D] view can back a TMA tensor map as it lies:
+    D contiguous, 16-byte aligned, every stride of a dim longer than 1 a
+    multiple of 8 elements (16 bytes in bf16)."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st, size in zip(t.stride()[:3],
+                                                     t.shape[:3])
+                    if size > 1))
+
+
+def tma_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v as the bf16 kernel reads them: each view as it lies when
+    :func:`tma_ready`, otherwise a contiguous copy, with D zero-padded to
+    a multiple of 8 when a copy's rows would not be 16-byte multiples
+    (zero columns add nothing to q . k, and out keeps D columns)."""
+    d = q.shape[3]
+    ready = [tma_ready(t) for t in (q, k, v)]
+    dt = d if all(ready) or d % 8 == 0 else -(-d // 8) * 8
+    return tuple(t if ok and dt == d else
+                 F.pad(t, (0, dt - d)) if dt != d else
+                 t.clone(memory_format=torch.contiguous_format)
+                 for t, ok in zip((q, k, v), ready))
+
+
+@functools.cache
 def _bind():
-    fn = build.load("flash_attention").flash_attention_launch
+    """The two C entry points, bound once: (float32, bf16)."""
+    lib = build.load("flash_attention")
     ll = ctypes.c_longlong
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ll] * 9
-                   + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    f32, bf16 = lib.flash_attention_f32_launch, lib.flash_attention_bf16_launch
+    f32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ll] * 9
+                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+    bf16.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ll] * 9
+                     + [ctypes.c_float] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p])
+    f32.restype = bf16.restype = ctypes.c_int
+    return f32, bf16
 
 
 def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -120,17 +154,26 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if skv == 0:
         return out.zero_()      # no key: outside the contract
-    launch = _bind()
+    f32, bf16 = _bind()
     with torch.cuda.device(q.device):
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, hq, hkv, sq, skv, d,
-                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                     1.0 / (d ** 0.5), int(causal), q_offset, window,
-                     int(q.dtype == torch.bfloat16),
-                     torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            q, k, v = tma_views(q, k, v)
+            err = bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, hq, hkv, sq, skv, q.shape[3], d,
+                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       1.0 / (d ** 0.5), int(causal), q_offset, window,
+                       stream)
+        else:
+            err = f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, hq, hkv, sq, skv, d,
+                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                      1.0 / (d ** 0.5), int(causal), q_offset, window,
+                      stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: error "
+                           f"{err} (CUDA error, or -1/-2: no TMA tensor "
+                           f"map)")
     dispatch.count_launch("mha")
     return out
 

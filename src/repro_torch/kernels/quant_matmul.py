@@ -18,16 +18,21 @@ the fly against int8 weights with per-column scales.
                            port of ``repro/kernels/quant_matmul/kernel.py``
                            ``fx_matvec``)
   :func:`fx_matvec_plain`  the plain PyTorch version (``fixed_point.fx_dot``)
-  :func:`int_matmul_cuda`  the hand-written kernel (``csrc/int_matmul.cu``,
-                           port of ``kernel.py`` ``int_matmul``)
+  :func:`int_matmul_cuda`  the hand-written kernels (``csrc/int_matmul.cu``,
+                           port of ``kernel.py`` ``int_matmul``): int8
+                           tensor cores for M > 16, a stream over b for
+                           M <= 16, as :func:`int_matmul_plan` decides
   :func:`int_matmul_plain`, :func:`quant_matmul_plain`
                            the plain PyTorch versions (``ref.py``)
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from ..core.fixed_point import fx_dot
 from ..core.quantization import symmetric_quantize
@@ -42,6 +47,7 @@ def fx_matvec_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return fx_dot(x_q, w_q, frac_bits)
 
 
+@functools.cache
 def _bind() -> ctypes.CDLL:
     lib = build.load("fx_matvec")
     fn = lib.fx_matvec_launch
@@ -94,8 +100,78 @@ dispatch.register_op("fx_matvec", cuda=fx_matvec_cuda, plain=fx_matvec_plain)
 
 #: the largest K whose int32 sum cannot overflow: K * 128**2 <= 2**31
 MAX_K = 1 << 17
-#: rows of the kernel's grid: 65535 tiles of 64
-MAX_M = 65535 * 64
+#: columns of c: the tensor-core grid's y axis holds 65535 tiles of 128
+MAX_N = 65535 * 128
+#: the most rows of a that the streaming (decode) kernel takes; more rows
+#: go to the tensor cores
+STREAM_MAX_M = 16
+#: SMs of an H100: the planner's default card
+H100_SMS = 132
+#: the tensor-core kernel's tile: 128 x 128 of c, 128 bytes of k per step
+TC_TILE = TC_BK = 128
+#: the streaming kernel: 256 columns per block, k in passes of 64 (16
+#: groups of 4), at most 4096 k per block (a's slice lives in shared
+#: memory), ~4 blocks in flight per SM
+STREAM_COLS, STREAM_KSTEP, STREAM_MAX_KSPLIT = 256, 64, 4096
+STREAM_BLOCKS_PER_SM = 4
+
+
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+@dataclasses.dataclass(frozen=True)
+class IntMatmulPlan:
+    """How one ``int_matmul`` launch runs: ``path`` "tc" (int8 tensor
+    cores) or "stream" (a pass over b for a few rows of a), ``splits``
+    slices of K, slice z covering k in ``[z * k_per_split, min(K, (z + 1)
+    * k_per_split))`` (partial sums meet in c through integer atomics when
+    ``splits > 1``), and for "stream" ``mt`` rows of a per block."""
+
+    path: str
+    splits: int
+    k_per_split: int
+    mt: int = 0
+
+
+def int_matmul_plan(m: int, n: int, k: int,
+                    n_sms: int = H100_SMS) -> IntMatmulPlan:
+    """The launch of ``int_matmul`` for a ``[m, k] @ [k, n]`` product on a
+    card with ``n_sms`` SMs (m, n, k >= 1; the tensor-core kernel's k,
+    padded to a multiple of 16, has as many TC_BK steps).  K is split only as far as it takes
+    to give every SM work: "tc" when fewer tiles than SMs, "stream" to
+    about STREAM_BLOCKS_PER_SM blocks per SM."""
+    if m <= STREAM_MAX_M:
+        mt = 1 if m == 1 else 4
+        blocks = _cdiv(n, STREAM_COLS) * _cdiv(m, mt)
+        want = _cdiv(STREAM_BLOCKS_PER_SM * n_sms, blocks)
+        splits = max(1, min(want, _cdiv(k, STREAM_KSTEP)))
+        kps = min(_cdiv(_cdiv(k, splits), STREAM_KSTEP) * STREAM_KSTEP,
+                  STREAM_MAX_KSPLIT)
+        return IntMatmulPlan("stream", _cdiv(k, kps), kps, mt)
+    ksteps = _cdiv(k, TC_BK)
+    tiles = _cdiv(m, TC_TILE) * _cdiv(n, TC_TILE)
+    splits = max(1, min(n_sms // tiles, ksteps))
+    per_split = _cdiv(ksteps, splits)
+    return IntMatmulPlan("tc", _cdiv(ksteps, per_split), per_split * TC_BK)
+
+
+def tma_operands(a_q: torch.Tensor, b_q: torch.Tensor):
+    """a and b as the tensor-core path reads them through TMA: 16-byte
+    aligned, K and b's row pitch multiples of 16.  An operand that is not
+    gets a zero-padded copy (zero k adds nothing; columns of b past N are
+    not stored).  Returns ``(a, b)``; ``b.shape[1]`` is the row pitch."""
+    (m, k), n = a_q.shape, b_q.shape[1]
+    kp, np_ = _cdiv(k, 16) * 16, _cdiv(n, 16) * 16
+    if kp != k:
+        a_q = F.pad(a_q, (0, kp - k))
+    elif a_q.data_ptr() % 16:
+        a_q = a_q.clone()
+    if kp != k or np_ != n:
+        b_q = F.pad(b_q, (0, np_ - n, 0, kp - k))
+    elif b_q.data_ptr() % 16:
+        b_q = b_q.clone()
+    return a_q, b_q
 
 
 def int_matmul_plain(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
@@ -122,18 +198,28 @@ def quant_matmul_plain(a_q: torch.Tensor, b_q: torch.Tensor,
     return _dequant(int_matmul_plain(a_q, b_q), a_scale, b_scale, out_dtype)
 
 
-def _bind_int_matmul():
-    fn = build.load("int_matmul").int_matmul_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.cache
+def _int_matmul_fns():
+    """The two C entry points, bound once (``argtypes`` set once)."""
+    lib = build.load("int_matmul")
+    tc, stream = lib.int_matmul_tc_launch, lib.int_matmul_stream_launch
+    tc.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    stream.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+    tc.restype = stream.restype = ctypes.c_int
+    return tc, stream
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def int_matmul_cuda(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
-    """Launch the int8 matmul kernel on the current stream; raises on
-    anything it does not take and on a launch error.  An empty product
-    launches nothing."""
+    """Launch the int8 matmul kernel :func:`int_matmul_plan` picks, on the
+    current stream; raises on anything it does not take and on a launch
+    error.  An empty product launches nothing."""
     if not (a_q.is_cuda and b_q.device == a_q.device):
         raise ValueError(f"int_matmul_cuda: a and b must be on one CUDA "
                          f"device, got {a_q.device} and {b_q.device}")
@@ -146,21 +232,30 @@ def int_matmul_cuda(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     if not (a_q.is_contiguous() and b_q.is_contiguous()):
         raise ValueError("int_matmul_cuda: operands must be contiguous")
     (m, k), n = a_q.shape, b_q.shape[1]
-    if k > MAX_K or m > MAX_M:
+    if k > MAX_K or n > MAX_N:
         raise ValueError(f"int_matmul_cuda: K={k} > {MAX_K} could overflow "
-                         f"int32, or M={m} > {MAX_M}")
+                         f"int32, or N={n} > {MAX_N}")
     out = torch.empty((m, n), dtype=torch.int32, device=a_q.device)
     if out.numel() == 0:
         return out
     if k == 0:
         return out.zero_()
-    launch = _bind_int_matmul()
+    tc, stream_fn = _int_matmul_fns()
     with torch.cuda.device(a_q.device):
-        err = launch(a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, n, k,
-                     torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        plan = int_matmul_plan(m, n, k, _sm_count(a_q.device.index))
+        if plan.path == "stream":
+            err = stream_fn(a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(),
+                            m, n, k, plan.mt, plan.splits, plan.k_per_split,
+                            stream)
+        else:
+            a_t, b_t = tma_operands(a_q, b_q)
+            err = tc(a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(), m, n,
+                     a_t.shape[1], b_t.shape[1], plan.splits,
+                     plan.k_per_split // TC_BK, stream)
     if err:
-        raise RuntimeError(f"int_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"int_matmul kernel launch failed: error {err} "
+                           f"(CUDA error, or -1/-2: no TMA tensor map)")
     dispatch.count_launch("int_matmul")
     return out
 

@@ -26,7 +26,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
 from repro_torch.kernels.quant_matmul import (fx_matvec_cuda, fx_matvec_plain,
                                               int_matmul_cuda,
-                                              int_matmul_plain, quant_dense)
+                                              int_matmul_plain,
+                                              int_matmul_plan, quant_dense)
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.kernels.sparse_gather import (IDX_PAD, ROW_PAD_ID,
@@ -300,8 +301,9 @@ def test_emb_fit_on_the_card_equals_the_cpu_fit(cuda):
 
 #: the kernel and its plain version both compute attention in float32, in
 #: other orders (and expf against ATen's exp): float32 outputs agree to
-#: ~1e-6 of their O(1) size; a bf16 output may round to the neighbouring
-#: bf16 value (one ulp is 2**-6 below 4)
+#: ~1e-6 of their O(1) size; in bf16 the tensor-core kernel rounds the
+#: softmax weights to bf16 (2**-9 relative) before P @ V, and the output
+#: may round to the neighbouring bf16 value (one ulp is 2**-6 below 4)
 MHA_F32_ATOL, MHA_BF16_ATOL = 1e-5, 2e-2
 
 
@@ -323,7 +325,52 @@ def test_int_matmul_kernel_equals_plain(cuda, m, k, n):
     assert torch.equal(out, int_matmul_plain(a, b))
 
 
+@pytest.mark.parametrize("m", [16, 17, 320, 963])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (12288, 4096)])
+def test_int_matmul_exact_at_the_path_boundary_and_prompt_lengths(
+        cuda, m, k, n):
+    """M = 16 is the streaming kernel's last row count, 17 the tensor
+    cores' first; 320 and 963 are the serve load's shortest and longest
+    prompts, at both qwen3-8b MLP shapes."""
+    assert int_matmul_plan(m, n, k).path == ("stream" if m <= 16 else "tc")
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a, b = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+    a[0], b[:, 0] = -128, -128
+    out = int_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, int_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (17, 4099, 12288), (963, 61, 4096), (320, 4096, 1000), (16, 4099, 1000),
+    (1, 61, 70), (300, 4099, 70), (129, 12288, 136)])
+def test_int_matmul_ragged_k_and_n(cuda, m, k, n):
+    """K off the 128-byte (tensor cores) and 64 (stream) steps and off 16
+    (the TMA rows' rule: a zero-padded copy), N off the 128-column tile;
+    (129, 12288, 136) also splits K over the CTAs."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    a, b = _int8(gen, (m, k), cuda), _int8(gen, (k, n), cuda)
+    out = int_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, int_matmul_plain(a, b))
+
+
+def test_int_matmul_unaligned_operands_stream_bytes(cuda):
+    """M <= 16 with b 1 byte past an alignment: the streaming kernel's
+    byte loads."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    flat = _int8(gen, (1 + 7 * 64 + 64 * 48,), cuda)
+    a = flat[1:1 + 7 * 64].view(7, 64)
+    b = flat[1 + 7 * 64:].view(64, 48)
+    assert b.data_ptr() % 16 and int_matmul_plan(7, 48, 64).path == "stream"
+    out = int_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, int_matmul_plain(a, b))
+
+
 def test_int_matmul_unaligned_operands_take_the_byte_path(cuda):
+    """M > 16 with a and b 1 byte past an alignment: the tensor-core path
+    reads 16-byte aligned copies (tma_operands)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     flat = _int8(gen, (1 + 40 * 64 + 64 * 36,), cuda)
     a = flat[1:1 + 40 * 64].view(40, 64)           # 1 byte past alignment
@@ -377,6 +424,71 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert out.dtype == dtype and out.shape == ref.shape
     tol = MHA_BF16_ATOL if dtype == torch.bfloat16 else MHA_F32_ATOL
     assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def _qkv(gen, b, hq, hkv, sq, skv, d, dtype, dev):
+    # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv does
+    return [torch.randn((b, s, h, d), generator=gen, device=dev)
+            .to(dtype).transpose(1, 2)
+            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+
+
+def _attention_error(q, k, v, **kw):
+    out = mha_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = mha_plain(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    return float((out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("sq", [963, 77])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("hkv", [8, 4, 2])
+def test_flash_attention_bf16_tensor_cores_match_plain(cuda, sq, d, hkv):
+    """The wgmma kernel at prompt lengths that are not multiples of its
+    128-row tile, D padded to 64 or 128 by TMA's zero fill, and GQA
+    groups 1, 2 and 4 (8 query heads), causal."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + d + hkv)
+    q, k, v = _qkv(gen, 1, 8, hkv, sq, sq, d, torch.bfloat16, cuda)
+    assert _attention_error(q, k, v) <= MHA_BF16_ATOL
+
+
+@pytest.mark.parametrize("case", [
+    dict(sq=963, skv=963, window=256),
+    dict(sq=1, skv=963, q_offset=962),                       # decode
+    dict(sq=1, skv=300, q_offset=299, window=64),
+    dict(sq=77, skv=500, q_offset=423),                      # chunk
+    dict(sq=200, skv=200, causal=False),
+    dict(sq=130, skv=130, causal=False, window=50),
+])
+def test_flash_attention_bf16_windows_and_offsets(cuda, case):
+    case = dict(case)
+    sq, skv = case.pop("sq"), case.pop("skv")
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q, k, v = _qkv(gen, 2, 8, 2, sq, skv, 128, torch.bfloat16, cuda)
+    assert _attention_error(q, k, v, **case) <= MHA_BF16_ATOL
+
+
+def test_flash_attention_bf16_copies_views_tma_cannot_read(cuda):
+    """D = 36 (rows of 72 bytes: zero-padded to 40) and a view 2 bytes past
+    an alignment (copied) still match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _qkv(gen, 1, 4, 2, 100, 100, 36, torch.bfloat16, cuda)
+    assert _attention_error(q, k, v) <= MHA_BF16_ATOL
+    flat = torch.randn(1 + 4 * 100 * 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    q = flat[1:].view(1, 4, 100, 64)
+    assert q.data_ptr() % 16
+    k, v = _qkv(gen, 1, 2, 2, 100, 100, 64, torch.bfloat16, cuda)[1:]
+    assert _attention_error(q, k, v) <= MHA_BF16_ATOL
+
+
+def test_flash_attention_f32_stays_on_the_cuda_cores(cuda):
+    """float32 keeps the CUDA-core template and its float32 tolerance at
+    the serving shape."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = _qkv(gen, 1, 32, 16, 963, 963, 128, torch.float32, cuda)
+    assert _attention_error(q, k, v) <= MHA_F32_ATOL
 
 
 def test_serve_on_the_card_counts_launches_and_matches_the_cpu(cuda):

@@ -1,0 +1,138 @@
+"""Launch planning and operand staging of the port's tensor-core kernels,
+on the CPU: which ``int_matmul`` kernel runs for which M, how K is split
+(every k covered exactly once), and the copies made when a TMA tensor map
+cannot read an operand as it lies.  The staged operands are held against the JAX package's reference.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.quant_matmul.ref import int_matmul_ref
+from repro_torch.kernels.flash_attention import (mha_plain, tma_ready,
+                                                 tma_views)
+from repro_torch.kernels.quant_matmul import (H100_SMS, STREAM_MAX_KSPLIT,
+                                              STREAM_MAX_M, TC_BK,
+                                              int_matmul_plain,
+                                              int_matmul_plan, tma_operands)
+
+#: qwen3-8b's MLP shapes (K, N) and M at decode, the path boundary and the
+#: serve load's prompts; then ragged and tiny shapes
+SHAPES = ([(m, k, n) for m in (1, 7, 16, 17, 320, 963)
+           for k, n in ((4096, 12288), (12288, 4096))]
+          + [(1, 1, 1), (5, 61, 13), (33, 4099, 1000), (129, 12288, 136),
+             (16, 131072, 16), (4000, 64, 70000)])
+
+
+def _int8(rng, shape):
+    return torch.from_numpy(rng.randint(-128, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("m", [1, 2, 15, 16, 17, 64, 963])
+def test_int_matmul_path_by_rows(m):
+    plan = int_matmul_plan(m, 4096, 12288)
+    assert plan.path == ("stream" if m <= STREAM_MAX_M else "tc")
+    if plan.path == "stream":
+        assert plan.mt == (1 if m == 1 else 4)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_int_matmul_splits_cover_every_k_once(m, k, n, sms):
+    plan = int_matmul_plan(m, n, k, sms)
+    step = TC_BK if plan.path == "tc" else 64
+    assert plan.k_per_split % step == 0 and plan.splits >= 1
+    if plan.path == "stream":
+        assert plan.k_per_split <= STREAM_MAX_KSPLIT
+    covered = np.zeros(k, np.int64)
+    for z in range(plan.splits):
+        lo, hi = z * plan.k_per_split, min(k, (z + 1) * plan.k_per_split)
+        assert lo < hi                       # no split without work
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+def test_int_matmul_splits_only_to_fill_the_card():
+    # decode streams 11 and 32 slices of K; a prefill with enough tiles
+    # runs whole K per CTA; a few tiles split K to reach every SM
+    assert int_matmul_plan(1, 12288, 4096).splits == 11
+    assert int_matmul_plan(1, 4096, 12288).splits == 32
+    assert int_matmul_plan(963, 12288, 4096).splits == 1
+    assert int_matmul_plan(963, 4096, 12288).splits == 1
+    plan = int_matmul_plan(129, 136, 12288)
+    assert plan.path == "tc" and plan.splits * 4 >= H100_SMS // 2
+
+
+@pytest.mark.parametrize("m,k,n,offset", [
+    (40, 64, 36, 1), (17, 61, 13, 0), (20, 4096, 1000, 0), (18, 48, 48, 3),
+    (33, 4099, 70, 0)])
+def test_tma_operands_are_aligned_and_keep_the_product(m, k, n, offset):
+    """Zero-padded or copied operands: 16-byte aligned, K and b's pitch
+    multiples of 16, and the product over them, cut to N columns, equals
+    the reference's on the originals."""
+    rng = np.random.RandomState(m + k + n)
+    flat = _int8(rng, offset + m * k + k * n)
+    a = flat[offset:offset + m * k].view(m, k)
+    b = flat[offset + m * k:].view(k, n)
+    a_t, b_t = tma_operands(a, b)
+    assert a_t.data_ptr() % 16 == 0 and b_t.data_ptr() % 16 == 0
+    assert a_t.shape[1] % 16 == 0 and b_t.shape[1] % 16 == 0
+    assert a_t.shape[1] == b_t.shape[0] and a_t.shape[0] == m
+    ref = np.asarray(int_matmul_ref(jnp.asarray(a.numpy()),
+                                    jnp.asarray(b.numpy())))
+    np.testing.assert_array_equal(int_matmul_plain(a_t, b_t)[:, :n].numpy(),
+                                  ref)
+
+
+def test_tma_operands_keep_aligned_operands():
+    rng = np.random.RandomState(0)
+    a, b = _int8(rng, (32, 4096)), _int8(rng, (4096, 12288))
+    a_t, b_t = tma_operands(a, b)
+    assert a_t is a and b_t is b
+
+
+def test_tma_views_read_projection_views_in_place():
+    """_project_qkv's transposed [B, S, H, D] views: every stride a multiple
+    of 8 elements, so the kernel reads them without a copy."""
+    x = torch.randn(2, 77, 24, 128).to(torch.bfloat16)
+    q = x[:, :, :16].transpose(1, 2)
+    k, v = x[:, :, 16:20].transpose(1, 2), x[:, :, 20:].transpose(1, 2)
+    assert all(tma_ready(t) for t in (q, k, v))
+    views = tma_views(q, k, v)
+    assert all(t.data_ptr() == u.data_ptr() for t, u in zip(views, (q, k, v)))
+
+
+def test_tma_views_pad_d_and_copy_unaligned_views():
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 4, 50, 36).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    assert not tma_ready(q)                   # rows of 72 bytes
+    qp, kp, vp = tma_views(q, k, v)
+    assert qp.shape == (1, 4, 50, 40) and all(tma_ready(t)
+                                              for t in (qp, kp, vp))
+    assert torch.equal(qp[..., :36], q) and not qp[..., 36:].any()
+    # the zero columns leave q . k as it was
+    assert torch.equal(torch.einsum("bhqd,bhkd->bhqk", qp.float(), kp.float()),
+                       torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()))
+    flat = torch.zeros(1 + 4 * 50 * 64, dtype=torch.bfloat16)
+    u = flat[1:].view(1, 4, 50, 64)
+    assert not tma_ready(u)
+    w = torch.zeros(1, 4, 50, 64, dtype=torch.bfloat16)
+    uc, wc, _ = tma_views(u, w, w)
+    assert tma_ready(uc) and torch.equal(uc, u) and wc is w
+
+
+def test_tma_views_keep_the_plain_result():
+    """Attention over the staged views (D padded with zeros) equals
+    attention over the originals once the scale is the original D's."""
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 30, 20).astype(np.float32))
+               for _ in range(3))
+    qp, kp, vp = tma_views(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                           v.to(torch.bfloat16))
+    assert qp.shape[-1] == 24
+    scale = (24 / 20) ** 0.5            # mha_plain scales by the padded D
+    out = mha_plain(qp.float() * scale, kp.float(), vp.float())[..., :20]
+    ref = mha_plain(q.to(torch.bfloat16).float(), k.to(torch.bfloat16).float(),
+                    v.to(torch.bfloat16).float())
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
