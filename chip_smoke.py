@@ -52,7 +52,10 @@ Phases, in order; any failure exits non-zero:
                 prefill + decode against the forward's last position;
                 then the reduced model in float32 on the card and the CPU
   5. timing   each kernel and its plain version with CUDA events (median
-              of TIMING_RUNS, L2 flushed between runs) beside its bound
+              of TIMING_RUNS, each run after L2Flush: a flush that reads
+              a 256 MB buffer, then a device sleep that covers the host's
+              enqueue; the method's floor, a one-element add_, first)
+              beside its bound
               and, for the EMB and LM kernels, the nearest PyTorch call
               (int_matmul at M = 1 and at the shortest and longest
               prompts, with the rate reached, its share of the bound and
@@ -83,6 +86,10 @@ N_SAMPLES = 6_291_456          # the paper's strong-scaling LIN/LOG dataset
 N_FEATURES = 16
 ITERS = 10
 TIMING_RUNS = 20
+#: the device sleep after a reading L2 flush: ~0.5 ms at the H100's boost
+#: clock (1.98 GHz), longer than the host takes to enqueue a kernel
+#: wrapper (29-83 us per call, PR 15)
+FLUSH_SLEEP_CYCLES = 1_000_000
 #: fp32 CPU-vs-card tolerance: cuBLAS and ATen's CPU kernels sum the
 #: per-core products and the gradient rows in different orders
 FP32_RTOL, FP32_ATOL = 1e-4, 1e-6
@@ -179,14 +186,32 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(torch, fn, flush) -> float:
+class L2Flush:
+    """What runs before each timed call, so that the call finds L2 cold:
+    sum a 256 MB buffer into a preallocated scalar, which leaves L2
+    holding clean lines of the buffer (zeroing it would leave ~50 MB of
+    dirty lines whose write-back the timed call pays), then a device sleep
+    of FLUSH_SLEEP_CYCLES, so that the host has enqueued the timed call
+    before its start event fires."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.buf = torch.zeros(32 << 20, dtype=torch.int64, device="cuda")
+        self.sink = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def __call__(self) -> None:
+        self.torch.sum(self.buf, 0, out=self.sink)
+        self.torch.cuda._sleep(FLUSH_SLEEP_CYCLES)
+
+
+def cuda_ms(torch, fn, flush: L2Flush) -> float:
     """Median CUDA-event time of ``fn()`` in ms over TIMING_RUNS runs,
-    after two warm-up runs, with the L2 cache flushed before each."""
+    after two warm-up runs, with ``flush()`` before each."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(TIMING_RUNS):
-        flush.zero_()
+        flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -331,13 +356,15 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
     """emb_gather and emb_scatter_add against their plain versions at the
     EMB main shapes: the Netflix-size tables placed over 2048 cores
     ([2048, 235, 16] users, [2048, 9, 16] items; both tails pad) with 64
-    Zipf lookups; a padded deferred flush (8 batches deduplicated, padded
-    with IDX_PAD to a multiple of 64); 64 copies of one hot id; and a
-    ragged shape with misses.  int32 tables and updates are full-range,
-    so the sums wrap.  Returns the max abs errors and the main inputs."""
+    Zipf lookups; at both, a padded deferred flush (8 batches
+    deduplicated, padded with IDX_PAD to a multiple of 64); 64 copies of
+    one hot id; and a ragged shape with misses.  int32 tables and updates
+    are full-range, so the sums wrap.  The gathers search each table's
+    gather index, built once per placement.  Returns the max abs errors
+    and the main inputs per table and dtype."""
     from repro_torch.kernels.sparse_gather import (
         IDX_PAD, emb_gather_cuda, emb_gather_plain, emb_scatter_add_cuda,
-        emb_scatter_add_plain)
+        emb_scatter_add_plain, gather_index)
     rng = np.random.RandomState(SEED)
     system = make_system("pim", n_cores=N_CORES, device="cuda")
 
@@ -350,7 +377,7 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
         else:
             v = rng.uniform(0.5, 2.0, shape).astype(np.float32)
             v *= rng.choice([-1, 1], shape)           # finite, never 0
-        return torch.from_numpy(v).to(dev), t.ids_device(), t
+        return torch.from_numpy(v).to(dev), t
 
     def rows(n, dtype):
         if dtype == "int32":
@@ -362,40 +389,47 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
     def ids_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    flush = np.unique(zipf_ids(rng, EMB_FLUSH * EMB_BATCH, EMB_USERS))
-    pad = -len(flush) % EMB_BATCH
-    flush = np.concatenate([flush, np.full(pad, IDX_PAD, np.int32)])
-    eager = zipf_ids(rng, EMB_BATCH, EMB_USERS)
+    def padded_flush(vocab):
+        flush = np.unique(zipf_ids(rng, EMB_FLUSH * EMB_BATCH, vocab))
+        pad = -len(flush) % EMB_BATCH
+        return np.concatenate([flush, np.full(pad, IDX_PAD, np.int32)])
+
+    vocabs = {"users": EMB_USERS, "items": EMB_ITEMS}
+    eager = {k: zipf_ids(rng, EMB_BATCH, v) for k, v in vocabs.items()}
+    flushes = {k: padded_flush(v) for k, v in vocabs.items()}
     err_g = err_s = 0
     main = {}
     for dtype in ("int32", "fp32"):
-        ut, uids, utable = table(EMB_USERS, dtype)
-        it, iids, _ = table(EMB_ITEMS, dtype)
+        tabs = {k: table(v, dtype) for k, v in vocabs.items()}
         rt = torch.from_numpy(rng.randint(-99, 99, (7, 13, 3))
                               .astype(np.int32)).to(dev)
         rt = rt if dtype == "int32" else rt.float() + 0.5
         rids = ids_dev(np.arange(7 * 13).reshape(13, 7).T)
         ragged = ids_dev([5, 90, IDX_PAD, 91, 5, 12, 300, 6, 5])
-        gathers = {
-            f"users {tuple(ut.shape)}, 64 Zipf lookups": (ut, uids,
-                                                          ids_dev(eager)),
-            f"items {tuple(it.shape)}, 64 Zipf lookups": (
-                it, iids, ids_dev(zipf_ids(rng, EMB_BATCH, EMB_ITEMS))),
-            "ragged (7, 13, 3), misses and IDX_PAD": (rt, rids, ragged)}
-        scatters = {
-            "users, one eager batch of 64 Zipf ids": (
-                ut, uids, ids_dev(eager), rows(EMB_BATCH, dtype)),
-            f"users, a padded D={EMB_FLUSH} flush of {len(flush)} rows": (
-                ut, uids, ids_dev(flush), rows(len(flush), dtype)),
-            "users, 64 copies of one hot id": (
-                ut, uids, ids_dev(np.zeros(EMB_BATCH)),
-                rows(EMB_BATCH, dtype)),
-            "items, one eager batch of 64 Zipf ids": (
-                it, iids, ids_dev(zipf_ids(rng, EMB_BATCH, EMB_ITEMS)),
-                rows(EMB_BATCH, dtype)),
-            "ragged (7, 13, 3), duplicates, misses and IDX_PAD": (
-                rt, rids, ragged, rows(9, dtype)[:, :3].contiguous()
-                .to(rt.dtype))}
+        gathers = {"ragged (7, 13, 3), misses and IDX_PAD": (
+            rt, rids, ragged, gather_index(rids))}
+        scatters = {"ragged (7, 13, 3), duplicates, misses and IDX_PAD": (
+            rt, rids, ragged, rows(9, dtype)[:, :3].contiguous()
+            .to(rt.dtype))}
+        for name, (tab, t) in tabs.items():
+            ids, index = t.ids_device(), t.gather_index()
+            shape = tuple(tab.shape)
+            gathers[f"{name} {shape}, 64 Zipf lookups"] = (
+                tab, ids, ids_dev(eager[name]), index)
+            scatters[f"{name} {shape}, one eager batch of 64 Zipf ids"] = (
+                tab, ids, ids_dev(eager[name]), rows(EMB_BATCH, dtype))
+            scatters[f"{name}, a padded D={EMB_FLUSH} flush of "
+                     f"{len(flushes[name])} rows"] = (
+                tab, ids, ids_dev(flushes[name]),
+                rows(len(flushes[name]), dtype))
+            main[name, dtype] = {
+                "table": tab, "ids": ids, "index": index, "placement": t,
+                "idx": ids_dev(eager[name]), "upd": rows(EMB_BATCH, dtype),
+                "flush": ids_dev(flushes[name]),
+                "flush_upd": rows(len(flushes[name]), dtype)}
+        scatters["users, 64 copies of one hot id"] = (
+            tabs["users"][0], tabs["users"][1].ids_device(),
+            ids_dev(np.zeros(EMB_BATCH)), rows(EMB_BATCH, dtype))
         for name, args in gathers.items():
             err_g = max(err_g, same(torch, [emb_gather_cuda(*args)],
                                     [emb_gather_plain(*args)]))
@@ -408,10 +442,6 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
             if not torch.equal(args[0], before):
                 fail("emb_scatter_add wrote its input table")
             say(f"kernels: emb_scatter_add == plain, {dtype} {name}")
-        main[dtype] = {"table": ut, "ids": uids, "placement": utable,
-                       "idx": ids_dev(eager), "flush": ids_dev(flush),
-                       "upd": rows(EMB_BATCH, dtype),
-                       "flush_upd": rows(len(flush), dtype)}
     return err_g, err_s, main
 
 
@@ -530,49 +560,60 @@ def emb_card_equals_cpu(make_system, make_estimator) -> None:
 
 def emb_kernel_times(torch, emb: dict, flush) -> dict:
     """CUDA-event times of both EMB kernels at the main shapes (the user
-    table, one eager batch; the scatter also on the padded flush), their
-    plain versions, their bounds, and the nearest PyTorch call on the flat
-    (C*R, D) table with the lookups' slots computed on the host."""
+    and the item table, int32 and float32, one eager batch; the scatter
+    also on each table's padded flush), their plain versions, their
+    bounds, and the nearest PyTorch call on the flat (C*R, D) table with
+    the lookups' slots computed on the host.  Keys of the users table
+    (int32) are bare; the other cases carry a prefix."""
     from repro_torch.kernels.sparse_gather import (
         emb_gather_cuda, emb_gather_plain, emb_scatter_add_cuda,
         emb_scatter_add_plain)
-    e, f = emb["int32"], emb["fp32"]
-    n_cores, n_rows, dim = e["table"].shape
-    ids = e["placement"].ids
-    slot_of = np.full(e["placement"].n_rows, -1, np.int64)
-    slot_of[ids[ids >= 0]] = np.flatnonzero(ids >= 0)
-    slot = torch.from_numpy(slot_of[e["idx"].cpu().numpy()]).to(
-        e["table"].device)
-    flat = e["table"].view(-1, dim)
-    b = e["idx"].numel()
 
     def gather(d):
-        return emb_gather_cuda(d["table"], d["ids"], d["idx"])
+        return emb_gather_cuda(d["table"], d["ids"], d["idx"], d["index"])
 
     def scatter(d, key="idx", upd="upd"):
         return emb_scatter_add_cuda(d["table"], d["ids"], d[key], d[upd])
-    g = dict(ms=cuda_ms(torch, lambda: gather(e), flush),
-             fp32_ms=cuda_ms(torch, lambda: gather(f), flush),
-             plain_ms=cuda_ms(torch, lambda: emb_gather_plain(
-                 e["table"], e["ids"], e["idx"]), flush),
-             library_call="torch.index_select",
-             library_ms=cuda_ms(torch, lambda: torch.index_select(
-                 flat, 0, slot), flush))
-    g["bound_ms"], g["bound_by"] = bound(
-        n_cores * n_rows * 4 + b * 4 + n_cores * b * dim * 4,
-        n_cores * n_rows * b)
-    s = dict(ms=cuda_ms(torch, lambda: scatter(e), flush),
-             fp32_ms=cuda_ms(torch, lambda: scatter(f), flush),
-             flush_ms=cuda_ms(torch, lambda: scatter(e, "flush", "flush_upd"),
-                              flush),
-             plain_ms=cuda_ms(torch, lambda: emb_scatter_add_plain(
-                 e["table"], e["ids"], e["idx"], e["upd"]), flush),
-             library_call="torch.index_add",
-             library_ms=cuda_ms(torch, lambda: torch.index_add(
-                 flat, 0, slot, e["upd"]), flush))
-    s["bound_ms"], s["bound_by"] = bound(
-        2 * n_cores * n_rows * dim * 4 + n_cores * n_rows * 4 + b * 4
-        + b * dim * 4, n_cores * n_rows * b)
+
+    g, s = {}, {}
+    for name in ("users", "items"):
+        e, f = emb[name, "int32"], emb[name, "fp32"]
+        pre = "" if name == "users" else "items_"
+        n_cores, n_rows, dim = e["table"].shape
+        ids = e["placement"].ids
+        slot_of = np.full(e["placement"].n_rows, -1, np.int64)
+        slot_of[ids[ids >= 0]] = np.flatnonzero(ids >= 0)
+        slot = torch.from_numpy(slot_of[e["idx"].cpu().numpy()]).to(
+            e["table"].device)
+        flat = e["table"].view(-1, dim)
+        b = e["idx"].numel()
+        g[pre + "ms"] = cuda_ms(torch, lambda: gather(e), flush)
+        g[pre + "fp32_ms"] = cuda_ms(torch, lambda: gather(f), flush)
+        g[pre + "library_ms"] = cuda_ms(torch, lambda: torch.index_select(
+            flat, 0, slot), flush)
+        # what the function moves: the [C, B, D] partials, the B rows it
+        # looks up and idx; PR 13-15 counted every id and C*R*B compares
+        g[pre + "bound_ms"], g[pre + "bound_by"] = bound(
+            n_cores * b * dim * 4 + b * dim * 4 + b * 4, 0)
+        g[pre + "old_bound_ms"], _ = bound(
+            n_cores * n_rows * 4 + b * 4 + n_cores * b * dim * 4,
+            n_cores * n_rows * b)
+        s[pre + "ms"] = cuda_ms(torch, lambda: scatter(e), flush)
+        s[pre + "fp32_ms"] = cuda_ms(torch, lambda: scatter(f), flush)
+        s[pre + "flush_ms"] = cuda_ms(
+            torch, lambda: scatter(e, "flush", "flush_upd"), flush)
+        s[pre + "library_ms"] = cuda_ms(torch, lambda: torch.index_add(
+            flat, 0, slot, e["upd"]), flush)
+        s[pre + "bound_ms"], s[pre + "bound_by"] = bound(
+            2 * n_cores * n_rows * dim * 4 + n_cores * n_rows * 4 + b * 4
+            + b * dim * 4, n_cores * n_rows * b)
+    e = emb["users", "int32"]
+    g["plain_ms"] = cuda_ms(torch, lambda: emb_gather_plain(
+        e["table"], e["ids"], e["idx"]), flush)
+    s["plain_ms"] = cuda_ms(torch, lambda: emb_scatter_add_plain(
+        e["table"], e["ids"], e["idx"], e["upd"]), flush)
+    g["library_call"], s["library_call"] = ("torch.index_select",
+                                            "torch.index_add")
     return {"emb_gather": g, "emb_scatter_add": s}
 
 
@@ -1265,8 +1306,13 @@ def main() -> int:
     lm_card_equals_cpu(torch)
 
     # -- 5. timing -----------------------------------------------------------
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     n = x.numel() // N_FEATURES
+
+    flush = L2Flush(torch)
+    # the method's floor: no kernel reads below a one-element add_
+    tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
+    say(f"timing: the method's floor, a one-element add_, "
+        f"{cuda_ms(torch, lambda: tiny.add_(1), flush):.4f} ms on {smi}")
     fx = dict(ms=cuda_ms(torch, lambda: fx_matvec_cuda(x, w, 10), flush),
               plain_ms=cuda_ms(torch, lambda: fx_matvec_plain(x, w, 10),
                                flush))
@@ -1275,8 +1321,8 @@ def main() -> int:
                                            n * N_FEATURES * 4)
     lu = dict(ms=cuda_ms(torch, lambda: lut_sigmoid_cuda(z, lut, "wram"),
                          flush),
-              mram_ms=cuda_ms(torch, lambda: lut_sigmoid_cuda(z, lut, "mram"),
-                              flush),
+              mram_ms=cuda_ms(torch, lambda: lut_sigmoid_cuda(
+                  z, lut, "mram"), flush),
               plain_ms=cuda_ms(torch, lambda: lut_sigmoid_plain(z, lut),
                                flush))
     lu["bound_ms"], lu["bound_by"] = bound(z.numel() * 8 + n_table * 2,
@@ -1285,8 +1331,9 @@ def main() -> int:
         say(f"timing: {name} {t['ms']:.4f} ms"
             + (f" (mram placement {t['mram_ms']:.4f} ms)"
                if "mram_ms" in t else "")
-            + f", plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}; H100 SXM peaks {PEAK_BYTES_PER_S:.3g} B/s, "
+            + f", plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; H100 SXM peaks "
+            f"{PEAK_BYTES_PER_S:.3g} B/s, "
             f"{PEAK_INT32_OPS_PER_S:.3g} int32 op/s) on {smi}")
 
     kx, kc = km["x"], km["c"]
@@ -1313,7 +1360,8 @@ def main() -> int:
         n_gi * N_FEATURES, PEAK_FP32_OPS_PER_S)
     say(f"timing: kmeans_assign {kt['ms']:.4f} ms, plain "
         f"{kt['plain_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
-        f"({kt['bound_by']}: {2 * n_km * KME_K * N_FEATURES:.4g} int32 ops "
+        f"({kt['bound_by']}: {2 * n_km * KME_K * N_FEATURES:.4g} int32 "
+        f"ops "
         f"at {PEAK_INT32_OPS_PER_S:.3g}/s) at {tuple(kx.shape)} K={KME_K} "
         f"on {smi}")
     say(f"timing: gini_counts {gt['ms']:.4f} ms (leaves spread over 2^10), "
@@ -1321,18 +1369,25 @@ def main() -> int:
         f"{gt['plain_ms']:.4f} ms, bound {gt['bound_ms']:.4f} ms "
         f"({gt['bound_by']}) at {tuple(gi['x'].shape)} L={n_leaves} "
         f"on {smi}")
-    del km, gi, kx, kc, g_args, g_root
     et = emb_kernel_times(torch, emb, flush)
     for name in ("emb_gather", "emb_scatter_add"):
         t = et[name]
-        say(f"timing: {name} {t['ms']:.4f} ms int32, {t['fp32_ms']:.4f} ms "
-            f"fp32" + (f", padded D={EMB_FLUSH} flush {t['flush_ms']:.4f} ms"
-                       if "flush_ms" in t else "")
-            + f"; plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']}); {t['library_call']} "
-            f"{t['library_ms']:.4f} ms (it needs a slot map the kernel "
-            f"does not receive) at {tuple(emb['int32']['table'].shape)}, "
-            f"B={EMB_BATCH}, on {smi}")
+        for pre, table in (("", "users"), ("items_", "items")):
+            shape = tuple(emb[table, "int32"]["table"].shape)
+            say(f"timing: {name} {table} {shape} {t[pre + 'ms']:.4f} ms "
+                f"int32, {t[pre + 'fp32_ms']:.4f} ms fp32"
+                + (f", padded D={EMB_FLUSH} flush "
+                   f"{t[pre + 'flush_ms']:.4f} ms" if "flush_ms" in t
+                   else "")
+                + f"; bound {t[pre + 'bound_ms']:.4f} ms "
+                f"({t[pre + 'bound_by']}"
+                + (f"; PR 13-15 counted every id and compare: "
+                   f"{t[pre + 'old_bound_ms']:.4f} ms"
+                   if "old_bound_ms" in t else "")
+                + f"); {t['library_call']} {t[pre + 'library_ms']:.4f} ms "
+                f"(it needs a slot map the kernel does not receive), "
+                f"B={EMB_BATCH}, on {smi}")
+        say(f"timing: {name} plain {t['plain_ms']:.4f} ms (users, int32)")
 
     lt = lm_kernel_times(torch, flush, lm_prompt_lens)
     for (name, *shape), t in lt.items():
@@ -1346,9 +1401,11 @@ def main() -> int:
             f"({t['bound_by']}), "
             + (f"torch._int_mm {lib} at (M, K, N) {tuple(shape)}"
                if shape else f"F.scaled_dot_product_attention {lib} at "
-               f"bf16 [1, 32, {lm_prompt_lens[-1]}, 128] over 16 KV heads, "
-               f"causal") + f"; host {t['host_us']:.1f} us per wrapper call"
+               f"bf16 [1, 32, {lm_prompt_lens[-1]}, 128] over 16 KV "
+               f"heads, causal")
+            + f"; host {t['host_us']:.1f} us per wrapper call"
             f" on {smi}")
+    del flush, km, gi
 
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)

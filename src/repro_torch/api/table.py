@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.fixed_point import to_fixed
-from ..kernels.sparse_gather import ROW_PAD_ID
+from ..kernels.sparse_gather import ROW_PAD_ID, GatherIndex, gather_index
 
 #: table storage precisions (version -> dtype of the device shards)
 TABLE_VERSIONS = ("fp32", "int32")
@@ -72,6 +72,7 @@ class ShardedTable:
             grid.reshape(self.rows_per_shard, S).T)         # (S, R) int32
         self._views: Dict[tuple, Any] = {}
         self._ids_dev: Optional[torch.Tensor] = None
+        self._index: Optional[GatherIndex] = None
         #: per-shard materialization accounting (rows owned is fixed by
         #: the placement; bytes accrue per materialized view)
         self.shard_stats: List[dict] = [
@@ -107,6 +108,13 @@ class ShardedTable:
                 self._ids.reshape(-1), pad_value=ROW_PAD_ID)
             self._charge_shards(self._ids.nbytes)
         return self._ids_dev
+
+    def gather_index(self) -> GatherIndex:
+        """The gather's index of the device placement map (cached; built
+        on the device, so nothing crosses the host boundary)."""
+        if self._index is None:
+            self._index = gather_index(self.ids_device())
+        return self._index
 
     # -- sharded views -------------------------------------------------------
 

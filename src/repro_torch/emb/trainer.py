@@ -47,7 +47,7 @@ from ..core.fixed_point import _shift_round, from_fixed, to_fixed
 from ..core.linreg import check_unfused
 from ..elastic.state import pack_rng, unpack_rng
 from ..kernels import dispatch
-from ..kernels.sparse_gather import IDX_PAD
+from ..kernels.sparse_gather import IDX_PAD, GatherIndex
 from ..systems import ChunkTick, host_array, run_steps
 from ..systems.base import _tree_bytes
 from ..systems.compress import quantize_rows
@@ -105,13 +105,14 @@ class EmbResult:
 # Per-core kernels, batched over the leading cores axis.
 # ---------------------------------------------------------------------------
 
-def build_emb_fwd() -> Callable:
-    """Forward leg: both tables' shard-local gathers ([C, B, D] partials)
-    and the target relay: ``lead`` [C, 1] is 1 on shard 0 only, so the
-    replicated targets ride the reduce exactly once ([C, B])."""
+def build_emb_fwd(uindex: GatherIndex, iindex: GatherIndex) -> Callable:
+    """Forward leg: both tables' shard-local gathers ([C, B, D] partials),
+    through the tables' gather indexes, and the target relay: ``lead``
+    [C, 1] is 1 on shard 0 only, so the replicated targets ride the reduce
+    exactly once ([C, B])."""
     def _fwd(Utab, Uids, Itab, Iids, lead, iu, ii, yb):
-        return {"u": dispatch.launch("emb_gather", Utab, Uids, iu),
-                "i": dispatch.launch("emb_gather", Itab, Iids, ii),
+        return {"u": dispatch.launch("emb_gather", Utab, Uids, iu, uindex),
+                "i": dispatch.launch("emb_gather", Itab, Iids, ii, iindex),
                 "y": lead * yb}
     return _fwd
 
@@ -282,7 +283,11 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
     lead = pim.shard_rows(lead_host)
 
     update = make_emb_update(cfg, dev)
-    fwd_k = pim.named_kernel(f"emb.fwd/{cfg.version}/f{f}", build_emb_fwd)
+    # the gather indexes are this fit's tables' own, so the forward kernel
+    # is bound to them and passed to the map as a callable, under no shared
+    # name (they are not operands of the map, whose operand bytes the host
+    # target charges)
+    fwd_k = build_emb_fwd(utable.gather_index(), itable.gather_index())
     apply_k = pim.named_kernel(f"emb.apply/{cfg.version}", build_emb_apply)
     n_flushes = 0
 

@@ -4,11 +4,14 @@ Both run against a row-sharded embedding table: core ``c`` holds rows
 ``table[c, r]`` whose global row ids are ``ids[c, r]`` (``ROW_PAD_ID``
 marks the slots past the vocabulary tail).  One launch covers every core.
 
-``dispatch.launch("emb_gather", table, ids, idx)``: table ``[C, R, D]``
-(int32 Q(f) or float32), ids int32 ``[C, R]``, lookups int32 ``[B]`` ->
-``[C, B, D]`` with ``out[c, b] = table[c, r]`` where ``ids[c, r] ==
+``dispatch.launch("emb_gather", table, ids, idx, index)``: table ``[C, R,
+D]`` (int32 Q(f) or float32), ids int32 ``[C, R]``, lookups int32 ``[B]``
+-> ``[C, B, D]`` with ``out[c, b] = table[c, r]`` where ``ids[c, r] ==
 idx[b]``, zeros where core ``c`` does not own ``idx[b]`` (summing the
 cores' partials, the fabric reduce, rebuilds the looked-up rows).
+``index`` is :func:`gather_index` of ``ids``, built once per placement
+(``ShardedTable.gather_index``): the kernel searches it; the plain
+version ignores it.
 
 ``dispatch.launch("emb_scatter_add", table, ids, idx, upd)``: table
 ``[C, R, D]``, ids ``[C, R]``, idx int32 ``[B]``, update rows ``[B, D]``
@@ -33,6 +36,8 @@ sentinels never match a real id (those are >= 0) nor each other.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +52,8 @@ IDX_PAD = -2
 
 #: one launch covers every core on the grid's y (gather) axis
 MAX_CORES = 65535
+#: the scatter stages update rows in 48 KB of shared memory, one at least
+MAX_SCATTER_DIM = 8192
 #: the plain versions materialize a [chunk, R, D] product per step; this
 #: many elements at most
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -59,11 +66,36 @@ def _check_table(name: str, table: torch.Tensor, ids: torch.Tensor) -> None:
                          f"[C, R]")
 
 
+class GatherIndex(NamedTuple):
+    """The gather's index of a placement map ``ids [C, R]``: per core the
+    ids sorted ascending and the row each came from, ``[C, R]`` int32
+    each, equal ids (``ROW_PAD_ID`` slots) in ascending row order."""
+
+    ids: torch.Tensor
+    rows: torch.Tensor
+
+
+def gather_index(ids: torch.Tensor) -> GatherIndex:
+    """Build the gather's index of ``ids [C, R]`` on their device; raises
+    on an id that repeats within one core (``ROW_PAD_ID`` excepted)."""
+    if ids.dim() != 2 or ids.dtype != torch.int32:
+        raise ValueError(f"gather_index: ids must be int32 [C, R], got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    keys, rows = torch.sort(ids, dim=1, stable=True)
+    repeat = (keys[:, 1:] == keys[:, :-1]) & (keys[:, 1:] != ROW_PAD_ID)
+    if bool(repeat.any()):
+        c, r = (int(v) for v in torch.nonzero(repeat)[0])
+        raise ValueError(f"gather_index: id {int(keys[c, r])} repeats on "
+                         f"core {c}")
+    return GatherIndex(keys.contiguous(), rows.to(torch.int32).contiguous())
+
+
 def emb_gather_plain(table: torch.Tensor, ids: torch.Tensor,
-                     idx: torch.Tensor) -> torch.Tensor:
+                     idx: torch.Tensor,
+                     index: Optional[GatherIndex] = None) -> torch.Tensor:
     """Masked product-and-sum over the rows, as the reference's one-hot
     dot: each lookup matches at most one row of a shard, so the sum is a
-    selection, exact in every dtype."""
+    selection, exact in every dtype.  ``index`` is not used."""
     _check_table("emb_gather", table, ids)
     n_cores, n_rows, dim = table.shape
     out = torch.zeros((n_cores, idx.shape[0], dim), dtype=table.dtype,
@@ -96,14 +128,16 @@ def emb_scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the C entry points' arguments (the last one is the stream)
 _ARGTYPES = {
-    "emb_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "emb_scatter_add": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
-                        _P],
+    "emb_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "emb_scatter_add": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                        _I, _P],
 }
 
 
+@functools.cache
 def _bind(name: str):
-    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``."""
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``, bound
+    once."""
     fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
@@ -138,15 +172,29 @@ def _count_or_raise(name: str, err: int) -> None:
 
 
 def emb_gather_cuda(table: torch.Tensor, ids: torch.Tensor,
-                    idx: torch.Tensor) -> torch.Tensor:
+                    idx: torch.Tensor,
+                    index: Optional[GatherIndex] = None) -> torch.Tensor:
     """Launch the gather kernel on the current stream; raises on anything
-    it does not take and on a launch error.  An empty batch or table
-    launches nothing."""
+    it does not take and on a launch error.  ``index`` must be
+    :func:`gather_index` of ``ids`` (it is not rebuilt here).  An empty
+    batch or table launches nothing."""
     _check_cuda("emb_gather", table, ids, idx)
+    if index is None:
+        raise ValueError("emb_gather_cuda: the table's gather index is "
+                         "required (gather_index(ids), built once per "
+                         "placement)")
+    keys, rows = index
+    if not all(t.shape == ids.shape and t.dtype == torch.int32
+               and t.device == ids.device and t.is_contiguous()
+               for t in (keys, rows)):
+        raise ValueError("emb_gather_cuda: the gather index must be two "
+                         "contiguous int32 [C, R] tensors on the ids' device")
     n_cores, n_rows, dim = table.shape
     n_idx = idx.shape[0]
     if n_cores > MAX_CORES:
         raise ValueError(f"emb_gather_cuda: C={n_cores} > {MAX_CORES}")
+    if n_idx * dim >= 2 ** 31:
+        raise ValueError(f"emb_gather_cuda: B*D={n_idx * dim} >= 2^31")
     out = torch.empty((n_cores, n_idx, dim), dtype=table.dtype,
                       device=table.device)
     if out.numel() == 0:
@@ -156,8 +204,9 @@ def emb_gather_cuda(table: torch.Tensor, ids: torch.Tensor,
     launch = _bind("emb_gather")
     with torch.cuda.device(table.device):
         err = launch(
-            table.data_ptr(), ids.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            n_cores, n_rows, dim, n_idx, int(table.dtype == torch.float32),
+            table.data_ptr(), keys.data_ptr(), rows.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), n_cores, n_rows, dim, n_idx,
+            int(table.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     _count_or_raise("emb_gather", err)
     return out
@@ -166,9 +215,11 @@ def emb_gather_cuda(table: torch.Tensor, ids: torch.Tensor,
 def emb_scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
                          idx: torch.Tensor,
                          upd: torch.Tensor) -> torch.Tensor:
-    """Launch the scatter-add kernel on the current stream into a new
-    table; raises on anything it does not take and on a launch error.  An
-    empty batch returns a copy of the table and launches nothing."""
+    """Launch the scatter-add kernels (the batch's ids sorted with their
+    per-id sums, then the pass over the table) on the current stream into
+    a new table; one op, counted once.  Raises on anything it does not
+    take and on a launch error.  An empty batch returns a copy of the
+    table and launches nothing."""
     upd = upd.to(table.dtype)
     _check_cuda("emb_scatter_add", table, ids, idx, upd)
     n_cores, n_rows, dim = table.shape
@@ -176,14 +227,20 @@ def emb_scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
     if upd.shape != (n_idx, dim):
         raise ValueError(f"emb_scatter_add_cuda: upd {tuple(upd.shape)} is "
                          f"not [B, D] = {(n_idx, dim)}")
+    if dim > MAX_SCATTER_DIM:
+        raise ValueError(f"emb_scatter_add_cuda: D={dim} > "
+                         f"{MAX_SCATTER_DIM}")
     if n_idx == 0 or table.numel() == 0:
         return table.clone()
     out = torch.empty_like(table)
+    # the batch's sorted ids, then (16-byte aligned) its per-id sums
+    scratch = torch.empty(n_idx + 3 + n_idx * dim, dtype=torch.int32,
+                          device=table.device)
     launch = _bind("emb_scatter_add")
     with torch.cuda.device(table.device):
         err = launch(
             table.data_ptr(), ids.data_ptr(), idx.data_ptr(), upd.data_ptr(),
-            out.data_ptr(), n_cores * n_rows, dim, n_idx,
+            out.data_ptr(), scratch.data_ptr(), n_cores * n_rows, dim, n_idx,
             int(table.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     _count_or_raise("emb_scatter_add", err)

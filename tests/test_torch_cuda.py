@@ -34,7 +34,8 @@ from repro_torch.kernels.sparse_gather import (IDX_PAD, ROW_PAD_ID,
                                                emb_gather_cuda,
                                                emb_gather_plain,
                                                emb_scatter_add_cuda,
-                                               emb_scatter_add_plain)
+                                               emb_scatter_add_plain,
+                                               gather_index)
 
 pytestmark = pytest.mark.cuda
 
@@ -248,13 +249,11 @@ def _emb_case(case, dtype, dev):
                                 torch.from_numpy(idx), upd)]
 
 
-@pytest.mark.parametrize("case", ["main", "ragged", "all_same", "wide",
-                                  "one_shard"])
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_emb_kernels_equal_plain(cuda, dtype, case):
-    tab, ids, idx, upd = _emb_case(case, dtype, cuda)
+def _emb_equal_plain(tab, ids, idx, upd):
+    """Both kernels against their plain versions, bit for bit; the input
+    table is left as it was."""
     before = tab.clone()
-    gathered = emb_gather_cuda(tab, ids, idx)
+    gathered = emb_gather_cuda(tab, ids, idx, gather_index(ids))
     scattered = emb_scatter_add_cuda(tab, ids, idx, upd)
     torch.cuda.synchronize()
     assert torch.equal(gathered, emb_gather_plain(tab, ids, idx))
@@ -262,11 +261,154 @@ def test_emb_kernels_equal_plain(cuda, dtype, case):
     assert torch.equal(tab, before)           # a new table, out of place
 
 
+@pytest.mark.parametrize("case", ["main", "ragged", "all_same", "wide",
+                                  "one_shard"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_kernels_equal_plain(cuda, dtype, case):
+    _emb_equal_plain(*_emb_case(case, dtype, cuda))
+
+
+def _emb_grid(rng, n_cores, n_rows, dim, b, dtype, dev, *, shared=False,
+              hot=False, negzero=False):
+    """A table of ``n_cores`` shards of ``n_rows`` rows, its id map and
+    ``b`` lookups with update rows.  ``shared``: every core owns the same
+    ids (each once, in another order); ``hot``: every lookup is one id;
+    ``negzero``: float32 rows of -0.0 and zero update rows of both signs.
+    Lookups mix owned ids, ids owned nowhere and IDX_PAD."""
+    if shared:
+        ids = np.stack([rng.permutation(n_rows) for _ in range(n_cores)])
+        vocab = n_rows
+    else:
+        vocab = n_cores * n_rows - 3
+        flat = np.full(n_cores * n_rows, ROW_PAD_ID, np.int64)
+        flat[:vocab] = rng.permutation(vocab)
+        ids = flat.reshape(n_cores, n_rows)
+    idx = rng.randint(0, vocab + 5, b)
+    idx[::7] = IDX_PAD
+    if hot:
+        idx[:] = ids[n_cores // 2, n_rows // 3]
+    if dtype == torch.int32:
+        tab, upd = _ints(rng, (n_cores, n_rows, dim)), _ints(rng, (b, dim))
+    else:
+        tab = torch.from_numpy(rng.randn(n_cores, n_rows, dim)
+                               .astype(np.float32))
+        upd = torch.from_numpy(rng.randn(b, dim).astype(np.float32))
+        if negzero:
+            tab[:, ::2] = -0.0
+            upd[::3] = 0.0
+            upd[1::3] = -0.0
+    return [t.to(dev) for t in (tab, torch.from_numpy(ids.astype(np.int32)),
+                                torch.from_numpy(idx.astype(np.int32)), upd)]
+
+
+@pytest.mark.parametrize("b", [1, 64, 1100])
+@pytest.mark.parametrize("dim", [3, 8, 16, 48])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_kernels_widths_and_batches(cuda, dtype, dim, b):
+    """D on the 4-byte and the 16-byte paths, one lookup, an eager batch
+    and a batch over 1,024 ids; R = 37 is not a multiple of 32."""
+    rng = np.random.RandomState(dim * 10_000 + b)
+    _emb_equal_plain(*_emb_grid(rng, 96, 37, dim, b, dtype, cuda))
+
+
+@pytest.mark.parametrize("case", ["negzero", "shared_ids", "hot_id",
+                                  "long_shard", "long_batch"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_kernels_edge_cases(cuda, dtype, case):
+    """-0.0 rows and update rows; ids repeated across cores; 64 copies of
+    one id (float32 sums in batch order); R = 13,000, past the gather's
+    shared-memory staging (12,288 ids); B = 13,000, past the scatter's."""
+    rng = np.random.RandomState(len(case))
+    n_cores, n_rows, dim, b = {"negzero": (64, 40, 16, 64),
+                               "shared_ids": (33, 50, 8, 64),
+                               "hot_id": (16, 40, 16, 64),
+                               "long_shard": (3, 13000, 16, 64),
+                               "long_batch": (40, 400, 4, 13000)}[case]
+    _emb_equal_plain(*_emb_grid(rng, n_cores, n_rows, dim, b, dtype, cuda,
+                                shared=case == "shared_ids",
+                                hot=case == "hot_id",
+                                negzero=case == "negzero"))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_scatter_add_padded_flush(cuda, dtype):
+    """A deferred flush as the trainer ships it: eight batches of Zipf ids
+    deduplicated and padded with IDX_PAD (and zero rows) to a multiple of
+    64."""
+    tab, ids, _, _ = _emb_case("main", dtype, cuda)
+    rng = np.random.RandomState(8)
+    flush = np.unique(np.minimum(rng.pareto(1.2, 512).astype(np.int64),
+                                 ids.numel() - 6))
+    pad = -len(flush) % 64
+    idx = np.concatenate([flush, np.full(pad, IDX_PAD)]).astype(np.int32)
+    upd = (_ints(rng, (len(idx), 16)) if dtype == torch.int32 else
+           torch.from_numpy(rng.randn(len(idx), 16).astype(np.float32)))
+    upd[len(flush):] = 0
+    _emb_equal_plain(tab, ids, torch.from_numpy(idx).to(cuda), upd.to(cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_scatter_add_chained_calls(cuda, dtype):
+    """Twenty scatters back to back, each on the last one's table, with no
+    synchronisation between them, as a fit makes them: on a small table the
+    pass over it may start before the batch's sums are written, and must
+    wait for them (a hot id matches in every call)."""
+    rng = np.random.RandomState(20)
+    tab, ids, _, _ = _emb_grid(rng, 64, 20, 16, 1, dtype, cuda)
+    out, ref = tab, tab.clone()
+    for _ in range(20):
+        idx = torch.from_numpy(np.minimum(
+            rng.pareto(1.2, 64).astype(np.int64), ids.numel() - 4)
+            .astype(np.int32)).to(cuda)
+        upd = (_ints(rng, (64, 16)) if dtype == torch.int32 else
+               torch.from_numpy(rng.randn(64, 16).astype(np.float32)))
+        out = emb_scatter_add_cuda(out, ids, idx, upd.to(cuda))
+        ref = emb_scatter_add_plain(ref, ids, idx, upd.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_emb_scatter_add_chained_all_miss_calls(cuda, dtype):
+    """Twenty scatters back to back on a small table whose batch of 256 ids
+    (a stream block sorts it itself) matches no row, so no chunk needs the
+    plan's sums: each call's scratch, freed on return, is handed at once to
+    a fill of the same size, which must not see the plan's writes."""
+    rng = np.random.RandomState(21)
+    tab, ids, _, _ = _emb_grid(rng, 4, 8, 48, 1, dtype, cuda)
+    n_idx, dim = 256, 48
+    out = tab
+    for _ in range(20):
+        idx = torch.from_numpy(rng.randint(ids.numel(), ids.numel() + 50,
+                                           n_idx).astype(np.int32))
+        idx[::5] = IDX_PAD
+        upd = (_ints(rng, (n_idx, dim)) if dtype == torch.int32 else
+               torch.from_numpy(rng.randn(n_idx, dim).astype(np.float32)))
+        out = emb_scatter_add_cuda(out, ids, idx.to(cuda), upd.to(cuda))
+        probe = torch.full((n_idx + 3 + n_idx * dim,), 7, dtype=torch.int32,
+                           device=cuda)
+        torch.cuda.synchronize()
+        assert bool((probe == 7).all())
+    assert torch.equal(out, emb_scatter_add_plain(tab, ids, idx.to(cuda),
+                                                  upd.to(cuda)))
+
+
+def test_emb_gather_requires_the_index(cuda):
+    tab, ids, idx, _ = _emb_case("ragged", torch.int32, cuda)
+    with pytest.raises(ValueError, match="gather index"):
+        emb_gather_cuda(tab, ids, idx)
+    index = gather_index(ids)
+    with pytest.raises(ValueError, match="gather index"):
+        emb_gather_cuda(tab, ids, idx, (index.ids[:, :-1].contiguous(),
+                                        index.rows[:, :-1].contiguous()))
+
+
 def test_emb_kernels_empty_batch(cuda):
     tab, ids, _, _ = _emb_case("ragged", torch.int32, cuda)
     none = torch.zeros(0, dtype=torch.int32, device=cuda)
     dispatch.reset_launch_counts()
-    assert emb_gather_cuda(tab, ids, none).shape == (7, 0, 3)
+    assert emb_gather_cuda(tab, ids, none, gather_index(ids)).shape == (
+        7, 0, 3)
     out = emb_scatter_add_cuda(tab, ids, none,
                                torch.zeros((0, 3), dtype=torch.int32,
                                            device=cuda))

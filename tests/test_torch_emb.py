@@ -9,6 +9,12 @@ Both packages run on the same numpy-seeded inputs:
   takes three or more is summed in batch order here and in another
   grouping by XLA's CPU dot, so it is held to ``FP32_SCATTER_RTOL`` of
   the sum of the magnitudes it adds;
+* plain-torch models of what the CUDA kernels compute, on the same
+  inputs: the gather searches each core's ids sorted once per placement
+  (the gather index, against a brute-force search) and selects the rows
+  it finds; the scatter sums each batch id's update rows once, in batch
+  order, and adds the sum to the rows that hold the id.  Both equal the
+  plain versions bit for bit, and the reference where it is exact;
 * ``ShardedTable`` placement grids, round trips and the staging ledger;
 * whole fits through ``make_estimator("emb")`` on ``pim`` (1, 7 and 16
   cores; 7 and 16 pad both vocabularies) and ``host``, under every
@@ -47,7 +53,8 @@ from repro_torch.emb import trainer as ttrain
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sparse_gather import (IDX_PAD, ROW_PAD_ID,
                                                emb_gather_plain,
-                                               emb_scatter_add_plain)
+                                               emb_scatter_add_plain,
+                                               gather_index)
 from repro_torch.launch import pim_ml
 from repro_torch.systems import compress as tcompress
 
@@ -212,6 +219,174 @@ def test_scatter_add_leaves_the_input_table_alone():
                                 _t(np.ones((4, 3), np.int32)))
     np.testing.assert_array_equal(t.numpy(), before)
     assert not np.array_equal(out.numpy(), before)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' lookups, modelled in plain torch.
+# ---------------------------------------------------------------------------
+
+def _lower_bound(keys, key):
+    """How many of the ascending ``keys`` are below ``key``."""
+    return int(torch.searchsorted(keys, torch.tensor([key], dtype=keys.dtype),
+                                  side="left"))
+
+
+def _gather_model(table, index, idx):
+    """emb_gather.cu: per core, the lower bound of each lookup in the
+    sorted ids, then the rows of the run of equal ids, summed from zero."""
+    keys, rows = index
+    n_cores, n_rows, dim = table.shape
+    out = torch.zeros((n_cores, idx.shape[0], dim), dtype=table.dtype)
+    for c in range(n_cores):
+        for b, key in enumerate(idx.tolist()):
+            acc = torch.zeros(dim, dtype=table.dtype)
+            r = _lower_bound(keys[c], key)
+            while r < n_rows and int(keys[c, r]) == key:
+                acc = acc + table[c, int(rows[c, r])]
+                r += 1
+            out[c, b] = acc
+    return out
+
+
+def _scatter_model(table, ids, idx, upd):
+    """emb_scatter_add.cu: the batch ids sorted (stable), each id's update
+    rows summed once in batch order from zero at its first sorted
+    position, and every table row plus the sum its id finds (+0 if
+    none)."""
+    keys, order = torch.sort(idx, stable=True)
+    sums = torch.zeros((idx.shape[0], upd.shape[1]), dtype=table.dtype)
+    for p in range(idx.shape[0]):
+        if p and keys[p] == keys[p - 1]:
+            continue
+        acc = torch.zeros(upd.shape[1], dtype=table.dtype)
+        t = p
+        while t < idx.shape[0] and keys[t] == keys[p]:
+            acc = acc + upd[int(order[t])].to(table.dtype)
+            t += 1
+        sums[p] = acc
+    flat_ids = ids.reshape(-1)
+    pos = torch.searchsorted(keys, flat_ids, side="left")
+    found = pos < idx.shape[0]
+    found[found.clone()] = keys[pos[found]] == flat_ids[found]
+    add = torch.zeros((flat_ids.shape[0], upd.shape[1]), dtype=table.dtype)
+    add[found] = sums[pos[found]]
+    return table + add.reshape(table.shape)
+
+
+def _brute_force_rows(ids, key):
+    return [np.flatnonzero(ids[c] == key).tolist() for c in range(len(ids))]
+
+
+def _index_rows(index, key):
+    keys, rows = index
+    found = []
+    for c in range(keys.shape[0]):
+        r = _lower_bound(keys[c], key)
+        run = []
+        while r < keys.shape[1] and int(keys[c, r]) == key:
+            run.append(int(rows[c, r]))
+            r += 1
+        found.append(run)
+    return found
+
+
+@pytest.mark.parametrize("n_shards", [1, 7, 16])
+@pytest.mark.parametrize("placement", ["mod", "hash"])
+def test_gather_index_equals_a_brute_force_search(placement, n_shards):
+    """Every id of the vocabulary, ids past it, IDX_PAD and ROW_PAD_ID (the
+    pad slots: a run of them, in ascending row order), through a table's
+    gather index, on the CPU; again after place_rows, which moves rows but
+    keeps the placement, and so the index."""
+    W = np.random.RandomState(n_shards).randn(45, 3).astype(np.float32)
+    ts = tapi.make_system("pim", n_cores=n_shards, device="cpu")
+    t = ts.put_table(W, placement=placement, seed=5)
+    index = t.gather_index()
+    assert t.gather_index() is index                  # built once
+    assert all(a.dtype == torch.int32 and a.shape == t.ids.shape
+               for a in index)
+    keys = list(range(48)) + [IDX_PAD, ROW_PAD_ID]
+    for key in keys:
+        assert _index_rows(index, key) == _brute_force_rows(t.ids, key)
+    t.place_rows(np.zeros((45, 3), np.float32))
+    assert t.gather_index() is index
+    for key in keys:
+        assert _index_rows(index, key) == _brute_force_rows(t.ids, key)
+
+
+def test_gather_index_of_ids_on_several_cores():
+    ids = np.stack([np.random.RandomState(c).permutation(30)
+                    for c in range(4)]).astype(np.int32)
+    ids[2, 7] = ROW_PAD_ID
+    index = gather_index(_t(ids))
+    for key in range(-2, 32):
+        assert _index_rows(index, key) == _brute_force_rows(ids, key)
+
+
+@pytest.mark.parametrize("ids", [[[3, 5, 3]], [[0, 1], [4, 4]],
+                                 [[ROW_PAD_ID, 2, 2, ROW_PAD_ID]]])
+def test_gather_index_refuses_an_id_twice_on_one_core(ids):
+    with pytest.raises(ValueError, match="repeats on core"):
+        gather_index(_t(np.asarray(ids, np.int32)))
+
+
+def test_gather_index_takes_pad_slots_and_int32_only():
+    index = gather_index(_t(np.asarray([[ROW_PAD_ID, 4, ROW_PAD_ID]],
+                                       np.int32)))
+    assert index.ids.tolist() == [[ROW_PAD_ID, ROW_PAD_ID, 4]]
+    assert index.rows.tolist() == [[0, 2, 1]]
+    with pytest.raises(ValueError, match="int32"):
+        gather_index(torch.zeros((2, 3), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("kind", ["hits", "misses", "mixed", "all_same",
+                                  "shared"])
+@pytest.mark.parametrize("dtype", ["int32", "fp32"])
+def test_gather_model_equals_plain_and_reference(dtype, kind):
+    tabs, idss = _stack_cores(3, dtype)
+    if kind == "shared":                     # every core owns ids 0..21
+        idss = np.stack([np.random.RandomState(c).permutation(22)
+                         for c in range(3)]).astype(np.int32)
+        idx = np.random.RandomState(9).randint(-2, 26, 40).astype(np.int32)
+    else:
+        idx = _lookups(idss[0], 40, seed=3, kind=kind)
+    if dtype == "fp32":
+        tabs[:, ::4] = -0.0                  # the sum from zero gives +0.0
+    out = _gather_model(_t(tabs), gather_index(_t(idss)), _t(idx))
+    plain = emb_gather_plain(_t(tabs), _t(idss), _t(idx))
+    assert torch.equal(out, plain)
+    assert not torch.signbit(out[out == 0]).any()
+    if dtype == "int32":
+        for c in range(3):
+            np.testing.assert_array_equal(
+                out[c].numpy(), np.asarray(emb_gather_ref(tabs[c], idss[c],
+                                                          idx)))
+
+
+@pytest.mark.parametrize("kind", ["hits", "mixed", "all_same", "shared"])
+@pytest.mark.parametrize("b", [1, 64, 300])
+@pytest.mark.parametrize("dtype", ["int32", "fp32"])
+def test_scatter_model_equals_plain_and_reference(dtype, b, kind):
+    """One sum per batch id, in batch order: bit for bit the plain
+    version's, in float32 with 64 copies of one id too."""
+    tabs, idss = _stack_cores(3, dtype)
+    if kind == "shared":
+        idss = np.stack([np.random.RandomState(c).permutation(22)
+                         for c in range(3)]).astype(np.int32)
+        idx = np.random.RandomState(b).randint(-2, 26, b).astype(np.int32)
+    else:
+        idx = _lookups(idss[1], b, seed=b, kind=kind)
+    upd = _updates(dtype, b, 3, seed=b + 1)
+    if dtype == "fp32":
+        tabs[:, ::5] = -0.0
+        upd[::3] = -0.0
+    out = _scatter_model(_t(tabs), _t(idss), _t(idx), _t(upd))
+    assert torch.equal(out, emb_scatter_add_plain(_t(tabs), _t(idss),
+                                                  _t(idx), _t(upd)))
+    if dtype == "int32":
+        for c in range(3):
+            np.testing.assert_array_equal(
+                out[c].numpy(), np.asarray(emb_scatter_add_ref(
+                    tabs[c], idss[c], idx, upd)))
 
 
 # ---------------------------------------------------------------------------
