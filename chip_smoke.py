@@ -106,6 +106,10 @@ DTR_SIZES = (153_600_000, 76_800_000, 38_400_000)
 DTR_HOST_BYTES_PER_SAMPLE = 450
 DTR_QUALITY = 600_000
 DTR_DEPTH = 10
+#: the DTR main rows timed again over this many cores (the launcher's
+#: default), fewer than the H100's 132 SMs: gini_counts then splits a
+#: core's rows over blocks that add into its partial
+FEW_CORES = 16
 #: the Netflix Prize matrix (Bennett & Lanning, KDD Cup 2007): users and
 #: items; then its 100,480,507 ratings and the cuts taken when the host
 #: cannot generate them: make_recsys peaks at ~250 B of host memory per
@@ -271,13 +275,15 @@ def same(torch, outs, refs) -> float:
 
 def check_kmeans_assign(torch, dev, gen) -> tuple[int, dict]:
     """kmeans_assign against its plain version: the KME main shape with
-    quantized and with full-range int16 (the products wrap), a ragged
-    shape, and duplicated centroids (ties).  Returns the max abs error and
-    the main-shape inputs."""
+    quantized and with full-range int16 (the products wrap), two chained
+    calls there (one block per core stores a partial allocated empty), a
+    ragged shape, K = 1, 9 and 33, F = 1 and 40, one row a core, rows that
+    are not 16-byte aligned, and duplicated centroids (ties).  Returns the
+    max abs error and the main-shape inputs."""
     from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
                                                    kmeans_assign_plain)
 
-    def ints(shape, lo, hi):
+    def ints(shape, lo=-32768, hi=32768):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int16)
     n_pc = KME_SAMPLES // N_CORES
@@ -285,14 +291,25 @@ def check_kmeans_assign(torch, dev, gen) -> tuple[int, dict]:
             ints((KME_K, N_FEATURES), -2047, 2048))
     ties_c = ints((9, N_FEATURES), -1, 2)
     ties_c[4], ties_c[8] = ties_c[2], ties_c[0]
+    flat = ints((5 * 999 * N_FEATURES + 1,))
     cases = {
         f"main {tuple(main[0].shape)} K={KME_K}": main,
-        "main shape, full-range int16": (
-            ints((N_CORES, n_pc, N_FEATURES), -32768, 32768),
-            ints((KME_K, N_FEATURES), -32768, 32768)),
-        "ragged (7, 100003, 13) K=5, full-range": (
-            ints((7, 100_003, 13), -32768, 32768), ints((5, 13), -32768,
-                                                       32768)),
+        "main shape, full-range int16": (ints((N_CORES, n_pc, N_FEATURES)),
+                                         ints((KME_K, N_FEATURES))),
+        "main shape again, other values (chained)": (
+            ints((N_CORES, n_pc, N_FEATURES), -3, 4),
+            ints((KME_K, N_FEATURES), -3, 4)),
+        "ragged (7, 100003, 13) K=5, full-range": (ints((7, 100_003, 13)),
+                                                   ints((5, 13))),
+        "(4, 3001, 16) K=1": (ints((4, 3001, 16)), ints((1, 16))),
+        "(4, 3001, 16) K=9": (ints((4, 3001, 16)), ints((9, 16))),
+        "(5, 2999, 16) K=33": (ints((5, 2999, 16)), ints((33, 16))),
+        "(6, 3001, 1) K=7": (ints((6, 3001, 1)), ints((7, 1))),
+        "(3, 4001, 40) K=33": (ints((3, 4001, 40)), ints((33, 40))),
+        "(5, 1, 16) K=16, one row a core": (ints((5, 1, 16)),
+                                            ints((16, 16))),
+        "(5, 999, 16) K=16, rows not 16-byte aligned": (
+            flat[1:].view(5, 999, N_FEATURES), ints((16, 16))),
         "ties (16, 4097, 16) K=9, duplicated centroids": (
             ints((16, 4097, N_FEATURES), -3, 4), ties_c),
     }
@@ -304,14 +321,20 @@ def check_kmeans_assign(torch, dev, gen) -> tuple[int, dict]:
                 out[0], torch.tensor([4, 8], device=dev)).any():
             fail("kmeans_assign: a duplicated centroid won a tie")
         say(f"kernels: kmeans_assign == plain, {name}")
+        del out
     return err, {"x": main[0], "c": main[1]}
 
 
 def check_gini_counts(torch, dev, gen, n_dtr: int) -> tuple[int, dict]:
     """gini_counts against its plain version at the DTR main shape with
-    L = 4096: every row at the root, and leaves spread over 2^10 values;
-    and a ragged shape with rows out of range.  Returns the max abs error
-    and the main-shape inputs."""
+    L = 4096: every row at the root, leaves spread over 2^10 values, over
+    all 4,096 (wider than the window: rows past it add to global memory)
+    and over a depth-10 frontier's ids 1023-2046, these calls chained on
+    partials allocated empty; one block over more than 65,535 rows (three
+    passes of 16-bit counters); the main rows over FEW_CORES cores and a
+    3-core shape, whose cores split over blocks that add into zeros; 3
+    classes at F = 13 and a ragged shape, with rows out of range.  Returns
+    the max abs error and the main-shape inputs."""
     from repro_torch.kernels.gini_split import (gini_split_cuda,
                                                 gini_split_plain)
     n_leaves = 2 ** (DTR_DEPTH + 2)
@@ -320,29 +343,59 @@ def check_gini_counts(torch, dev, gen, n_dtr: int) -> tuple[int, dict]:
     y = torch.randint(0, 2, (N_CORES, n_pc), generator=gen, device=dev,
                       dtype=torch.int32)
     th = torch.randn((n_leaves, N_FEATURES), generator=gen, device=dev)
-    spread = torch.randint(0, 1024, (N_CORES, n_pc), generator=gen,
+
+    def leaves(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    def few_cores(leaf):
+        return (x.view(FEW_CORES, -1, N_FEATURES), y.view(FEW_CORES, -1),
+                leaf.view(FEW_CORES, -1), th, 2)
+    main = {"x": x, "y": y, "th": th, "few_cores": few_cores,
+            "spread": leaves((N_CORES, n_pc), 0, 1024),
+            "root": torch.zeros((N_CORES, n_pc), dtype=torch.int32,
+                                device=dev),
+            "frontier": leaves((N_CORES, n_pc), 1023, 2047)}
+
+    def ragged(n_cores, n_pc, f, n_leaves, n_cls, hi):
+        rx = torch.randn((n_cores, n_pc, f), generator=gen, device=dev)
+        ry = torch.randint(0, n_cls, (n_cores, n_pc), generator=gen,
                            device=dev, dtype=torch.int32)
-    main = {"x": x, "y": y, "th": th, "spread": spread,
-            "root": torch.zeros_like(spread)}
-    rx = torch.randn((5, 100_003, 13), generator=gen, device=dev)
-    ry = torch.randint(0, 3, (5, 100_003), generator=gen, device=dev,
-                       dtype=torch.int32)
-    rleaf = torch.randint(0, 37, (5, 100_003), generator=gen, device=dev,
-                          dtype=torch.int32)
-    rleaf[0, :9], ry[1, :9] = 37, 3          # count nowhere
+        rleaf = leaves((n_cores, n_pc), 0, hi)
+        rleaf[0, :9], ry[1, :9], rleaf[2, :5] = n_leaves, n_cls, -1
+        return (rx, ry, rleaf, torch.randn((n_leaves, f), generator=gen,
+                                           device=dev), n_cls)
     cases = {
         f"main {tuple(x.shape)} L={n_leaves}, all rows at the root":
-            (x, y, main["root"], th, 2),
-        "main shape, leaves spread over 2^10": (x, y, spread, th, 2),
+            lambda: (x, y, main["root"], th, 2),
+        "main shape, leaves spread over 2^10": lambda: (x, y, main["spread"],
+                                                        th, 2),
+        "main shape, leaves spread over all 4096 (past the window)":
+            lambda: (x, y, leaves((N_CORES, n_pc), 0, n_leaves), th, 2),
+        "main shape, a depth-10 frontier's ids 1023-2046":
+            lambda: (x, y, main["frontier"], th, 2),
+        "(132, 150001, 16) L=4096, one block over more than 65,535 rows":
+            lambda: (torch.randn((132, 150_001, N_FEATURES), generator=gen,
+                                 device=dev), leaves((132, 150_001), 0, 2),
+                     leaves((132, 150_001), 0, 1024), th, 2),
+        f"the main rows as ({FEW_CORES}, {N_CORES * n_pc // FEW_CORES}, "
+        f"16), leaves spread over 2^10 (several blocks a core add)":
+            lambda: few_cores(main["spread"]),
+        "(3, 200001, 16) L=4096, leaves over all 4096, several blocks a core":
+            lambda: (torch.randn((3, 200_001, N_FEATURES), generator=gen,
+                                 device=dev), leaves((3, 200_001), 0, 2),
+                     leaves((3, 200_001), 0, n_leaves), th, 2),
+        "(64, 20000, 13) L=4096, 3 classes, rows out of range":
+            lambda: ragged(64, 20_000, 13, n_leaves, 3, 2047),
         "ragged (5, 100003, 13) L=37, 3 classes, rows out of range":
-            (rx, ry, rleaf, torch.randn((37, 13), generator=gen,
-                                        device=dev), 3),
+            lambda: ragged(5, 100_003, 13, 37, 3, 37),
     }
     err = 0
-    for name, args in cases.items():
-        err = max(err, same(torch, gini_split_cuda(*args),
-                            gini_split_plain(*args)))
+    for name, make in cases.items():
+        args = make()
+        out = gini_split_cuda(*args)
+        err = max(err, same(torch, out, gini_split_plain(*args)))
         say(f"kernels: gini_counts == plain, {name}")
+        del args, out
     return err, main
 
 
@@ -650,6 +703,29 @@ def step_times(gen) -> tuple[list, object]:
         now = time.perf_counter()
         times.append(now - t)
         t = now
+
+
+def gini_round_times(torch, dispatch, fit):
+    """CUDA-event ms of each gini_split launch inside ``fit()`` (the
+    rounds with L2 as the fit leaves it), and the fit's result."""
+    op = dispatch.get_op("gini_split")
+    events = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = op.cuda(*args)
+        end.record()
+        events.append((start, end))
+        return out
+    dispatch.register_op("gini_split", cuda=timed, plain=op.plain)
+    try:
+        result = fit()
+    finally:
+        dispatch.register_op("gini_split", cuda=op.cuda, plain=op.plain)
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events], result
 
 
 def device_profile(torch, fn, top: int = 6) -> str:
@@ -1341,17 +1417,27 @@ def main() -> int:
     kt = dict(ms=cuda_ms(torch, lambda: kmeans_assign_cuda(kx, kc), flush),
               plain_ms=cuda_ms(torch, lambda: kmeans_assign_plain(kx, kc),
                                flush))
+    # the products run on the tensor cores as four int8 products (the
+    # byte split); on the CUDA cores they were 2 n K F int32 operations
+    km_bytes = (n_km * N_FEATURES * 2 + KME_K * N_FEATURES * 2 + n_km * 4
+                + N_CORES * KME_K * (N_FEATURES + 1) * 4)
     kt["bound_ms"], kt["bound_by"] = bound(
-        n_km * N_FEATURES * 2 + KME_K * N_FEATURES * 2 + n_km * 4
-        + N_CORES * KME_K * (N_FEATURES + 1) * 4,
-        2 * n_km * KME_K * N_FEATURES)
+        km_bytes, 4 * 2 * n_km * KME_K * N_FEATURES, PEAK_INT8_OPS_PER_S)
+    cuda_core_bound_ms = bound(km_bytes, 2 * n_km * KME_K * N_FEATURES)[0]
     n_leaves = gi["th"].shape[0]
     g_args = (gi["x"], gi["y"], gi["spread"], gi["th"], 2)
     g_root = (gi["x"], gi["y"], gi["root"], gi["th"], 2)
     n_gi = gi["x"].shape[0] * gi["x"].shape[1]
+    g_front = (gi["x"], gi["y"], gi["frontier"], gi["th"], 2)
     gt = dict(ms=cuda_ms(torch, lambda: gini_split_cuda(*g_args), flush),
               root_ms=cuda_ms(torch, lambda: gini_split_cuda(*g_root),
                               flush),
+              frontier_ms=cuda_ms(torch, lambda: gini_split_cuda(*g_front),
+                                  flush),
+              few_cores_ms=cuda_ms(torch, lambda: gini_split_cuda(
+                  *gi["few_cores"](gi["spread"])), flush),
+              few_cores_root_ms=cuda_ms(torch, lambda: gini_split_cuda(
+                  *gi["few_cores"](gi["root"])), flush),
               plain_ms=cuda_ms(torch, lambda: gini_split_plain(*g_args),
                                flush))
     gt["bound_ms"], gt["bound_by"] = bound(
@@ -1360,12 +1446,17 @@ def main() -> int:
         n_gi * N_FEATURES, PEAK_FP32_OPS_PER_S)
     say(f"timing: kmeans_assign {kt['ms']:.4f} ms, plain "
         f"{kt['plain_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
-        f"({kt['bound_by']}: {2 * n_km * KME_K * N_FEATURES:.4g} int32 "
-        f"ops "
-        f"at {PEAK_INT32_OPS_PER_S:.3g}/s) at {tuple(kx.shape)} K={KME_K} "
-        f"on {smi}")
+        f"({kt['bound_by']}: {km_bytes:.4g} B at {PEAK_BYTES_PER_S:.3g} "
+        f"B/s; four int8 products, {8 * n_km * KME_K * N_FEATURES:.4g} ops "
+        f"at {PEAK_INT8_OPS_PER_S:.4g}/s; on the CUDA cores "
+        f"{2 * n_km * KME_K * N_FEATURES:.4g} int32 ops at "
+        f"{PEAK_INT32_OPS_PER_S:.3g}/s bound {cuda_core_bound_ms:.4f} "
+        f"ms) at {tuple(kx.shape)} K={KME_K} on {smi}")
     say(f"timing: gini_counts {gt['ms']:.4f} ms (leaves spread over 2^10), "
-        f"{gt['root_ms']:.4f} ms (all at the root), plain "
+        f"{gt['root_ms']:.4f} ms (all at the root), "
+        f"{gt['frontier_ms']:.4f} ms (ids 1023-2046); the same rows over "
+        f"{FEW_CORES} cores {gt['few_cores_ms']:.4f} ms spread, "
+        f"{gt['few_cores_root_ms']:.4f} ms at the root; plain "
         f"{gt['plain_ms']:.4f} ms, bound {gt['bound_ms']:.4f} ms "
         f"({gt['bound_by']}) at {tuple(gi['x'].shape)} L={n_leaves} "
         f"on {smi}")
@@ -1432,13 +1523,19 @@ def main() -> int:
             f"samples/s; the first step with the init draw "
             f"{steps[0] * 1e3:.1f} ms, the end-of-fit inertia and labels "
             f"passes {steps[-1] * 1e3:.1f} ms ({N_CORES} cores, on {smi})")
-    steps, _ = step_times(dtr_wl.fit_steps(
-        dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH)))
+    g_rounds, (steps, _) = gini_round_times(
+        torch, dispatch, lambda: step_times(dtr_wl.fit_steps(
+            dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH))))
     dt = sum(steps) / len(steps)
     say(f"fit: dtree   max_depth {DTR_DEPTH:<5} {dt * 1e3:.3f} ms/round "
         f"(mean of {len(steps)}), {n_dtr / dt:.4g} samples/s per round; "
         f"rounds {' '.join(f'{t * 1e3:.1f}' for t in steps)} ms "
         f"({N_CORES} cores, {n_dtr:,} samples, on {smi})")
+    gt["fit_round_ms"] = g_rounds
+    say(f"fit: dtree   gini_counts per round "
+        f"{' '.join(f'{t:.4f}' for t in g_rounds)} ms, "
+        f"{sum(g_rounds):.3f} ms over its {len(g_rounds)} launches (CUDA "
+        f"events inside the fit, L2 as the fit leaves it; on {smi})")
     for name, fit in (
             ("KME int16 fit", lambda: kme_wl.fit(
                 kme_ds, kme_wl.spec("int16", **kme_params))),
@@ -1475,6 +1572,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/gini_split/kernel.py:58",
          "launches": dtr_counts["gini_split"], "max_abs_err": err_gi,
          "ms": gt["ms"], "root_ms": gt["root_ms"],
+         "frontier_ms": gt["frontier_ms"],
+         "few_cores_ms": gt["few_cores_ms"],
+         "few_cores_root_ms": gt["few_cores_root_ms"],
+         "fit_round_ms": gt["fit_round_ms"],
          "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
          "bound_by": gt["bound_by"], "library_ms": None},
         {"name": "emb_gather", "route": "cuda",

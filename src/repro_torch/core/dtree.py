@@ -102,19 +102,13 @@ def make_split_eval_kernel(max_nodes: int, n_classes: int):
     """split-evaluate: per (leaf, class, feature) below-threshold counts
     and per (leaf, class) totals, for one random threshold per feature.
 
-    The ``gini_split`` op has no validity mask, so invalid rows are
-    routed to a spill slot — leaf ``max_nodes - 1``, class
-    ``n_classes - 1`` — with their feature values above every finite
-    threshold (no below-counts), and their total is subtracted
-    afterwards so the spill slot stays usable as a real leaf."""
+    The ``gini_split`` op counts no row whose leaf is outside
+    ``[0, max_nodes)``, so invalid rows go to leaf -1 and the points and
+    classes pass through uncopied."""
     def _kernel(Xc, yc, leaf_id, valid, thresholds):
-        x = torch.where(valid.unsqueeze(-1), Xc, float(_BIG))
-        y = torch.where(valid, yc, n_classes - 1)
-        leaf = torch.where(valid, leaf_id, max_nodes - 1)
-        below, total = dispatch.launch("gini_split", x, y, leaf, thresholds,
-                                       n_classes)
-        n_pad = torch.sum(~valid, dim=-1, dtype=torch.int32)
-        total[:, max_nodes - 1, n_classes - 1] -= n_pad
+        leaf = torch.where(valid, leaf_id, -1)
+        below, total = dispatch.launch("gini_split", Xc, yc, leaf,
+                                       thresholds, n_classes)
         return {"below": below, "total": total}
     return _kernel
 

@@ -83,12 +83,15 @@ def _assign_kernel_factory(k: int, quantized: bool = True):
     The int16 (PIM) version is the ``kmeans_assign`` op (the CUDA kernel
     on a card); the fp32 baseline is an inline float distance and one-hot
     accumulation.  Shard padding rows are all-zero vectors: they add
-    nothing to ``sums`` and one spurious count at their label each, which
-    is subtracted here — the only pad correction on this path."""
+    nothing to ``sums`` and one spurious count each at the zero vector's
+    label, the first argmin of the centroids' squared norms (the distance
+    with ``x = 0``); those counts are subtracted here — the only pad
+    correction on this path."""
     def _kernel(Xq, valid, Cq):
         if quantized:
             labels, sums, counts = dispatch.launch("kmeans_assign",
                                                    Xq.contiguous(), Cq)
+            zero_dist = sq_norms(Cq.to(torch.int32))
         else:
             labels = torch.argmin(_float_distances(Xq, Cq),
                                   dim=-1).to(torch.int32)
@@ -97,8 +100,12 @@ def _assign_kernel_factory(k: int, quantized: bool = True):
             sums = torch.matmul(onehot.to(torch.float32).transpose(-1, -2),
                                 Xq)
             counts = cluster_totals(labels, torch.ones_like(labels), k)
-        pads = cluster_totals(labels, (~valid).to(torch.int32), k)
-        return {"sums": sums, "counts": counts - pads}
+            zero_dist = torch.sum(Cq * Cq, dim=1)
+        n_pad = torch.sum(~valid, dim=-1, dtype=torch.int32)
+        at_zero = torch.arange(k, device=counts.device) == torch.argmin(
+            zero_dist)
+        return {"sums": sums,
+                "counts": counts - n_pad.unsqueeze(-1) * at_zero}
     return _kernel
 
 

@@ -117,29 +117,42 @@ def _int16(gen, shape, lo, hi, dev):
 
 
 @pytest.mark.parametrize("case", ["main", "ragged_full_range", "ties",
-                                  "unaligned"])
+                                  "unaligned", "k1", "k9", "k33", "f1",
+                                  "f40", "n1", "main_full_range"])
 def test_kmeans_assign_kernel_equals_plain(cuda, case):
-    """The KME main shape [2048, 12500, 16] x K=16, a ragged shape with
-    full-range int16 (products and norms wrap), duplicated centroids
-    (ties: the first wins) and rows that are not 16-byte aligned (the
-    scalar-load path)."""
+    """The KME main shape [2048, 12500, 16] x K=16 (quantized and
+    full-range), a ragged shape with full-range int16 (products and norms
+    wrap), duplicated centroids (ties: the first wins), rows that are not
+    16-byte aligned (2-byte copies), one cluster, K = 9 (a padded tile),
+    K = 33 (three tiles), one feature, F = 40 (three feature steps) and
+    one row a core."""
     gen = torch.Generator(device=cuda).manual_seed(7)
+    lo, hi = -32768, 32768
+    shapes = {"k1": ((4, 3001, 16), 1), "k9": ((4, 3001, 16), 9),
+              "k33": ((5, 2999, 16), 33), "f1": ((6, 3001, 1), 7),
+              "f40": ((3, 4001, 40), 33), "n1": ((5, 1, 16), 16),
+              "main_full_range": ((2048, 12500, 16), 16)}
     if case == "main":
         x = _int16(gen, (2048, 12500, 16), -2047, 2048, cuda)
         c = _int16(gen, (16, 16), -2047, 2048, cuda)
     elif case == "ragged_full_range":
-        x = _int16(gen, (7, 1027, 13), -32768, 32768, cuda)
-        c = _int16(gen, (5, 13), -32768, 32768, cuda)
+        x = _int16(gen, (7, 1027, 13), lo, hi, cuda)
+        c = _int16(gen, (5, 13), lo, hi, cuda)
         x[0, 0], c[0] = 32767, -32768
     elif case == "ties":
         x = _int16(gen, (3, 4097, 16), -3, 4, cuda)
         c = _int16(gen, (9, 16), -1, 2, cuda)
         c[4], c[8] = c[2], c[0]
-    else:
-        flat = _int16(gen, (5 * 999 * 16 + 1,), -32768, 32768, cuda)
+    elif case == "unaligned":
+        flat = _int16(gen, (5 * 999 * 16 + 1,), lo, hi, cuda)
         x = flat[1:].view(5, 999, 16)
-        c = _int16(gen, (16, 16), -32768, 32768, cuda)
+        c = _int16(gen, (16, 16), lo, hi, cuda)
         assert x.data_ptr() % 16
+    else:
+        (shape, k) = shapes[case]
+        x = _int16(gen, shape, lo, hi, cuda)
+        c = _int16(gen, (k, shape[2]), lo, hi, cuda)
+        x[0, 0], c[0] = 32767, -32768
     out = kmeans_assign_cuda(x, c)
     torch.cuda.synchronize()
     ref = kmeans_assign_plain(x, c)
@@ -149,30 +162,83 @@ def test_kmeans_assign_kernel_equals_plain(cuda, case):
         assert not torch.isin(out[0], torch.tensor([4, 8], device=cuda)).any()
 
 
-@pytest.mark.parametrize("case", ["root", "spread", "ragged"])
+def test_kmeans_assign_chained_calls(cuda):
+    """Two calls on other inputs at the main shape, where one block owns a
+    core and stores its partial into memory allocated empty: the second
+    call's partial may reuse the first's memory, so an entry left unwritten
+    would show."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for lo, hi in ((-2047, 2048), (-3, 4)):
+        x = _int16(gen, (2048, 12500, 16), lo, hi, cuda)
+        c = _int16(gen, (16, 16), lo, hi, cuda)
+        out = kmeans_assign_cuda(x, c)
+        torch.cuda.synchronize()
+        for o, r in zip(out, kmeans_assign_plain(x, c)):
+            assert torch.equal(o, r)
+        del out
+
+
+GINI_CASES = {        # C, n_pc, F, L, classes, leaves [lo, hi)
+    "root": (2048, 37500, 16, 4096, 2, 0, 1),
+    "spread": (2048, 37500, 16, 4096, 2, 0, 1024),
+    "ragged": (5, 1027, 13, 37, 3, 0, 37),
+    "spread_4096": (2048, 37500, 16, 4096, 2, 0, 4096),
+    "frontier": (2048, 37500, 16, 4096, 2, 1023, 2047),
+    "long_core": (132, 150_001, 16, 4096, 2, 0, 1024),
+    "cls3_f13": (64, 20_000, 13, 4096, 3, 0, 2047),
+    "few_cores": (16, 600_000, 16, 4096, 2, 0, 1024),
+    "few_cores_4096": (3, 200_001, 16, 4096, 2, 0, 4096),
+}
+
+
+def _gini_inputs(gen, dev, case):
+    n_cores, n_pc, f, n_leaves, n_cls, lo, hi = GINI_CASES[case]
+    x = torch.randn((n_cores, n_pc, f), generator=gen, device=dev)
+    y = torch.randint(0, n_cls, (n_cores, n_pc), generator=gen, device=dev,
+                      dtype=torch.int32)
+    leaf = torch.randint(lo, hi, (n_cores, n_pc), generator=gen,
+                         device=dev, dtype=torch.int32)
+    if case in ("ragged", "cls3_f13"):
+        leaf[0, :9], y[1, :9] = n_leaves, n_cls
+        leaf[2, :5] = -1
+    th = torch.randn((n_leaves, f), generator=gen, device=dev)
+    th[lo, 0] = x[0, 0, 0]                # x == threshold counts as below
+    leaf[0, 0] = lo
+    return x, y, leaf, th, n_cls
+
+
+@pytest.mark.parametrize("case", list(GINI_CASES))
 def test_gini_counts_kernel_equals_plain(cuda, case):
     """The DTR main shape (2048 cores x 37,500 rows x 16, L = 4096) with
-    every row at the root and with leaves spread over 2^10 values, and a
-    ragged shape with rows whose leaf or class is out of range."""
+    every row at the root, with leaves spread over 2^10 values, over all
+    4,096 (wider than the window: rows past it add to global memory) and
+    over a depth-10 frontier's ids 1023-2046; a ragged shape and 3 classes
+    at F = 13 with rows whose leaf or class is out of range; one block a
+    core over more than 65,535 rows (three passes of 16-bit counters);
+    too few cores to fill the card, so that several blocks a core add
+    into its partial, over two passes each and past the window."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    n_cores, n_pc, f, n_leaves, n_cls = ((5, 1027, 13, 37, 3)
-                                         if case == "ragged"
-                                         else (2048, 37500, 16, 4096, 2))
-    x = torch.randn((n_cores, n_pc, f), generator=gen, device=cuda)
-    y = torch.randint(0, n_cls, (n_cores, n_pc), generator=gen, device=cuda,
-                      dtype=torch.int32)
-    span = {"root": 1, "spread": 1024, "ragged": n_leaves}[case]
-    leaf = torch.randint(0, span, (n_cores, n_pc), generator=gen,
-                         device=cuda, dtype=torch.int32)
-    if case == "ragged":
-        leaf[0, :9], y[1, :9] = n_leaves, n_cls
-    th = torch.randn((n_leaves, f), generator=gen, device=cuda)
-    th[0, 0] = x[0, 0, 0]                 # x == threshold counts as below
-    out = gini_split_cuda(x, y, leaf, th, n_cls)
+    args = _gini_inputs(gen, cuda, case)
+    out = gini_split_cuda(*args)
     torch.cuda.synchronize()
-    ref = gini_split_plain(x, y, leaf, th, n_cls)
+    ref = gini_split_plain(*args)
     for o, r in zip(out, ref):
         assert torch.equal(o, r)
+
+
+def test_gini_counts_chained_calls(cuda):
+    """Calls on other inputs in turn: the kernel writes every entry of
+    partials allocated empty, so a later call's, which may reuse an
+    earlier one's memory, shows any entry left unwritten (and a split
+    core's zeroed partial, any stale one)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for case in ("spread", "frontier", "few_cores", "root"):
+        args = _gini_inputs(gen, cuda, case)
+        out = gini_split_cuda(*args)
+        torch.cuda.synchronize()
+        for o, r in zip(out, gini_split_plain(*args)):
+            assert torch.equal(o, r)
+        del out
 
 
 def test_kmeans_fit_on_the_card_equals_the_cpu_fit(cuda):

@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.api as japi
 from repro.core import dtree as jdt
@@ -135,3 +136,27 @@ def test_jax_tree_predicts_like_the_port_tree(data):
     j = jdt.Tree(t.feature, t.threshold, t.left, t.right, t.leaf_class,
                  t.depth, t.n_nodes)
     np.testing.assert_array_equal(t.predict(X), j.predict(X))
+
+
+def test_pad_rows_count_nowhere(data):
+    """7 cores pad the last shard (1200 = 7 * 172 - 4): the split-evaluate
+    kernel sends those rows to leaf -1, and the counts equal a count over
+    the valid rows alone."""
+    X, y = data
+    ts = tapi.make_system("pim", n_cores=7, device="cpu")
+    Xs, ys, valid = ts.put(X, y).tree_view()
+    assert int((~valid).sum()) == valid.numel() - X.shape[0] == 4
+    rng = np.random.RandomState(2)
+    leaf = torch.from_numpy(rng.randint(0, 128, valid.shape)
+                            .astype(np.int32))
+    th = torch.from_numpy(rng.randn(128, X.shape[1]).astype(np.float32))
+    out = tdt.make_split_eval_kernel(128, 2)(Xs, ys, leaf, valid, th)
+    v = valid.numpy()
+    xv, yv, lv = Xs.numpy()[v], ys.numpy()[v], leaf.numpy()[v]
+    below = np.zeros((128, 2, X.shape[1]), np.int64)
+    total = np.zeros((128, 2), np.int64)
+    np.add.at(total, (lv, yv), 1)
+    np.add.at(below, (lv, yv), xv <= th.numpy()[lv])
+    np.testing.assert_array_equal(out["below"].sum(0).numpy(), below)
+    np.testing.assert_array_equal(out["total"].sum(0).numpy(), total)
+    _assert_same_tree(*_fit_both("pim", 7, X, y))

@@ -1,14 +1,26 @@
-"""Launch planning and operand staging of the port's tensor-core kernels,
-on the CPU: which ``int_matmul`` kernel runs for which M, how K is split
-(every k covered exactly once), and the copies made when a TMA tensor map
-cannot read an operand as it lies.  The staged operands are held against the JAX package's reference.
+"""Launch planning, operand staging and kernel arithmetic of the port's
+CUDA kernels, on the CPU: which ``int_matmul`` kernel runs for which M,
+how K is split (every k covered exactly once), the copies made when a
+TMA tensor map cannot read an operand as it lies; ``kmeans_assign``'s
+byte-split products and its row split; ``gini_counts``' writers of a
+core partial, its window and its 16-bit passes.  The staged operands and the split
+products are held against the JAX package's reference.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.kmeans_assign.ref import kmeans_assign_ref
 from repro.kernels.quant_matmul.ref import int_matmul_ref
+from repro_torch.kernels.gini_split import (ROWS_PER_PASS, WINDOW_BYTES,
+                                            gini_plan)
+from repro_torch.kernels.kmeans_assign import (CHUNK, MAX_EXACT_DEPTH,
+                                               MAX_SHARED_BYTES,
+                                               kmeans_assign_plan,
+                                               split_cross, sq_norms,
+                                               wrapped_cross)
 from repro_torch.kernels.flash_attention import (mha_plain, tma_ready,
                                                  tma_views)
 from repro_torch.kernels.quant_matmul import (H100_SMS, STREAM_MAX_KSPLIT,
@@ -136,3 +148,129 @@ def test_tma_views_keep_the_plain_result():
     ref = mha_plain(q.to(torch.bfloat16).float(), k.to(torch.bfloat16).float(),
                     v.to(torch.bfloat16).float())
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+# -- kmeans_assign: the byte-split products and the row split ---------------
+
+#: (N, K, F): the main shape's K and F, then K and F off multiples of 8
+SPLIT_SHAPES = [(300, 16, 16), (257, 5, 13), (100, 9, 1), (64, 33, 40),
+                (40, 1, 16)]
+
+
+@pytest.mark.parametrize("n,k,f", SPLIT_SHAPES)
+def test_split_cross_is_the_wrapped_int32_product(n, k, f):
+    """Full-range int16 (-32768 and 32767 included): the three byte-split
+    accumulators composed modulo 2**32 equal the wrapping int32 x . c^T,
+    the reference's int32 dot, and its labels equal the reference's."""
+    rng = np.random.RandomState(n + k + f)
+    x = rng.randint(-32768, 32768, (n, f)).astype(np.int16)
+    c = rng.randint(-32768, 32768, (k, f)).astype(np.int16)
+    x[0], x[1, :], c[0] = -32768, 32767, -32768
+    cross = split_cross(torch.from_numpy(x), torch.from_numpy(c))
+    assert torch.equal(cross, wrapped_cross(torch.from_numpy(x).int(),
+                                            torch.from_numpy(c).int()))
+    ref = jax.lax.dot_general(jnp.asarray(x, jnp.int32),
+                              jnp.asarray(c, jnp.int32).T,
+                              (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(cross.numpy(), np.asarray(ref))
+    labels = torch.argmin(sq_norms(torch.from_numpy(c).int()) - 2 * cross,
+                          dim=-1)
+    np.testing.assert_array_equal(
+        labels.numpy(),
+        np.asarray(kmeans_assign_ref(jnp.asarray(x), jnp.asarray(c))[0]))
+
+
+@pytest.mark.parametrize("n_cores,n_pc", [(2048, 12500), (64, 1563),
+                                          (7, 1027), (1, 25_600_000),
+                                          (5, 1), (3, 0), (1, 1_000_003)])
+@pytest.mark.parametrize("k,f", [(16, 16), (5, 13), (33, 40), (1, 1)])
+def test_kmeans_plan_covers_every_row_once(n_cores, n_pc, k, f):
+    """The blocks of a core count every row once, in ranges of whole
+    chunks; one block per core (its partial stored, not added) wherever
+    the cores alone fill the card; shared memory within a block's."""
+    plan = kmeans_assign_plan(n_cores, n_pc, k, f)
+    assert plan.rows_per_cta % CHUNK == 0 and plan.ctas_per_core >= 1
+    covered = np.zeros(n_pc, np.int64)
+    for r0, r1 in plan.row_ranges(n_pc):
+        assert r0 < r1 or n_pc == 0
+        covered[r0:r1] += 1
+    assert (covered == 1).all()
+    assert plan.atomic_out == (plan.ctas_per_core > 1)
+    if n_cores >= 4 * 132:
+        assert not plan.atomic_out
+    assert plan.fixed == (k <= 16 and f <= 16)
+    assert plan.k_pad % 16 == 0 and plan.f_pad % 16 == 0
+    assert plan.smem_bytes <= MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("k", [1, 16, 64, 256])
+def test_kmeans_plan_depth_stays_exact(k):
+    """Every F whose plan fits shared memory is far inside the depth over
+    which a byte-split accumulator is exact."""
+    f = 1
+    while kmeans_assign_plan(2048, 12500, k, f + 1).smem_bytes \
+            <= MAX_SHARED_BYTES:
+        f += 1
+    assert 16 <= f and kmeans_assign_plan(1, 1, k, f).f_pad \
+        < MAX_EXACT_DEPTH // 8
+
+
+def test_split_cross_refuses_a_depth_that_could_wrap():
+    x = torch.zeros((1, MAX_EXACT_DEPTH + 1), dtype=torch.int16)
+    with pytest.raises(ValueError, match="wraps"):
+        split_cross(x, x)
+
+
+# -- gini_counts: the writers of a core partial, 16-bit passes --------------
+
+@pytest.mark.parametrize("n_leaves", [37, 4096, 2 ** 20])
+@pytest.mark.parametrize("n_classes,f", [(2, 16), (3, 13), (2, 1)])
+@pytest.mark.parametrize("n_cores,n_pc", [(2048, 37_500), (16, 4_800_000),
+                                          (7, 1_000_000), (1, 65_536),
+                                          (200, 1), (3, 0)])
+def test_gini_plan_writes_every_leaf_once(n_leaves, n_classes, f, n_cores,
+                                          n_pc):
+    """Every row of a core is counted by exactly one of its blocks, and
+    every leaf of the core's partial is written by one block alone (its
+    stores, onto an empty partial) or added by each block into zeros.  One
+    block a core wherever the cores fill the SMs; otherwise no more
+    blocks than fill them once.  The window holds whole (leaf, class)
+    slots in its shared memory, all L of them where they fit."""
+    plan = gini_plan(n_cores, n_pc, n_leaves, n_classes, f)
+    covered = np.zeros(n_pc, np.int64)
+    for r0, r1 in plan.row_ranges(n_pc):
+        assert r0 < r1 or n_pc == 0
+        covered[r0:r1] += 1
+    assert (covered == 1).all()
+    assert plan.atomic_out == (plan.ctas_per_core > 1)
+    if n_cores >= 132:
+        assert not plan.atomic_out
+    assert plan.ctas_per_core * n_cores <= max(132, n_cores)
+    assert plan.window_words % plan.slot_words == 0
+    assert 4 * plan.window_words <= WINDOW_BYTES
+    assert plan.window_leaves == min(
+        n_leaves, WINDOW_BYTES // (4 * plan.slot_words)) >= 1
+
+
+def test_gini_window_holds_a_depth_10_fit():
+    """Every node id of a depth-10 tree, at the fit's shapes, has a place
+    in the window: rows of no round add to global memory."""
+    plan = gini_plan(2048, 37_500, 4096, 2, 16)
+    assert plan.window_leaves >= 2 ** 11 - 1
+
+
+@pytest.mark.parametrize("n_pc", [0, 1, 37_500, 65_535, 65_536, 131_071,
+                                  1_000_000])
+def test_gini_passes_keep_16_bit_counters(n_pc):
+    """Each block's passes cover its rows once and hold at most 65,535
+    rows, so no 16-bit counter (nor two copies' sum) carries into its
+    neighbour."""
+    for n_cores in (2048, 4, 1):
+        plan = gini_plan(n_cores, n_pc, 4096, 2, 16)
+        covered = np.zeros(n_pc, np.int64)
+        for r0, r1 in plan.row_ranges(n_pc):
+            for p0, p1 in plan.passes(r0, r1):
+                assert 0 < p1 - p0 <= ROWS_PER_PASS <= 0xFFFF
+                covered[p0:p1] += 1
+        assert (covered == 1).all()

@@ -215,3 +215,31 @@ def test_cpu_fit_counts_no_kernel_launches(blobs):
     tapi.make_estimator("kmeans", system=ts, **PARAMS).fit(blobs)
     assert dispatch.launch_counts == {}
     assert isinstance(ts.put(blobs).kmeans_view().shards, torch.Tensor)
+
+
+@pytest.mark.parametrize("version", ["int16", "fp32"])
+def test_pad_rows_are_taken_out_of_the_counts(version, blobs):
+    """7 cores pad the last shard (1500 = 7 * 215 - 5): the all-zero pad
+    rows count at the zero vector's label, the first argmin of the
+    centroids' squared norms (two centroids tie on the least norm here),
+    and the assignment kernel takes them out, leaving the counts of the
+    valid rows."""
+    ts = tapi.make_system("pim", n_cores=7, device="cpu")
+    view = ts.put(blobs).kmeans_view(version)
+    valid = view.mask
+    assert int((~valid).sum()) == valid.numel() - blobs.shape[0] == 5
+    rng = np.random.RandomState(1)
+    c = rng.randint(-40, 41, (6, 5))
+    c[3], c[5] = [1, 2, 0, 0, 0], [0, 0, 2, 1, 0]          # least norm: 5
+    cq = torch.from_numpy(c.astype(np.int16 if version == "int16"
+                                   else np.float32))
+    out = tkme._assign_kernel_factory(6, version == "int16")(view.shards,
+                                                            valid, cq)
+    x = view.shards.to(torch.float64)
+    d = (torch.sum(cq.double() ** 2, dim=1)
+         - 2 * torch.einsum("cnf,kf->cnk", x, cq.double()))
+    labels = torch.argmin(d, dim=-1)[valid]
+    assert int(torch.argmin(d, dim=-1)[~valid].unique()) == 3
+    np.testing.assert_array_equal(out["counts"].sum(0).numpy(),
+                                  np.bincount(labels.numpy(), minlength=6))
+    _assert_same_fit(*_fit_both(version, "pim", 7, blobs), version)
