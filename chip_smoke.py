@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
   2. build    compile every CUDA kernel from ``src/repro_torch/csrc`` with
               nvcc (one process per source, all at once)
   3. kernels  each kernel against its plain PyTorch version on the card,
-              on the main paths' shapes and their edge cases: they must
+              on the main paths' shapes and their edge cases (lut_sigmoid
+              also on inputs 4-12 bytes past an alignment with ragged
+              ends, under an odd table): they must
               be equal (flash_attention: within MHA_F32_ATOL /
               MHA_BF16_ATOL: float32 in another order; bf16 rounds P to
               bf16 for the tensor cores)
@@ -55,7 +57,9 @@ Phases, in order; any failure exits non-zero:
               of TIMING_RUNS, each run after L2Flush: a flush that reads
               a 256 MB buffer, then a device sleep that covers the host's
               enqueue; the method's floor, a one-element add_, first)
-              beside its bound
+              beside its bound (lut_sigmoid in both placements, with
+              their shares of it, also on the z a LOG fit hands it at its
+              first and last iteration)
               and, for the EMB and LM kernels, the nearest PyTorch call
               (int_matmul at M = 1 and at the shortest and longest
               prompts, with the rate reached, its share of the bound and
@@ -144,6 +148,9 @@ PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
 PEAK_BF16_FLOPS = 989e12
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+#: lut_sigmoid's misaligned and ragged cases: about this many elements,
+#: and the length of the odd table beside the paper's
+LUT_RAGGED, LUT_ODD = 100_000, 1_001
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
@@ -728,6 +735,75 @@ def gini_round_times(torch, dispatch, fit):
     return [s.elapsed_time(e) for s, e in events], result
 
 
+def lut_edges(n_table: int) -> list:
+    """The inputs where lut_sigmoid's index arithmetic turns: 0, +-1, the
+    table's last entry and the first past it, and the int32 extremes
+    (|INT32_MIN| wraps)."""
+    return [0, 1, -1, n_table - 1, -(n_table - 1), n_table, -n_table,
+            INT32_MAX, INT32_MIN, INT32_MIN + 1]
+
+
+def check_lut_sigmoid(torch, rng, lut, z) -> tuple[int, int]:
+    """lut_sigmoid against its plain version in both placements: on the
+    main shape ``z`` (which holds the edge values); then on inputs 4, 8
+    and 12 bytes past a 16-byte boundary whose lengths are 1, 2 and 3
+    past a multiple of 4, with each edge value in turn in the scalar
+    head, the first vector and the scalar tail, under the paper's table
+    and an odd one of LUT_ODD entries.  Returns the max abs error and
+    the number of those cases."""
+    from repro_torch.core.lut import SigmoidLut
+    from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
+                                                    lut_sigmoid_plain)
+    odd = SigmoidLut(lut.table[:LUT_ODD].clone(), lut.frac_bits,
+                     lut.boundary, lut.value_frac)
+    base = torch.from_numpy(rng.randint(-30000, 30000, LUT_RAGGED + 16)
+                            .astype(np.int32)).to(z.device)
+    cases = [(lut, z)]
+    for table in (lut, odd):
+        for off in (1, 2, 3):
+            for rem in (1, 2, 3):
+                n = LUT_RAGGED + rem
+                head = (4 - off) % 4
+                tail = (n - head) % 4
+                for e in lut_edges(table.table.numel()):
+                    xs = base.clone()[off:off + n]
+                    xs[:head + 4] = e
+                    if tail:
+                        xs[n - tail:] = e
+                    cases.append((table, xs))
+    err = 0
+    for table, xs in cases:
+        for placement in ("wram", "mram"):
+            out = lut_sigmoid_cuda(xs, table, placement)
+            ref = lut_sigmoid_plain(xs, table)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"lut_sigmoid[{placement}] kernel != plain at "
+                     f"{xs.numel()} elements, {xs.data_ptr() % 16} B past "
+                     f"an alignment, a table of {table.table.numel()}")
+            err = max(err, int((out.long() - ref.long()).abs().max()))
+    return err, len(cases) - 1
+
+
+def log_fit_z(dispatch, make_estimator, ds) -> dict:
+    """The z that a LOG int32_lut_wram fit of ITERS iterations over ``ds``
+    hands ``lut_sigmoid`` at its first iteration (w = 0 there, so z = 0
+    everywhere) and at its last, copied on the card."""
+    op = dispatch.get_op("lut_sigmoid")
+    seen = []
+
+    def capture(z, *args, **kwargs):
+        seen.append(z.clone())
+        return op.cuda(z, *args, **kwargs)
+    dispatch.register_op("lut_sigmoid", cuda=capture, plain=op.plain)
+    try:
+        make_estimator("logreg", version="int32_lut_wram", n_iters=ITERS,
+                       system=ds.system).fit(ds)
+    finally:
+        dispatch.register_op("lut_sigmoid", cuda=op.cuda, plain=op.plain)
+    return {"first": seen[0], "last": seen[-1]}
+
+
 def device_profile(torch, fn, top: int = 6) -> str:
     """Run ``fn`` under torch.profiler: the device's busy share of the
     wall time ``fn`` took inside the profiler (its start-up and the trace's
@@ -1184,23 +1260,17 @@ def main() -> int:
 
     lut = build_sigmoid_lut(device=dev)
     n_table = lut.table.numel()
-    edges = torch.tensor([0, 1, -1, n_table - 1, -(n_table - 1), n_table,
-                          -n_table, 2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1],
-                         dtype=torch.int32)
+    edges = torch.tensor(lut_edges(n_table), dtype=torch.int32)
     z = torch.from_numpy(rng.randint(-30000, 30000, (N_CORES, n_pc))
                          .astype(np.int32))
     z.view(-1)[:edges.numel()] = edges
     z = z.to(dev)
-    err_lut = 0
-    for placement in ("wram", "mram"):
-        out = lut_sigmoid_cuda(z, lut, placement)
-        ref = lut_sigmoid_plain(z, lut)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            fail(f"lut_sigmoid[{placement}] kernel != plain")
-        err_lut = max(err_lut, int((out.long() - ref.long()).abs().max()))
+    err_lut, n_ragged = check_lut_sigmoid(torch, rng, lut, z)
     say(f"kernels: lut_sigmoid wram and mram == plain at {tuple(z.shape)} "
-        f"with the edge values (max abs err {err_lut})")
+        f"with the edge values, and in {n_ragged} cases of ~{LUT_RAGGED} "
+        f"elements 4-12 B past an alignment with ragged ends, the edge "
+        f"values in the head, a vector and the tail, under tables of "
+        f"{n_table} and {LUT_ODD} (max abs err {err_lut})")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     err_km, km = check_kmeans_assign(torch, dev, gen)
     err_gi, gi = check_gini_counts(torch, dev, gen, n_dtr)
@@ -1395,6 +1465,15 @@ def main() -> int:
     fx["bound_ms"], fx["bound_by"] = bound(n * N_FEATURES * 4
                                            + N_FEATURES * 4 + n * 4,
                                            n * N_FEATURES * 4)
+    say(f"timing: fx_matvec {fx['ms']:.4f} ms, plain {fx['plain_ms']:.4f} "
+        f"ms, bound {fx['bound_ms']:.4f} ms ({fx['bound_by']}; H100 SXM "
+        f"peaks {PEAK_BYTES_PER_S:.3g} B/s, {PEAK_INT32_OPS_PER_S:.3g} "
+        f"int32 op/s) on {smi}")
+    # lut_sigmoid at the main shape, and on the z that the LOG fit itself
+    # hands it (the system and datasets stay for the fits below)
+    system = make_system("pim", n_cores=N_CORES, device="cuda")
+    lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
+    fit_z = log_fit_z(dispatch, make_estimator, log_ds)
     lu = dict(ms=cuda_ms(torch, lambda: lut_sigmoid_cuda(z, lut, "wram"),
                          flush),
               mram_ms=cuda_ms(torch, lambda: lut_sigmoid_cuda(
@@ -1403,14 +1482,27 @@ def main() -> int:
                                flush))
     lu["bound_ms"], lu["bound_by"] = bound(z.numel() * 8 + n_table * 2,
                                            z.numel() * 5)
-    for name, t in (("fx_matvec", fx), ("lut_sigmoid", lu)):
-        say(f"timing: {name} {t['ms']:.4f} ms"
-            + (f" (mram placement {t['mram_ms']:.4f} ms)"
-               if "mram_ms" in t else "")
-            + f", plain {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; H100 SXM peaks "
-            f"{PEAK_BYTES_PER_S:.3g} B/s, "
-            f"{PEAK_INT32_OPS_PER_S:.3g} int32 op/s) on {smi}")
+    lu["fit_z_ms"] = {f"{it}_{placement}": cuda_ms(
+        torch, lambda: lut_sigmoid_cuda(zi, lut, placement), flush)
+        for it, zi in fit_z.items() for placement in ("wram", "mram")}
+    fz = lu["fit_z_ms"]
+    at_end = {name: float((zi.abs() >= n_table - 1).float().mean())
+              for name, zi in (("main", z), ("last", fit_z["last"]))}
+    say(f"timing: lut_sigmoid at {tuple(z.shape)} wram {lu['ms']:.4f} ms "
+        f"({100 * lu['bound_ms'] / lu['ms']:.1f}% of the bound), mram "
+        f"{lu['mram_ms']:.4f} ms "
+        f"({100 * lu['bound_ms'] / lu['mram_ms']:.1f}%); "
+        f"{100 * at_end['main']:.1f}% of z at the table's end; on the LOG "
+        f"fit's own z, iteration 1 (all zero: "
+        f"{not bool(fit_z['first'].any())}) wram {fz['first_wram']:.4f} / "
+        f"mram {fz['first_mram']:.4f} ms, iteration {ITERS} (max |z| "
+        f"{int(fit_z['last'].abs().max())}, {100 * at_end['last']:.2f}% "
+        f"at the table's end) wram {fz['last_wram']:.4f} / mram "
+        f"{fz['last_mram']:.4f} ms; plain {lu['plain_ms']:.4f} ms, bound "
+        f"{lu['bound_ms']:.4f} ms ({lu['bound_by']}; H100 SXM peaks "
+        f"{PEAK_BYTES_PER_S:.3g} B/s, {PEAK_INT32_OPS_PER_S:.3g} int32 "
+        f"op/s) on {smi}")
+    del fit_z
 
     kx, kc = km["x"], km["c"]
     n_km = kx.shape[0] * kx.shape[1]
@@ -1498,8 +1590,6 @@ def main() -> int:
             f" on {smi}")
     del flush, km, gi
 
-    system = make_system("pim", n_cores=N_CORES, device="cuda")
-    lin_ds, log_ds = system.put(X, y), system.put(Xc, yc)
     for workload, version in plan:
         ds = lin_ds if workload == "linreg" else log_ds
         make_estimator(workload, version=version, n_iters=1,
@@ -1558,7 +1648,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/lut_activation/kernel.py:37",
          "launches": counts["lut_sigmoid"], "max_abs_err": err_lut,
          "ms": lu["ms"], "mram_ms": lu["mram_ms"],
-         "plain_ms": lu["plain_ms"], "bound_ms": lu["bound_ms"],
+         "fit_z_ms": lu["fit_z_ms"], "plain_ms": lu["plain_ms"], "bound_ms": lu["bound_ms"],
          "bound_by": lu["bound_by"], "library_ms": None},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",

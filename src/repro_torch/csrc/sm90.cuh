@@ -1,6 +1,9 @@
-// sm90.cuh: the Hopper building blocks that int_matmul.cu and
-// flash_attention.cu share, written as inline PTX for sm_90a.
+// sm90.cuh: the Hopper building blocks that int_matmul.cu,
+// flash_attention.cu and lut_sigmoid.cu share, written as inline PTX for
+// sm_90a.
 //
+//  - cp.async: 16-byte copies from global to shared memory that bypass the
+//    registers (and L1), committed as a group and waited for by group;
 //  - mbarrier: init, arrive, arrive with an expected transaction count, and
 //    a parity wait (a barrier's phase completes when its arrivals and its
 //    expected bytes are all in; a wait names the parity of the phase it
@@ -39,6 +42,25 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// ---- cp.async -------------------------------------------------------------
+
+// dst: a shared-memory address (smem_u32); both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- mbarrier -------------------------------------------------------------

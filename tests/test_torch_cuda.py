@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.api import make_estimator, make_system
-from repro_torch.core.lut import build_sigmoid_lut
+from repro_torch.core.lut import SigmoidLut, build_sigmoid_lut
 from repro_torch.data.synthetic import (make_blobs, make_classification,
                                         make_linear_dataset, make_recsys)
 from repro_torch.kernels import dispatch
@@ -89,6 +89,76 @@ def test_lut_sigmoid_kernel_equals_plain(cuda, placement, shape):
                            placement)
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), lut_sigmoid_plain(q, build_sigmoid_lut()))
+
+
+def _lut(n_table, device="cpu"):
+    """The paper's table, or its first n_table entries as a SigmoidLut of
+    their own (an odd length leaves a scalar tail after the 16-byte
+    copies of the shared placement)."""
+    lut = build_sigmoid_lut()
+    return SigmoidLut(lut.table[:n_table].clone().to(device), lut.frac_bits,
+                      lut.boundary, lut.value_frac)
+
+
+def _lut_edges(n_table):
+    return [0, 1, -1, n_table - 1, -(n_table - 1), n_table, -n_table,
+            INT32_MAX, INT32_MIN, INT32_MIN + 1]
+
+
+@pytest.mark.parametrize("placement", ["wram", "mram"])
+@pytest.mark.parametrize("n_table", [20 * 1024, 1001])
+@pytest.mark.parametrize("offset", [4, 8, 12])
+@pytest.mark.parametrize("rem", [1, 2, 3])
+def test_lut_sigmoid_misaligned_ragged_edges(cuda, placement, n_table,
+                                             offset, rem):
+    """x starts ``offset`` bytes past a 16-byte boundary and holds 4k +
+    ``rem`` elements: a scalar head, vectors and a scalar tail.  Each
+    edge value in turn fills the head, the first and last vectors and the
+    tail; bit-identical to the plain version."""
+    rng = np.random.RandomState(offset * 4 + rem)
+    n = 40_000 + rem
+    head = (16 - offset) // 4
+    tail = (n - head) % 4
+    lut, dev_lut = _lut(n_table), _lut(n_table, cuda)
+    for e in _lut_edges(n_table):
+        q = rng.randint(-30000, 30000, n).astype(np.int32)
+        q[:head + 4] = e
+        q[n - tail - 4:] = e
+        pad = np.zeros(offset // 4, np.int32)
+        x = torch.from_numpy(np.concatenate([pad, q])).to(cuda)[pad.size:]
+        assert x.data_ptr() % 16 == offset
+        out = lut_sigmoid_cuda(x, dev_lut, placement)
+        torch.cuda.synchronize()
+        assert out.data_ptr() % 16 == offset       # the vector path
+        assert torch.equal(out.cpu(),
+                           lut_sigmoid_plain(torch.from_numpy(q), lut))
+
+
+@pytest.mark.parametrize("placement", ["wram", "mram"])
+def test_lut_sigmoid_unaligned_table(cuda, placement):
+    """A table that starts 2 bytes past a boundary (a view): WRAM stages
+    an aligned copy, MRAM gathers from it as it lies."""
+    lut = build_sigmoid_lut()
+    big = torch.cat([lut.table[:1], lut.table]).to(cuda)
+    view = SigmoidLut(big[1:], lut.frac_bits, lut.boundary, lut.value_frac)
+    assert view.table.data_ptr() % 16 == 2
+    q = torch.from_numpy(np.random.RandomState(3).randint(
+        -30000, 30000, 99_999).astype(np.int32))
+    out = lut_sigmoid_cuda(q.to(cuda), view, placement)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), lut_sigmoid_plain(q, lut))
+
+
+def test_lut_sigmoid_refuses_a_wram_table_over_shared_memory(cuda):
+    big = SigmoidLut(torch.zeros(48 * 1024 // 2 + 1, dtype=torch.int16,
+                                 device=cuda), 10, 24, 15)
+    x = torch.zeros(16, dtype=torch.int32, device=cuda)
+    dispatch.reset_launch_counts()
+    with pytest.raises(ValueError, match="does not fit"):
+        lut_sigmoid_cuda(x, big, "wram")
+    assert torch.equal(lut_sigmoid_cuda(x, big, "mram").cpu(),
+                       torch.zeros(16, dtype=torch.int32))
+    assert dispatch.launch_counts == {"lut_sigmoid": 1}
 
 
 @pytest.mark.parametrize("workload,version", [("linreg", "int32"),

@@ -3,7 +3,8 @@ CUDA kernels, on the CPU: which ``int_matmul`` kernel runs for which M,
 how K is split (every k covered exactly once), the copies made when a
 TMA tensor map cannot read an operand as it lies; ``kmeans_assign``'s
 byte-split products and its row split; ``gini_counts``' writers of a
-core partial, its window and its 16-bit passes.  The staged operands and the split
+core partial, its window and its 16-bit passes; ``lut_sigmoid``'s scalar
+head, 16-byte vectors and scalar tail, its grid and its staged table.  The staged operands and the split
 products are held against the JAX package's reference.
 """
 import jax
@@ -21,6 +22,10 @@ from repro_torch.kernels.kmeans_assign import (CHUNK, MAX_EXACT_DEPTH,
                                                kmeans_assign_plan,
                                                split_cross, sq_norms,
                                                wrapped_cross)
+from repro_torch.kernels.lut_activation import (BLOCKS_PER_SM,
+                                                MAX_SHARED_TABLE, THREADS,
+                                                UNROLL, VEC, aligned_like,
+                                                lut_sigmoid_plan)
 from repro_torch.kernels.flash_attention import (mha_plain, tma_ready,
                                                  tma_views)
 from repro_torch.kernels.quant_matmul import (H100_SMS, STREAM_MAX_KSPLIT,
@@ -274,3 +279,89 @@ def test_gini_passes_keep_16_bit_counters(n_pc):
                 assert 0 < p1 - p0 <= ROWS_PER_PASS <= 0xFFFF
                 covered[p0:p1] += 1
         assert (covered == 1).all()
+
+
+# -- lut_sigmoid: the scalar head, 16-byte vectors, the scalar tail ---------
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 257 * 129, 2048 * 3072])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("placement", ["wram", "mram"])
+def test_lut_plan_covers_every_element_once(n, offset, placement):
+    """Head, vectors and tail cover the n elements once, for x (and the
+    wrapper's out) at each offset past a 16-byte boundary: the vectors
+    start at the first boundary.  The grid is persistent and no larger
+    than n fills."""
+    plan = lut_sigmoid_plan(n, offset, offset, 20 * 1024, placement)
+    assert plan.head + VEC * plan.vectors + plan.tail == n
+    body = plan.head + VEC * plan.vectors
+    covered = np.zeros(n, np.int64)
+    for i0, i1 in ((0, plan.head), (plan.head, body), (body, n)):
+        covered[i0:i1] += 1
+    assert (covered == 1).all()
+    assert plan.head == min(n, (16 - offset) % 16 // 4)
+    assert plan.vectors == 0 or (offset + 4 * plan.head) % 16 == 0
+    assert plan.tail < VEC and (plan.tail == 0 or plan.head < 4)
+    assert plan.block == THREADS <= 1024
+    assert 1 <= plan.grid <= 132 * BLOCKS_PER_SM
+    assert (plan.grid - 1) * plan.block * VEC * UNROLL < max(n, 1)
+
+
+@pytest.mark.parametrize("x_offset,out_offset", [(4, 0), (0, 8), (12, 4),
+                                                 (2, 2)])
+def test_lut_plan_refuses_x_and_out_that_cannot_stream_together(
+        x_offset, out_offset):
+    with pytest.raises(ValueError, match="cannot"):
+        lut_sigmoid_plan(100, x_offset, out_offset, 1001, "wram")
+
+
+@pytest.mark.parametrize("placement", ["wram", "mram"])
+def test_lut_plan_streams_the_main_path_as_vectors(placement):
+    """The LOG step hands the kernel a fresh [2048, 3072] z (fx_matvec's
+    output plus the bias, a new allocation) and the wrapper allocates the
+    output: both start on a boundary, so all of it is vectors, on a grid
+    of every SM."""
+    n = 2048 * 3072
+    plan = lut_sigmoid_plan(n, 0, 0, 20 * 1024, placement)
+    assert (plan.head, plan.tail) == (0, 0)
+    assert plan.vectors == n // VEC
+    assert plan.grid == 132 * BLOCKS_PER_SM
+    assert lut_sigmoid_plan(n, 0, 0, 20 * 1024, placement,
+                            sms=114).grid == 114 * BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("n_table", [1, 7, 8, 9, 1001, 20 * 1024,
+                                     MAX_SHARED_TABLE])
+def test_lut_plan_stages_the_whole_table(n_table):
+    """WRAM's shared memory holds the whole table in whole 16-byte chunks
+    within the 48 KB static limit; MRAM stages nothing."""
+    wram = lut_sigmoid_plan(100, 0, 0, n_table, "wram")
+    assert 2 * n_table <= wram.smem_bytes <= 48 * 1024
+    assert wram.smem_bytes % 16 == 0 and wram.smem_bytes - 2 * n_table < 16
+    assert lut_sigmoid_plan(100, 0, 0, n_table, "mram").smem_bytes == 0
+
+
+def test_lut_plan_refuses_a_wram_table_over_shared_memory():
+    with pytest.raises(ValueError, match="does not fit"):
+        lut_sigmoid_plan(100, 0, 0, MAX_SHARED_TABLE + 1, "wram")
+    with pytest.raises(ValueError, match="does not fit"):
+        lut_sigmoid_plan(100, 0, 0, 0, "mram")
+    with pytest.raises(ValueError, match="placement"):
+        lut_sigmoid_plan(100, 0, 0, 1001, "vmem")
+    # MRAM reads the table from global memory: any length
+    assert lut_sigmoid_plan(100, 0, 0, MAX_SHARED_TABLE + 1,
+                            "mram").smem_bytes == 0
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_lut_output_starts_at_the_inputs_offset(offset):
+    """The wrapper's output lies as far past a 16-byte boundary as x, so
+    that any int32 x streams as vectors."""
+    flat = torch.zeros(64 + offset, dtype=torch.int32)
+    base = (-flat.data_ptr() % 16) // 4
+    x = flat[base + offset:base + offset + 60].view(6, 10)
+    out = aligned_like(x)
+    assert out.shape == x.shape and out.dtype == torch.int32
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4 * offset
+    plan = lut_sigmoid_plan(60, x.data_ptr() % 16, out.data_ptr() % 16,
+                            1001, "wram")
+    assert plan.head == (4 - offset) % 4 and plan.vectors > 0
