@@ -67,6 +67,20 @@ Phases, in order; any failure exits non-zero:
               each fit's milliseconds per iteration (per round for DTR,
               per step for EMB) and samples/s; the serve runs' time to
               first token, ms per decode token and tokens/s
+  6. fused    step fusion, each chunk one CUDA graph replay, on the
+              datasets resident since phases 4-5, each fit with the
+              launch counts zeroed just before it: LIN int32/hyb and LOG
+              int32_lut_wram/int32_lut_mram at fuse_steps 5 and 10,
+              pipeline depth 1 and 2 (weights bit-identical to the
+              serial card fit, its launch counts, a replay a chunk); KME
+              int16 at fuse_steps 5 (10 kmeans_assign launches, within
+              the reference's fused-against-serial tolerances; card ==
+              CPU at 100,000 samples); EMB int32 D=8 at fuse_steps 8
+              (run at the end of its phase-4 fits: tables and history
+              bit-identical to the serial deferred fit, 400 emb_gather
+              launches through replays); fused against serial times,
+              capture times, graph pool bytes and the card's busy share
+              over a fused KME and EMB fit
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -135,6 +149,11 @@ EMB_FITS = (("int32 eager", {"version": "int32"}),
                                       "compress_flush": True}),
             ("fp32 eager", {"version": "fp32"}))
 EMB_CHECK, EMB_CHECK_ITERS = 20_000, 40   # the card-vs-CPU EMB fits
+#: the fused phase: GD and Lloyd's chunk lengths and pipeline depths, and
+#: EMB's chunk length (one D=8 window a chunk)
+FUSE_STEPS, FUSE_DEPTHS, KME_FUSE, EMB_FUSE = (5, 10), (1, 2), 5, 8
+FUSED_GD = (("linreg", "int32"), ("linreg", "hyb"),
+            ("logreg", "int32_lut_wram"), ("logreg", "int32_lut_mram"))
 #: EMB fp32 CPU-vs-card tolerance on the tables: the prediction sums
 #: u * i over the 16 columns in another order on the card
 EMB_FP32_RTOL, EMB_FP32_ATOL = 1e-4, 1e-6
@@ -506,11 +525,14 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
 
 
 def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
-                     ) -> tuple[dict, list]:
+                     ) -> tuple[dict, list, str]:
     """EMB's main path at the Netflix matrix's size: every fit of
     EMB_FITS through the workload's ``fit_steps`` with the launch counts
-    zeroed just before it and checked just after.  Returns the summed
-    launch counts and a profiler summary of 50 eager int32 steps."""
+    zeroed just before it and checked just after; then the deferred D=8
+    int32 fit fused (EMB_FUSE steps a chunk, one CUDA graph replay each),
+    against the serial one.  Returns the summed launch counts (the
+    serial fits'), a profiler summary of 50 eager int32 steps and one of
+    a fused fit."""
     from repro_torch.data.synthetic import make_recsys
     n_emb, avail = host_samples(EMB_SIZES, EMB_HOST_BYTES_PER_SAMPLE)
     say(f"host MemAvailable {avail / 2 ** 30:.1f} GiB: EMB runs at {n_emb:,}"
@@ -529,13 +551,14 @@ def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
                 frac_bits=EMB_FRAC_BITS, n_users=EMB_USERS, n_items=EMB_ITEMS,
                 record_every=EMB_ITERS // 4, seed=SEED)
     totals: dict = {}
+    serial = {}
     for name, params in EMB_FITS:
         spec = wl.spec(**base, **params)
         dispatch.reset_launch_counts()
         steps, res = step_times(wl.fit_steps(ds, spec))
         torch.cuda.synchronize()
         counts = dict(dispatch.launch_counts)
-        m = res.model
+        m = serial[name] = res.model
         expected = {"emb_gather": 2 * EMB_ITERS,
                     "emb_scatter_add": 2 * m.n_flushes}
         windows = EMB_ITERS // params.get("flush_every", 1)
@@ -563,8 +586,56 @@ def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
     next(gen)                                # set-up and the first step
     profile = device_profile(torch, lambda: [next(gen) for _ in range(50)])
     gen.close()
+    fused_profile = emb_fused_on_card(torch, wl, ds, base, dispatch,
+                                      serial["int32 deferred D=8"], smi)
     del X, y, ds
-    return totals, profile
+    return totals, profile, fused_profile
+
+
+def emb_fused_on_card(torch, wl, ds, base: dict, dispatch, serial, smi: str
+                      ) -> str:
+    """The deferred D=8 int32 fit with EMB_FUSE steps a chunk, twice, each
+    with the launch counts zeroed just before it: tables and loss history
+    equal the serial fit's, 2 emb_gather a step and 2 emb_scatter_add a
+    flush, one graph replay a chunk.  A fit captures its own chunk graphs
+    (they read its tables), one per chunk length.  Returns a profiler
+    summary of a third fit after its first chunk."""
+    spec = wl.spec(**base, version="int32", flush_every=EMB_FLUSH,
+                   fuse_steps=EMB_FUSE)
+    for run in (1, 2):
+        syncs = ds.system.stats.host_syncs
+        dispatch.reset_launch_counts()
+        with GraphCaptures(torch) as graphs:
+            chunks, res = chunk_times(torch, wl.fit_steps(ds, spec))
+        m = res.model
+        counts = dict(dispatch.launch_counts)
+        replays = sum(dispatch.graph_replays.values())
+        n_chunks = ds.system.stats.host_syncs - syncs  # a sync a chunk
+        expected = {"emb_gather": 2 * EMB_ITERS,
+                    "emb_scatter_add": 2 * m.n_flushes}
+        if counts != expected or replays != n_chunks:
+            fail(f"EMB fused: launch counts {counts}, {replays} replays "
+                 f"for {n_chunks} chunks (expected {expected})")
+        if not (np.array_equal(m.user_raw, serial.user_raw)
+                and np.array_equal(m.item_raw, serial.item_raw)
+                and m.history == serial.history
+                and m.n_flushes == serial.n_flushes):
+            fail("EMB fused: tables or history differ from the serial "
+                 "deferred fit on the card")
+        per_step = statistics.median(t / k for k, t in chunks[1:-1])
+        say(f"fused: emb int32 D={EMB_FLUSH} fuse_steps {EMB_FUSE} (fit "
+            f"{run}) {per_step * 1e3:.3f} ms/step (median over chunks "
+            f"2-{len(chunks) - 1} of a chunk's time over its steps, "
+            f"flushes included; the chunks that capture their graph "
+            f"among them); set-up and first chunk "
+            f"{chunks[0][1] * 1e3:.1f} ms; launch counts {counts}, "
+            f"{replays} graph replays for {n_chunks} chunks; tables and "
+            f"history == serial deferred fit ({N_CORES} cores, on {smi})")
+        say(f"fused: emb chunk graphs of fit {run}: {graphs} (on {smi})")
+    from repro_torch.systems import run_steps
+    gen = wl.fit_steps(ds, spec)
+    next(gen)
+    return device_profile(torch, lambda: run_steps(gen))
 
 
 def emb_card_equals_cpu(make_system, make_estimator) -> None:
@@ -696,6 +767,24 @@ def check_kme(est: dict, n: int) -> None:
             fail(f"KME {version}: misshapen or non-finite result")
 
 
+def chunk_times(torch, gen) -> tuple[list, object]:
+    """``(iterations, wall seconds)`` of each chunk a ``fit_steps``
+    generator yields, each ending in a synchronize (the last entry, with
+    0 iterations, is the work after the last yield), and the result."""
+    out, t = [], time.perf_counter()
+    while True:
+        try:
+            k = int(next(gen))
+        except StopIteration as stop:
+            torch.cuda.synchronize()
+            out.append((0, time.perf_counter() - t))
+            return out, stop.value
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out.append((k, now - t))
+        t = now
+
+
 def step_times(gen) -> tuple[list, object]:
     """Wall seconds of each step of a ``fit_steps`` generator (the host
     reads the reduced partials, a sync, at every step; the last entry is
@@ -710,6 +799,172 @@ def step_times(gen) -> tuple[list, object]:
         now = time.perf_counter()
         times.append(now - t)
         t = now
+
+
+def timed(torch, fn) -> tuple[float, object]:
+    """Wall seconds of ``fn()`` up to a synchronize, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+class GraphCaptures:
+    """Within the block, each chunk graph's capture, its warm-up step
+    included, timed between two synchronizations, and the bytes of the
+    memory pool it keeps (the segments the allocator lists under the
+    graph's pool): ``taken`` holds (program, k, seconds, pool bytes)."""
+
+    def __init__(self, torch):
+        from repro_torch.systems import step_graph
+        self.torch, self.cls = torch, step_graph.ChunkGraph
+        self.taken: list = []
+
+    def __enter__(self):
+        torch, init, taken = self.torch, self.cls.__init__, self.taken
+        self.init = init
+
+        def timed_init(graph, program, carry, sharded, xs, k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            init(graph, program, carry, sharded, xs, k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            pool = tuple(graph.graph.pool())
+            taken.append((graph.name, k, dt, sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) == pool)))
+        self.cls.__init__ = timed_init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.init
+
+    @property
+    def seconds(self) -> float:
+        return sum(t for _, _, t, _ in self.taken)
+
+    def __str__(self) -> str:
+        return ", ".join(f"k={k} capture {t * 1e3:.1f} ms pool {b:,} B"
+                         for _, k, t, b in self.taken)
+
+
+def fused_gd_fits(torch, dispatch, make_estimator, system, lin_ds, log_ds,
+                  smi: str) -> None:
+    """LIN int32 and hyb, LOG int32_lut_wram and int32_lut_mram at the main
+    shape, serial and then fused at every FUSE_STEPS x FUSE_DEPTHS, each
+    with the launch counts zeroed just before it: weights bit-identical
+    to the serial card fit, the serial fit's launch counts, one graph
+    replay and one host sync per chunk.  Each fused fit captures its
+    chunk graphs and drops them when it ends; its time per iteration is
+    given with the captures and without them."""
+    for workload, version in FUSED_GD:
+        ds = lin_ds if workload == "linreg" else log_ds
+
+        def fit(**params):
+            return make_estimator(workload, version=version, n_iters=ITERS,
+                                  system=system, **params).fit(ds)
+        dispatch.reset_launch_counts()
+        dt, ref = timed(torch, fit)
+        serial_counts = dict(dispatch.launch_counts)
+        say(f"fused: {workload:<7} {version:<15} serial "
+            f"{dt / ITERS * 1e3:.3f} ms/iteration over the fit; launch "
+            f"counts {serial_counts} ({N_CORES} cores, on {smi})")
+        for fuse in FUSE_STEPS:
+            for depth in FUSE_DEPTHS:
+                syncs = system.stats.host_syncs
+                dispatch.reset_launch_counts()
+                with GraphCaptures(torch) as graphs:
+                    dt, est = timed(torch, lambda: fit(
+                        fuse_steps=fuse, pipeline_depth=depth))
+                counts = dict(dispatch.launch_counts)
+                replays = sum(dispatch.graph_replays.values())
+                chunks = system.stats.host_syncs - syncs
+                if (counts != serial_counts or replays != chunks
+                        or chunks != -(-ITERS // fuse)):
+                    fail(f"{workload} {version} fuse_steps {fuse}: launch "
+                         f"counts {counts}, {replays} replays, {chunks} "
+                         f"chunks (serial: {serial_counts})")
+                if not (np.array_equal(est.coef_, ref.coef_)
+                        and est.intercept_ == ref.intercept_):
+                    fail(f"{workload} {version} fuse_steps {fuse} depth "
+                         f"{depth}: weights differ from the serial card fit")
+                say(f"fused: {workload:<7} {version:<15} fuse_steps {fuse:>2}"
+                    f" depth {depth} "
+                    f"{(dt - graphs.seconds) / ITERS * 1e3:.3f} ms/iteration"
+                    f" over the fit without its captures "
+                    f"({dt / ITERS * 1e3:.3f} with them); {replays} "
+                    f"replays; w, b == serial card fit; chunk graphs: "
+                    f"{graphs} (on {smi})")
+    torch.cuda.empty_cache()
+
+
+def fused_kme(torch, dispatch, make_system, get_workload, kme_ds, serial,
+              Xq, smi: str) -> str:
+    """KME int16 at the main shape with KME_FUSE iterations a chunk, at
+    depth 1 (to time a replayed chunk) and 2, each fit capturing its
+    chunk graph and with the launch counts zeroed just before it: ITERS
+    kmeans_assign launches, one replay a chunk, held to the serial fit
+    within the reference's fused-against-serial tolerances
+    (tests/test_step_fusion.py); then the card's fused fit against the
+    CPU's at KME_QUALITY samples, bit for bit.  Returns a profiler
+    summary of a fused fit."""
+    wl = get_workload("kmeans")
+
+    def spec(**extra):
+        return wl.spec("int16", n_clusters=KME_K, n_init=1, max_iter=ITERS,
+                       tol=0.0, **extra)
+    steps, _ = step_times(wl.fit_steps(kme_ds, spec()))
+    say(f"fused: kmeans  int16 serial "
+        f"{statistics.median(steps[1:ITERS]) * 1e3:.3f} ms/iteration "
+        f"(median of iterations 2-{ITERS}; {N_CORES} cores, "
+        f"{KME_SAMPLES:,} samples, on {smi})")
+    for depth in FUSE_DEPTHS:
+        dispatch.reset_launch_counts()
+        with GraphCaptures(torch) as graphs:
+            chunks, res = chunk_times(torch, wl.fit_steps(
+                kme_ds, spec(fuse_steps=KME_FUSE, pipeline_depth=depth)))
+        m = res.model
+        counts = dict(dispatch.launch_counts)
+        replays = sum(dispatch.graph_replays.values())
+        if counts != {"kmeans_assign": ITERS} or replays != ITERS // KME_FUSE:
+            fail(f"KME fused: launch counts {counts}, {replays} replays")
+        dc = float(np.abs(m.centroids - serial.cluster_centers_).max())
+        rel = abs(m.inertia - serial.inertia_) / abs(serial.inertia_)
+        say(f"fused: kmeans  int16 fuse_steps {KME_FUSE} depth {depth} "
+            + (f"{chunks[1][1] / chunks[1][0] * 1e3:.3f} ms/iteration (the "
+               f"second chunk over its {chunks[1][0]} iterations); "
+               if depth == 1 else "")
+            + f"first chunk with the init draw and the capture "
+            f"{chunks[0][1] * 1e3:.1f} ms; chunk graph: {graphs}; launch "
+            f"counts {counts}, {replays} replays; against the serial fit: "
+            f"n_iter {m.n_iters}, inertia rel {rel:.3g}, max |dC| "
+            f"{dc:.3g} (on {smi})")
+        if not (m.n_iters == serial.n_iter_ and rel <= 1e-4
+                and np.allclose(m.centroids, serial.cluster_centers_,
+                                rtol=1e-4, atol=1e-3)):
+            fail("KME fused: beyond the fused-against-serial tolerances")
+    profile = device_profile(torch, lambda: wl.fit(
+        kme_ds, spec(fuse_steps=KME_FUSE)))
+    gen = wl.fit_steps(kme_ds, spec(fuse_steps=KME_FUSE, pipeline_depth=1))
+    next(gen)                          # the init draw and the first chunk
+    say(f"profile: KME int16 fused, its second chunk ({KME_FUSE} "
+        f"iterations): " + device_profile(torch, lambda: next(gen), top=10))
+    gen.close()
+    quality = {}
+    for device in ("cuda", "cpu"):
+        qs = make_system("pim", n_cores=N_CORES, device=device)
+        quality[device] = (wl.fit(qs.put(Xq), spec(fuse_steps=KME_FUSE)
+                                  ).model, qs.stats.snapshot())
+    (g, gs), (c, cs) = quality["cuda"], quality["cpu"]
+    if not (np.array_equal(g.centroids, c.centroids)
+            and np.array_equal(g.labels, c.labels)
+            and g.n_iters == c.n_iters and gs == cs):
+        fail("KME fused: card and CPU fits differ at the quality size")
+    say(f"fused: kmeans int16 at {KME_QUALITY:,} samples: card == cpu "
+        f"(centroids, labels, n_iter {g.n_iters}, TransferStats)")
+    return profile
 
 
 def gini_round_times(torch, dispatch, fit):
@@ -1442,7 +1697,7 @@ def main() -> int:
     say(f"TransferStats equal on card and CPU: {gs}")
 
     # EMB at the Netflix matrix's size, on the card; then card == CPU
-    emb_counts, emb_profile = emb_fits_on_card(
+    emb_counts, emb_profile, emb_fused_profile = emb_fits_on_card(
         torch, make_system, get_workload, dispatch, smi)
     emb_card_equals_cpu(make_system, make_estimator)
 
@@ -1634,6 +1889,17 @@ def main() -> int:
         say(f"profile: {name}: " + device_profile(torch, fit))
     say(f"profile: EMB int32 eager, 50 steps at the Netflix size: "
         f"{emb_profile}")
+
+    # -- 6. step fusion: each fused chunk one CUDA graph replay --------------
+    fused_gd_fits(torch, dispatch, make_estimator, system, lin_ds, log_ds,
+                  smi)
+    kme_fused_profile = fused_kme(torch, dispatch, make_system,
+                                  get_workload, kme_ds, kme["int16"], Xk,
+                                  smi)
+    say(f"profile: KME int16 fused (fuse_steps {KME_FUSE}): "
+        f"{kme_fused_profile}")
+    say(f"profile: EMB int32 D={EMB_FLUSH} fused (fuse_steps {EMB_FUSE}), "
+        f"{EMB_ITERS} steps at the Netflix size: {emb_fused_profile}")
 
     kernels = [
         {"name": "fx_matvec", "route": "cuda",

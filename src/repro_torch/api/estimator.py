@@ -9,7 +9,11 @@ placement is paid once.  ``system=`` accepts any
                    system=make_system("pim", n_cores=16)).fit(X, y)
 
 Without ``system=`` the estimator builds a ``PimSystem`` of ``n_cores``
-cores on the default device, ``"cuda"``.
+cores on the default device, ``"cuda"``.  Every hyperparameter the
+workload declares passes through, ``fuse_steps`` and ``pipeline_depth``
+included: ``make_estimator("linreg", version="int32", fuse_steps=10)``
+runs ten GD iterations per fused chunk, bit-identical to ``fuse_steps=1``
+for the integer versions.
 """
 from __future__ import annotations
 

@@ -35,7 +35,7 @@ class LinRegWorkload(Workload):
     resumable = True
     defaults = {"n_iters": 500, "lr": 0.1, "frac_bits": 10, "x8_frac": 7,
                 "w16_frac": 8, "record_every": 0, "minibatch": 0, "seed": 0,
-                "fuse_steps": 1}
+                "fuse_steps": 1, "pipeline_depth": 2}
 
     def _config(self, spec: TrainerSpec) -> linreg.GdConfig:
         return linreg.GdConfig(version=spec.version, **spec.params)
@@ -71,7 +71,7 @@ class LogRegWorkload(Workload):
     defaults = {"n_iters": 500, "lr": 5.0, "frac_bits": 10, "x8_frac": 7,
                 "w16_frac": 8, "record_every": 0, "minibatch": 0, "seed": 0,
                 "taylor_terms": 8, "lut_boundary": 20, "lut_frac_bits": 10,
-                "fuse_steps": 1}
+                "fuse_steps": 1, "pipeline_depth": 2}
 
     def _config(self, spec: TrainerSpec) -> logreg.LogRegConfig:
         return logreg.LogRegConfig(version=spec.version, **spec.params)
@@ -146,7 +146,8 @@ class KMeansWorkload(Workload):
     unsupervised = True
     resumable = True
     defaults = {"n_clusters": 16, "max_iter": 300, "tol": 1e-4,
-                "n_init": 1, "seed": 0, "fuse_steps": 1}
+                "n_init": 1, "seed": 0, "fuse_steps": 1,
+                "pipeline_depth": 2}
 
     def _config(self, spec: TrainerSpec) -> kmeans.KMeansConfig:
         p = spec.params
@@ -154,6 +155,7 @@ class KMeansWorkload(Workload):
                                    max_iters=p["max_iter"], tol=p["tol"],
                                    n_init=p["n_init"], seed=p["seed"],
                                    fuse_steps=p["fuse_steps"],
+                                   pipeline_depth=p["pipeline_depth"],
                                    version=spec.version)
 
     @staticmethod

@@ -18,6 +18,12 @@ coordinate sums across the cores wraps as the reference's does.  The
 int16 version's centroids, labels and iteration counts are bit-identical
 to the reference at the same core count; inertia is a float32 sum whose
 order differs.  ``fp32`` is the processor-centric float baseline.
+
+``fuse_steps > 1`` runs Lloyd's iterations in fused chunks (one CUDA
+graph replay each on a card) with the reference's on-device float32
+update and convergence latch: the fused arithmetic, not the serial loop's
+float64 one, so fused centroids are held close to the serial ones, and
+equal to the reference's fused ones.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ import torch
 from ..elastic.state import pack_rng, unpack_rng
 from ..kernels import dispatch
 from ..kernels.kmeans_assign import cluster_totals, sq_norms, wrapped_cross
-from ..systems import ChunkTick, host_array, run_steps
-from .linreg import check_unfused
+from ..systems import (ChunkPipeline, ChunkTick, chunk_schedule,
+                       host_array, run_steps)
 from .metrics import frobenius_shift
 
 # 12-bit symmetric range stored in int16.  The quantizing + sharding
@@ -53,9 +59,17 @@ class KMeansConfig:
     seed: int = 0
     #: data/arithmetic precision: "int16" or "fp32"
     version: str = "int16"
-    #: step fusion (k Lloyd's iterations per launch) is not ported yet;
-    #: only the host-orchestrated per-step loop (1) runs
+    #: step fusion: this many Lloyd's iterations per fused chunk.  The
+    #: convergence check runs on the device (a ``done`` flag in the carry
+    #: freezes the centroids), so a chunk may cover fewer effective
+    #: iterations than its length; the host stops at the first converged
+    #: boundary.  The fused update is float32 where the serial loop's is
+    #: float64.  1 = the host-orchestrated loop.
     fuse_steps: int = 1
+    #: fused chunks in flight before the host drains a boundary: boundary
+    #: N's done flag is read while chunk N+1 runs (an overshot chunk is a
+    #: frozen no-op, discarded unread).  Only used when ``fuse_steps > 1``.
+    pipeline_depth: int = 2
 
 
 @dataclasses.dataclass
@@ -142,6 +156,43 @@ def _labels_kernel_factory(k: int, quantized: bool = True):
     return _kernel
 
 
+def _as_f32(v, device: torch.device) -> torch.Tensor:
+    """A reduced partial as float32 on ``device``; host reduces arrive as
+    numpy int64, converted directly as ``jnp.asarray(v, float32)`` does."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return torch.from_numpy(np.asarray(v)).to(device).to(torch.float32)
+
+
+def _make_lloyd_step_fns(cfg: KMeansConfig):
+    """(prepare, update) of one fused Lloyd's iteration.
+
+    The carry is ``(C float32 [k, F] in quantized units, done bool, n_it
+    int32)``.  ``done`` latches once the relative Frobenius shift drops
+    below ``cfg.tol`` and freezes the centroids, so the steps of a chunk
+    past convergence change nothing; ``n_it`` counts only the steps taken
+    before it, the host loop's iteration count."""
+    tol = float(np.float32(cfg.tol))
+    quantized = cfg.version == "int16"
+
+    def prepare(carry):
+        C = carry[0]
+        return (torch.round(C).to(torch.int16),) if quantized else (C,)
+
+    def update(carry, reduced):
+        C, done, n_it = carry
+        sums = _as_f32(reduced["sums"], C.device)
+        counts = _as_f32(reduced["counts"], C.device).unsqueeze(-1)
+        new = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                          C)
+        shift = (torch.linalg.norm(new - C)
+                 / torch.clamp(torch.linalg.norm(C), min=1e-12))
+        new = torch.where(done, C, new)
+        n_it = n_it + (~done).to(torch.int32)
+        return (new, done | (shift < tol), n_it), None
+    return prepare, update
+
+
 # ---------------------------------------------------------------------------
 # Host-orchestrated Lloyd's loop (paper §3.4 flow).
 # ---------------------------------------------------------------------------
@@ -164,7 +215,6 @@ def fit_steps(dataset, cfg: Optional[KMeansConfig] = None,
     if cfg.version not in VERSIONS:
         raise ValueError(f"unknown KME version {cfg.version!r}; known: "
                          f"{VERSIONS}")
-    check_unfused(cfg)
     quantized = cfg.version == "int16"
     system = dataset.system
     n = dataset.n
@@ -193,6 +243,12 @@ def fit_steps(dataset, cfg: Optional[KMeansConfig] = None,
     labels_k = system.named_kernel(
         f"kme.labels/{vtag}k{cfg.k}",
         lambda: _labels_kernel_factory(cfg.k, quantized))
+    program = None
+    if cfg.fuse_steps > 1:
+        prepare, update = _make_lloyd_step_fns(cfg)
+        program = system.step_program(
+            assign_k, prepare, update,
+            name=f"kme.step/{vtag}k{cfg.k}/tol{cfg.tol}")
 
     best: Optional[KMeansResult] = None
     init0 = 0
@@ -204,7 +260,8 @@ def fit_steps(dataset, cfg: Optional[KMeansConfig] = None,
         it_total = int(meta["iters"])
         resume = {"C": np.asarray(arrays["C"], np.float32),
                   "done": bool(meta["done"]),
-                  "n_it": int(meta["n_it"])}
+                  "n_it": int(meta["n_it"]),
+                  "it_sched": int(meta.get("it_sched", meta["n_it"]))}
         if meta.get("has_best"):
             best = KMeansResult(
                 centroids=np.asarray(arrays["best_centroids"], np.float32),
@@ -218,60 +275,112 @@ def fit_steps(dataset, cfg: Optional[KMeansConfig] = None,
     C = None
     done = False
     n_it = 0
+    it_sched = 0        # chunk-scheduled iterations (the fused resume key)
+
+    def snapshot_at(C_v, done_v, n_it_v, it_total_v, it_sched_v, ra, rm):
+        """A snapshot bound to one boundary's state.  ``best`` and
+        ``init`` stay live: they change only between restarts, and every
+        boundary of a restart drains (or is discarded) before it ends."""
+        def _snap():
+            arrays = {"C": np.asarray(C_v, np.float32)}
+            meta = {"iters": int(it_total_v), "init": int(init),
+                    "done": bool(done_v), "n_it": int(n_it_v),
+                    "it_sched": int(it_sched_v),
+                    "has_best": best is not None}
+            if best is not None:
+                arrays["best_centroids"] = np.asarray(best.centroids,
+                                                      np.float32)
+                meta["best_inertia"] = float(best.inertia)
+                meta["best_n_iters"] = int(best.n_iters)
+                if best.labels is not None:
+                    arrays["best_labels"] = np.asarray(best.labels)
+            arrays.update(ra)
+            meta.update(rm)
+            return {"arrays": arrays, "meta": meta}
+        return _snap
 
     def _snapshot():
-        arrays = {"C": np.asarray(C, np.float32)}
-        meta = {"iters": int(it_total), "init": int(init),
-                "done": bool(done), "n_it": int(n_it),
-                "it_sched": int(n_it), "has_best": best is not None}
-        if best is not None:
-            arrays["best_centroids"] = np.asarray(best.centroids, np.float32)
-            meta["best_inertia"] = float(best.inertia)
-            meta["best_n_iters"] = int(best.n_iters)
-            if best.labels is not None:
-                arrays["best_labels"] = np.asarray(best.labels)
-        ra, rm = pack_rng(rng)
-        arrays.update(ra)
-        meta.update(rm)
-        return {"arrays": arrays, "meta": meta}
+        return snapshot_at(C, done, n_it, it_total, n_it,
+                           *pack_rng(rng))()
 
-    for init in range(init0, cfg.n_init):
-        if resume is not None:
-            # re-enter the preempted restart: no new init draw — the rng
-            # stream was saved post-draw
-            C, done, n_it = resume["C"], resume["done"], resume["n_it"]
-            resume = None
-        else:
-            # host picks random points as initial centroids (paper:
-            # random init)
-            idx = rng.choice(n, size=cfg.k, replace=False)
-            C = Xq_np[idx].astype(np.float32)           # quantized units
-            done = False
-            n_it = 0
-        while not done and n_it < cfg.max_iters:
-            Cq = system.broadcast((_cast_centroids(C),))[0]
-            part = system.map_reduce(assign_k, (Xs, valid), (Cq,))
-            sums = np.asarray(host_array(part["sums"]), np.float64)
-            counts = np.asarray(host_array(part["counts"]), np.float64)
-            newC = np.where(counts[:, None] > 0,
-                            sums / np.maximum(counts[:, None], 1), C)
-            shift = frobenius_shift(C, newC)
-            C = newC.astype(np.float32)
-            n_it += 1
-            done = shift < cfg.tol
-            it_total += 1
-            yield ChunkTick(1, _snapshot)
-        part = system.map_reduce(inertia_k, (Xs, valid),
-                                 (_cast_centroids(C),))
-        # inertia needs + ||x||^2 which the kernel includes; convert units
-        inertia = float(host_array(part["inertia"])) * float(scale) ** 2
-        if best is None or inertia < best.inertia:
-            best = KMeansResult(centroids=C * scale, inertia=inertia,
-                                n_iters=n_it)
-            if return_labels:
-                lbl = system.map_elementwise(labels_k, (Xs, valid),
-                                             (_cast_centroids(C),))
-                best.labels = host_array(lbl).reshape(-1)[:n]
+    try:
+        for init in range(init0, cfg.n_init):
+            if resume is not None:
+                # re-enter the preempted restart: no new init draw — the rng
+                # stream was saved post-draw
+                C, done, n_it = resume["C"], resume["done"], resume["n_it"]
+                it_sched = resume["it_sched"]
+                resume = None
+            else:
+                # host picks random points as initial centroids (paper:
+                # random init)
+                idx = rng.choice(n, size=cfg.k, replace=False)
+                C = Xq_np[idx].astype(np.float32)           # quantized units
+                done = False
+                n_it = 0
+                it_sched = 0
+            if program is not None:
+                # boundary N's done flag is read while chunk N+1 runs; the
+                # latch makes an overshot chunk a frozen no-op, discarded
+                # unread; the counters advance at drain time from the tags
+                dev = system.device
+                dcarry = (torch.from_numpy(np.array(C, np.float32)).to(dev),
+                          torch.tensor(bool(done), device=dev),
+                          torch.tensor(n_it, dtype=torch.int32, device=dev))
+                pipe = ChunkPipeline(program, max(1, int(cfg.pipeline_depth)))
+                disp_sched, disp_total = it_sched, it_total
+
+                def boundaries():
+                    nonlocal dcarry, disp_sched, disp_total
+                    for k in chunk_schedule(cfg.max_iters, cfg.fuse_steps, 0,
+                                            start=it_sched):
+                        disp_sched += k
+                        disp_total += k
+                        dcarry, drained = pipe.dispatch(
+                            dcarry, (Xs, valid), k,
+                            tag=(disp_sched, disp_total, *pack_rng(rng)))
+                        yield from drained
+                    yield from pipe.flush()
+
+                if not done:        # resumed after convergence: nothing to do
+                    for bnd in boundaries():
+                        it_sched, it_total, ra, rm = bnd.tag
+                        (C_t, done_t, n_it_t), _ = bnd.host()
+                        C = C_t.numpy()
+                        done, n_it = bool(done_t), int(n_it_t)
+                        yield ChunkTick(bnd.k, snapshot_at(
+                            C, done, n_it, it_total, it_sched, ra, rm))
+                        if done:
+                            break
+            else:
+                while not done and n_it < cfg.max_iters:
+                    Cq = system.broadcast((_cast_centroids(C),))[0]
+                    part = system.map_reduce(assign_k, (Xs, valid), (Cq,))
+                    sums = np.asarray(host_array(part["sums"]), np.float64)
+                    counts = np.asarray(host_array(part["counts"]), np.float64)
+                    newC = np.where(counts[:, None] > 0,
+                                    sums / np.maximum(counts[:, None], 1), C)
+                    shift = frobenius_shift(C, newC)
+                    C = newC.astype(np.float32)
+                    n_it += 1
+                    done = shift < cfg.tol
+                    it_total += 1
+                    yield ChunkTick(1, _snapshot)
+            part = system.map_reduce(inertia_k, (Xs, valid),
+                                     (_cast_centroids(C),))
+            # inertia needs + ||x||^2 which the kernel includes; convert units
+            inertia = float(host_array(part["inertia"])) * float(scale) ** 2
+            if best is None or inertia < best.inertia:
+                best = KMeansResult(centroids=C * scale, inertia=inertia,
+                                    n_iters=n_it)
+                if return_labels:
+                    lbl = system.map_elementwise(labels_k, (Xs, valid),
+                                                 (_cast_centroids(C),))
+                    best.labels = host_array(lbl).reshape(-1)[:n]
+    finally:
+        if program is not None:
+            # the chunk graphs die with the fit that captured them
+            program.release()
     return best
 
 

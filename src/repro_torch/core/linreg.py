@@ -15,6 +15,11 @@ the ``[C, n_pc, ...]`` shards; the host reduces the partials, updates w
 in float32 and re-broadcasts it.  The integer versions' trajectories are
 bit-identical to the reference's at the same core count; minibatch SGD
 draws its offsets from the same numpy MT19937 stream.
+
+``fuse_steps > 1`` runs k iterations per :class:`~repro_torch.systems.
+base.StepProgram` chunk (one CUDA graph replay on a card), with
+``pipeline_depth`` chunks in flight; a fused fit is bit-identical to the
+serial one for the integer versions.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 
 from ..elastic.state import pack_rng, unpack_rng
 from ..kernels import dispatch
-from ..systems import ChunkTick, System, run_steps
+from ..systems import (ChunkPipeline, ChunkTick, System, chunk_schedule,
+                       run_steps)
 from .fixed_point import (_shift_round, from_fixed, fx_dot_hybrid,
                           mul_round_f32, to_fixed)
 
@@ -45,9 +51,18 @@ class GdConfig:
     minibatch: int = 0       # 0 = full-batch GD; >0 = SGD with per-core
     #                          minibatches of this size
     seed: int = 0
-    #: step fusion (k GD iterations per launch) is not ported yet; only
-    #: the host-orchestrated per-step loop (1) runs
+    #: step fusion: run this many GD iterations as one fused chunk (one
+    #: CUDA graph replay on a card, a loop of the same steps on the CPU):
+    #: the kernel -> reduce -> update -> re-quantize cycle stays on the
+    #: device between chunk boundaries.  Minibatch SGD fuses too, its
+    #: offsets drawn per chunk from the serial loop's rng stream.  Chunks
+    #: are clipped so that record points land on boundaries.  1 = the
+    #: host-orchestrated per-step loop.
     fuse_steps: int = 1
+    #: fused chunks in flight before the host drains a boundary (record,
+    #: snapshot): 2 overlaps chunk N+1 with the drain of boundary N, 1 is
+    #: the serial cadence.  Only used when ``fuse_steps > 1``.
+    pipeline_depth: int = 2
 
 
 @dataclasses.dataclass
@@ -59,14 +74,6 @@ class GdResult:
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         return np.asarray(X, np.float32) @ self.w + self.b
-
-
-def check_unfused(cfg) -> None:
-    """Refuse step fusion (``cfg.fuse_steps > 1``) until it is ported."""
-    if cfg.fuse_steps > 1:
-        raise NotImplementedError(
-            f"fuse_steps={cfg.fuse_steps}: step fusion is not ported to "
-            f"PyTorch yet; use fuse_steps=1 (the per-step loop)")
 
 
 # ---------------------------------------------------------------------------
@@ -216,20 +223,41 @@ def carry_snapshot(w, b, s, it: int, history: list) -> dict:
                                  for i, m in history]}}
 
 
+def gd_boundaries(pipe: ChunkPipeline, carry, sharded: tuple, cfg,
+                  it_done: int, draw_xs: Optional[Callable] = None,
+                  rng: Optional[np.random.RandomState] = None):
+    """Dispatch the fused chunks of a GD fit from iteration ``it_done``
+    through ``pipe`` and yield each boundary as it drains.  A boundary's
+    tag is ``(iterations done, rng arrays, rng meta)``, the rng packed
+    after the chunk's own draws (``draw_xs(k)``), so restoring boundary N
+    replays chunk N+1's minibatch offsets exactly."""
+    it_disp = it_done
+    for k in chunk_schedule(cfg.n_iters, cfg.fuse_steps, cfg.record_every,
+                            start=it_done):
+        xs = draw_xs(k) if draw_xs is not None else None
+        it_disp += k
+        ra, rm = pack_rng(rng) if rng is not None else ({}, {})
+        carry, drained = pipe.dispatch(carry, sharded, k, xs=xs,
+                                       tag=(it_disp, ra, rm))
+        yield from drained
+    yield from pipe.flush()
+
+
 def fit_steps(dataset, cfg: Optional[GdConfig] = None,
               eval_fn: Optional[Callable] = None, *,
               state: Optional[dict] = None):
     """Generator form of the training loop; the GdResult travels on
-    StopIteration.  Each ``next()`` runs one GD iteration and yields a
+    StopIteration.  Each ``next()`` runs one GD iteration (``fuse_steps``
+    1) or one fused chunk and yields a
     :class:`~repro_torch.systems.base.ChunkTick` whose ``snapshot()`` is
     the carry, history and MT19937 state at that boundary.  Passing a
     snapshot back as ``state`` — one of this package's or one the
-    reference's ``fit_steps`` produced — resumes the fit exactly there."""
+    reference's ``fit_steps`` produced, serial or fused — resumes the fit
+    exactly there."""
     cfg = cfg or GdConfig()
     if cfg.version not in VERSIONS:
         raise ValueError(f"unknown LIN version {cfg.version!r}; known: "
                          f"{VERSIONS}")
-    check_unfused(cfg)
     system: System = dataset.system
     n, nf = dataset.n, dataset.n_features
     Xs, ys, mask = dataset.gd_view(cfg.version, cfg.frac_bits, cfg.x8_frac)
@@ -249,31 +277,74 @@ def fit_steps(dataset, cfg: Optional[GdConfig] = None,
     if state is not None:
         rng = unpack_rng(state["arrays"], state["meta"]) or rng
 
-    def _snapshot():
-        snap = carry_snapshot(w, b, s, it_done, history)
-        ra, rm = pack_rng(rng)
-        snap["arrays"].update(ra)
-        snap["meta"].update(rm)
-        return snap
-
-    for it in range(it_done, cfg.n_iters):
-        wq, bq = system.broadcast(prepare((w, b, s)))
-        if minibatch:
-            # SGD: every core samples the same per-core slice offset
-            start = int(rng.randint(0, n_pc - cfg.minibatch + 1))
-            sl = slice(start, start + cfg.minibatch)
-            args = (Xs[:, sl], ys[:, sl], mask[:, sl])
-        else:
-            args = (Xs, ys, mask)
-        partial = system.map_reduce(local, args, (wq, bq))
-        (w, b, s), _ = update((w, b, s), partial)
-        it_done = it + 1
-        if cfg.record_every and (it_done % cfg.record_every == 0
-                                 or it_done == cfg.n_iters):
-            metric = (eval_fn(w.cpu().numpy(), float(b)) if eval_fn
+    def record(it, wv, bv):
+        if cfg.record_every and (it % cfg.record_every == 0
+                                 or it == cfg.n_iters):
+            metric = (eval_fn(wv.cpu().numpy(), float(bv)) if eval_fn
                       else None)
-            history.append((it_done, metric))
-        yield ChunkTick(1, _snapshot)
+            history.append((it, metric))
+
+    def snapshot_at(wv, bv, sv, it, ra, rm):
+        """A snapshot bound to one boundary's state (under pipelining the
+        live carry and rng have moved past it by drain time)."""
+        def _snap():
+            snap = carry_snapshot(wv, bv, sv, it, history)
+            snap["arrays"].update(ra)
+            snap["meta"].update(rm)
+            return snap
+        return _snap
+
+    if cfg.fuse_steps > 1:
+        select = draw_xs = None
+        if minibatch:
+            # each step's batch window starts at an offset the host drew
+            # for the chunk from the serial loop's rng stream; the offset
+            # is a device tensor, so one captured graph serves them all
+            mb = cfg.minibatch
+
+            def select(shards, off):
+                window = off + torch.arange(mb, device=off.device)
+                return tuple(torch.index_select(a, 1, window)
+                             for a in shards)
+
+            def draw_xs(k):
+                return torch.tensor(
+                    [rng.randint(0, n_pc - mb + 1) for _ in range(k)],
+                    dtype=torch.int32).to(system.device)
+        program = system.step_program(
+            local, prepare, update,
+            name=(f"lin.step/{grad_kernel_name(cfg)}"
+                  + (f"/mb{cfg.minibatch}" if minibatch else "")),
+            select=select)
+        pipe = ChunkPipeline(program, max(1, int(cfg.pipeline_depth)))
+        try:
+            for bnd in gd_boundaries(pipe, (w, b, s), (Xs, ys, mask), cfg,
+                                     it_done, draw_xs, rng):
+                it_done, ra, rm = bnd.tag
+                (w, b, s), _ = bnd.host()
+                record(it_done, w, b)
+                yield ChunkTick(bnd.k,
+                                snapshot_at(w, b, s, it_done, ra, rm))
+        finally:
+            program.release()
+    else:
+        def _snapshot():
+            return snapshot_at(w, b, s, it_done, *pack_rng(rng))()
+
+        for it in range(it_done, cfg.n_iters):
+            wq, bq = system.broadcast(prepare((w, b, s)))
+            if minibatch:
+                # SGD: every core samples the same per-core slice offset
+                start = int(rng.randint(0, n_pc - cfg.minibatch + 1))
+                sl = slice(start, start + cfg.minibatch)
+                args = (Xs[:, sl], ys[:, sl], mask[:, sl])
+            else:
+                args = (Xs, ys, mask)
+            partial = system.map_reduce(local, args, (wq, bq))
+            (w, b, s), _ = update((w, b, s), partial)
+            it_done = it + 1
+            record(it_done, w, b)
+            yield ChunkTick(1, _snapshot)
     return GdResult(w=w.cpu().numpy().astype(np.float32), b=float(b),
                     history=history, n_iters=cfg.n_iters)
 

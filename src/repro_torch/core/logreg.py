@@ -12,19 +12,21 @@ The INT32 versions' matvec is the ``fx_matvec`` kernel; every LUT
 version's sigmoid is the ``lut_sigmoid`` kernel, in the placement the
 version names: ``int32_lut_mram`` reads the table from global memory,
 the others stage it in shared memory.  The values are identical.
+``fuse_steps > 1`` runs fused chunks as LIN does (``linreg.fit_steps``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from ..kernels import dispatch
-from ..systems import ChunkTick, System, run_steps
+from ..systems import ChunkPipeline, ChunkTick, System, run_steps
 from .fixed_point import _shift_round, fx_dot_hybrid
 from .linreg import (GdConfig, GdResult, _xt_err, carry_snapshot,
-                     check_unfused, initial_carry, int_grad,
+                     gd_boundaries, initial_carry, int_grad,
                      make_gd_step_fns)
 from .lut import SigmoidLut, build_sigmoid_lut, taylor_sigmoid_fixed
 
@@ -156,7 +158,6 @@ def fit_steps(dataset, cfg: Optional[LogRegConfig] = None,
     if cfg.version not in VERSIONS:
         raise ValueError(f"unknown LOG version {cfg.version!r}; known: "
                          f"{VERSIONS}")
-    check_unfused(cfg)
     system: System = dataset.system
     n, nf = dataset.n, dataset.n_features
 
@@ -169,20 +170,40 @@ def fit_steps(dataset, cfg: Optional[LogRegConfig] = None,
     w, b, s, it_done, history = initial_carry(
         nf, cfg.lr * (1.0 / n), system.device, state)
 
-    def _snapshot():
-        return carry_snapshot(w, b, s, it_done, history)
-
-    for it in range(it_done, cfg.n_iters):
-        wq, bq = system.broadcast(prepare((w, b, s)))
-        partial = system.map_reduce(local, (Xs, ys, mask), (wq, bq))
-        (w, b, s), _ = update((w, b, s), partial)
-        it_done = it + 1
-        if cfg.record_every and (it_done % cfg.record_every == 0
-                                 or it_done == cfg.n_iters):
-            metric = (eval_fn(w.cpu().numpy(), float(b)) if eval_fn
+    def record(it, wv, bv):
+        if cfg.record_every and (it % cfg.record_every == 0
+                                 or it == cfg.n_iters):
+            metric = (eval_fn(wv.cpu().numpy(), float(bv)) if eval_fn
                       else None)
-            history.append((it_done, metric))
-        yield ChunkTick(1, _snapshot)
+            history.append((it, metric))
+
+    if cfg.fuse_steps > 1:
+        exact = cfg.version == "fp32" and system.exact_transcendentals
+        program = system.step_program(
+            local, prepare, update,
+            name=f"log.step/{grad_kernel_name(cfg, exact)}")
+        pipe = ChunkPipeline(program, max(1, int(cfg.pipeline_depth)))
+        try:
+            for bnd in gd_boundaries(pipe, (w, b, s), (Xs, ys, mask), cfg,
+                                     it_done):
+                it_done = bnd.tag[0]
+                (w, b, s), _ = bnd.host()
+                record(it_done, w, b)
+                yield ChunkTick(bnd.k, functools.partial(
+                    carry_snapshot, w, b, s, it_done, history))
+        finally:
+            program.release()
+    else:
+        def _snapshot():
+            return carry_snapshot(w, b, s, it_done, history)
+
+        for it in range(it_done, cfg.n_iters):
+            wq, bq = system.broadcast(prepare((w, b, s)))
+            partial = system.map_reduce(local, (Xs, ys, mask), (wq, bq))
+            (w, b, s), _ = update((w, b, s), partial)
+            it_done = it + 1
+            record(it_done, w, b)
+            yield ChunkTick(1, _snapshot)
     return GdResult(w=w.cpu().numpy(), b=float(b), history=history,
                     n_iters=cfg.n_iters)
 

@@ -67,9 +67,7 @@ def taylor_exp_fixed(x_q: torch.Tensor, frac_bits: int, terms: int = 8,
     """exp(-|x|) for Q(frac_bits) input: fixed-point Taylor series with
     range reduction exp(-x) = exp(-x / 2**m) ** (2**m).  Returns Q(f)."""
     one = 1 << frac_bits
-    a = torch.minimum(torch.abs(x_q.to(torch.int32)),
-                      torch.tensor(20 << frac_bits, dtype=torch.int32,
-                                   device=x_q.device))
+    a = torch.clamp(torch.abs(x_q.to(torch.int32)), max=20 << frac_bits)
     t = a >> range_shift  # reduced argument, Q(frac_bits)
     # Horner evaluation of sum_k (-t)^k / k!; constants floor-divide as
     # the reference's int32 ``one // k!`` does (both operands positive)

@@ -32,19 +32,25 @@ through the same scatter as eager, bit for bit.
 delta rows) each apply ships, also charged as cross-rank traffic on PIM
 targets; ``compressed_bytes`` the int8 payload of a compressed flush.
 
-The reference's fused deferred windows run on its ``StepProgram``, which
-is not ported: ``fuse_steps > 1`` raises here.
+Deferred windows fuse (``fuse_steps > 1``): each chunk's k batches are
+drawn up front and its gathers and updates run as one
+:class:`~repro_torch.systems.base.StepProgram` chunk (one CUDA graph
+replay on a card) whose emits are the delta rows and the errors;
+staging, recording (the loss of a chunk's last step) and the window's
+flush stay on the host, so chunks are clipped to flush boundaries and
+record points.  Eager mode (a table write every step)
+always runs the serial loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..core.fixed_point import _shift_round, from_fixed, to_fixed
-from ..core.linreg import check_unfused
 from ..elastic.state import pack_rng, unpack_rng
 from ..kernels import dispatch
 from ..kernels.sparse_gather import IDX_PAD, GatherIndex
@@ -79,9 +85,11 @@ class EmbConfig:
     n_items: Optional[int] = None
     record_every: int = 0    # record batch MSE every this many steps
     seed: int = 0
-    #: step fusion within a deferred window: not ported, only 1 runs
+    #: step fusion within a deferred window: chunks of this many steps,
+    #: clipped to flush boundaries; eager mode ignores it
     fuse_steps: int = 1
-    #: accepted for interface parity with the other trainers
+    #: accepted for interface parity with the other trainers: a deferred
+    #: window serializes on its flush, so chunks run one at a time
     pipeline_depth: int = 2
 
 
@@ -170,53 +178,53 @@ def make_emb_update(cfg: EmbConfig, device: torch.device) -> Callable:
 # The batch loss, summed as the reference's float32 reduce sums it.
 # ---------------------------------------------------------------------------
 
-def _fma_f32(a: np.float32, acc: np.float32) -> np.float32:
-    """``a * a + acc`` rounded once to float32.  The float64 product of
-    two float32 values is exact; the float64 sum may round, and TwoSum
-    gives its error, which decides the one case where rounding twice
-    differs: a float64 sum that falls exactly on a float32 midpoint."""
-    p = float(a) * float(a)
-    c = float(acc)
+def _fma_f32(a: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``a * a + acc`` of 0-d float32 tensors, rounded once to float32.
+    The float64 product of two float32 values is exact; the float64 sum
+    may round, and TwoSum gives its error, which decides the one case
+    where rounding twice differs: a float64 sum that falls exactly on a
+    float32 midpoint."""
+    p = a.double() * a.double()
+    c = acc.double()
     hi = p + c
     z = hi - p
     lo = (p - (hi - z)) + (c - z)
-    r = np.float32(hi)
-    if lo != 0.0 and float(r) != hi:
-        other = np.nextafter(r, np.float32(np.inf if hi > float(r)
-                                           else -np.inf))
-        if hi == (float(r) + float(other)) / 2 and (lo > 0) == (other > r):
-            r = other
-    return r
+    r = hi.float()
+    other = torch.nextafter(r, torch.where(hi > r.double(), math.inf,
+                                           -math.inf).float())
+    fix = ((lo != 0) & (r.double() != hi)
+           & (hi == (r.double() + other.double()) / 2)
+           & ((lo > 0) == (other > r)))
+    return torch.where(fix, other, r)
 
 
-def _seq_sum_f32(v) -> np.float32:
-    s = np.float32(0)
-    for x in v:
-        s = np.float32(s + x)
-    return s
-
-
-def batch_sq_error(err: np.ndarray) -> np.float32:
-    """float32 ``sum(err * err)`` in the order of the reference's CPU
-    compile of ``jnp.sum``, so the int32 history is bit-identical: up to
-    32 elements, one fused multiply-add per element in order; above,
-    the squares (each rounded) are summed in windows of 32, the padding
-    split before and after the data, and the window sums added in
-    order (windows of windows past 32 of them)."""
-    e = np.asarray(err, np.float32)
+def batch_sq_error(err) -> torch.Tensor:
+    """float32 ``sum(err * err)`` of a 1-D float32 ``err``, as a 0-d
+    tensor on its device, in the order of the reference's CPU compile of
+    ``jnp.sum`` (serial steps and fused chunks alike), so the int32
+    history is bit-identical: up to 32 elements, one fused multiply-add
+    per element in order; above, the squares (each rounded) are summed
+    in windows of 32, the padding split before and after the data, and
+    the window sums added in order (windows of windows past 32 of
+    them).  Elementwise tensor ops only, so a chunk graph can hold it."""
+    e = torch.as_tensor(err, dtype=torch.float32)
+    s = e.new_zeros(())
     if e.shape[0] <= 32:
-        s = np.float32(0)
-        for x in e:
-            s = _fma_f32(x, s)
+        for j in range(e.shape[0]):
+            s = _fma_f32(e[j], s)
         return s
     v = e * e
     while v.shape[0] > 32:
         pad = -v.shape[0] % 32
-        v = np.concatenate([np.zeros(pad // 2, np.float32), v,
-                            np.zeros(pad - pad // 2, np.float32)])
-        v = np.array([_seq_sum_f32(w) for w in v.reshape(-1, 32)],
-                     np.float32)
-    return _seq_sum_f32(v)
+        v = torch.cat([v.new_zeros(pad // 2), v,
+                       v.new_zeros(pad - pad // 2)]).reshape(-1, 32)
+        acc = v.new_zeros(v.shape[0])
+        for j in range(32):
+            acc = acc + v[:, j]
+        v = acc
+    for j in range(v.shape[0]):
+        s = s + v[j]
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +243,6 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
     if cfg.version not in VERSIONS:
         raise ValueError(f"unknown EMB version {cfg.version!r}; known: "
                          f"{VERSIONS}")
-    check_unfused(cfg)
     pim = dataset.system
     dev = pim.device
     pairs, y_f = dataset.emb_view()
@@ -282,6 +289,11 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
     lead_host[0] = 1
     lead = pim.shard_rows(lead_host)
 
+    fused = deferred and cfg.fuse_steps > 1
+    if fused:
+        # a flush writes the new rows back into these buffers: the chunk
+        # graphs read the tables at one address for the whole fit
+        Ut, It = Ut.clone(), It.clone()
     update = make_emb_update(cfg, dev)
     # the gather indexes are this fit's tables' own, so the forward kernel
     # is bound to them and passed to the map as a callable, under no shared
@@ -299,13 +311,14 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
         return (pairs[rows, 0].copy(), pairs[rows, 1].copy(),
                 y_host[rows].copy())
 
-    def record(it, err):
+    def batch_loss(err) -> torch.Tensor:
+        e = err.to(torch.float32)
+        return batch_sq_error(e * 2.0 ** -f if int_ver else e)
+
+    def record(it, loss: Callable):
         if cfg.record_every and (it % cfg.record_every == 0
                                  or it == cfg.n_iters):
-            e = host_array(err).astype(np.float32)
-            if int_ver:
-                e = e * np.float32(2.0 ** -f)
-            history.append((it, float(batch_sq_error(e)) / cfg.batch))
+            history.append((it, float(loss()) / cfg.batch))
 
     def _pad_flush(idx, upd):
         """Pad a flush batch up to a multiple of cfg.batch (sentinel ids,
@@ -334,7 +347,12 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
         out = pim.map_elementwise(
             apply_k, (Ut, Uids, It, Iids),
             tuple(torch.as_tensor(v, device=dev) for v in (iu, du, ii, di)))
-        Ut, It = out["u"], out["i"]
+        if fused:
+            # the chunk graphs read the tables where they lie
+            Ut.copy_(out["u"])
+            It.copy_(out["i"])
+        else:
+            Ut, It = out["u"], out["i"]
         n_flushes += 1
 
     def _compressed(table, idx, upd):
@@ -377,21 +395,74 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
         meta.update(rm)
         return {"arrays": arrays, "meta": meta}
 
-    for it in range(it_done, cfg.n_iters):
-        iu, ii, yb = draw()
-        rep = pim.broadcast((to_dev(iu), to_dev(ii), to_dev(yb)))
-        red = pim.map_reduce(fwd_k, (Ut, Uids, It, Iids, lead), tuple(rep))
-        du, di, err = update(red)
-        if deferred:
-            utable.stage(iu, host_array(du))
-            itable.stage(ii, host_array(di))
-            if (it + 1) % D == 0 or it + 1 == cfg.n_iters:
-                _flush_window()
-        else:
-            _apply_rows(rep[0], du, rep[1], di)
-        it_done = it + 1
-        record(it_done, err)
-        yield ChunkTick(1, _snapshot)
+    if fused:
+        # each chunk's k batches are drawn up front and ride in as
+        # per-step inputs; the delta rows and errors come out as stacked
+        # emits, the rows staged on the host.  Chunks end at record
+        # points, so only a chunk's last loss is ever read: it is reduced
+        # from that step's errors after the replay, and the boundary is
+        # charged one float32 loss a step, the reference's emit
+        def step(carry, red):
+            du, di, err = update(red)
+            return carry + 1, (du, di, err)
+
+        def shipped(outs):
+            du, di, err = outs
+            return du, di, torch.empty(err.shape[:1], dtype=torch.float32,
+                                       device="meta")
+
+        program = pim.step_program(
+            fwd_k, lambda carry: (), step,
+            name=(f"emb.step/{cfg.version}/f{f}/lr{cfg.lr}/b{cfg.batch}"
+                  f"/D{D}"),
+            select=lambda shards, x: (*shards, *x), shipped=shipped)
+        carry = torch.tensor(it_done, dtype=torch.int32, device=dev)
+        it = it_done
+        try:
+            while it < cfg.n_iters:
+                # chunks end at window flushes and record points
+                k = min(cfg.fuse_steps, cfg.n_iters - it, D - it % D)
+                if cfg.record_every:
+                    k = min(k, cfg.record_every - it % cfg.record_every)
+                batches = [draw() for _ in range(k)]
+                xs = tuple(to_dev(np.stack([bt[j] for bt in batches]))
+                           for j in range(3))
+                if pim.kind == "pim":
+                    # the per-step minibatch legs cross host->bank as
+                    # the serial loop's broadcast does
+                    pim.stats.cpu_to_pim += (_tree_bytes(xs)
+                                             * pim.config.n_cores)
+                carry, outs = program.run(
+                    carry, (Ut, Uids, It, Iids, lead), k, xs=xs)
+                du_k, di_k = (host_array(o) for o in outs[:2])
+                for j in range(k):
+                    utable.stage(batches[j][0], du_k[j])
+                    itable.stage(batches[j][1], di_k[j])
+                record(it + k, lambda: batch_loss(outs[2][k - 1]))
+                it = it_done = it + k
+                if it % D == 0 or it == cfg.n_iters:
+                    _flush_window()
+                yield ChunkTick(k, _snapshot)
+        finally:
+            # the chunk graphs read this fit's tables and gather indexes
+            program.release()
+    else:
+        for it in range(it_done, cfg.n_iters):
+            iu, ii, yb = draw()
+            rep = pim.broadcast((to_dev(iu), to_dev(ii), to_dev(yb)))
+            red = pim.map_reduce(fwd_k, (Ut, Uids, It, Iids, lead),
+                                 tuple(rep))
+            du, di, err = update(red)
+            if deferred:
+                utable.stage(iu, host_array(du))
+                itable.stage(ii, host_array(di))
+                if (it + 1) % D == 0 or it + 1 == cfg.n_iters:
+                    _flush_window()
+            else:
+                _apply_rows(rep[0], du, rep[1], di)
+            it_done = it + 1
+            record(it_done, lambda: batch_loss(err))
+            yield ChunkTick(1, _snapshot)
 
     u_raw = utable.unshard(host_array(Ut))
     i_raw = itable.unshard(host_array(It))

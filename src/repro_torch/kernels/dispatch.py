@@ -8,8 +8,11 @@ environment switch and no fallback — a CUDA wrapper whose build or
 launch fails raises.
 
 ``launch_counts[op]`` is bumped by the CUDA wrapper right after its
-kernel launched, and nowhere else, so a run can show that its main path
-went through the kernels (reset it with :func:`reset_launch_counts`).
+kernel launched, so a run can show that its main path went through the
+kernels (reset it with :func:`reset_launch_counts`).  A fused chunk
+replayed from a CUDA graph calls no wrapper: the graph adds the counts
+its capture recorded at every replay (``systems/step_graph.py``), and
+``graph_replays[name]`` counts the replays of each program.
 """
 from __future__ import annotations
 
@@ -35,8 +38,11 @@ _OPS: Dict[str, KernelOp] = {}
 _FAMILIES = ("quant_matmul", "lut_activation", "kmeans_assign",
              "gini_split", "sparse_gather", "flash_attention")
 
-#: kernel launches per op, counted by the CUDA wrappers only
+#: kernel launches per op, counted by the CUDA wrappers and, for a
+#: replayed chunk graph, by the replay
 launch_counts: Dict[str, int] = {}
+#: chunk-graph replays per StepProgram name
+graph_replays: Dict[str, int] = {}
 
 
 def register_op(name: str, *, cuda: Callable, plain: Callable) -> None:
@@ -53,12 +59,17 @@ def get_op(name: str) -> KernelOp:
                        f"{sorted(_OPS)}") from None
 
 
-def count_launch(op: str) -> None:
-    launch_counts[op] = launch_counts.get(op, 0) + 1
+def count_launch(op: str, n: int = 1) -> None:
+    launch_counts[op] = launch_counts.get(op, 0) + n
+
+
+def count_replay(name: str) -> None:
+    graph_replays[name] = graph_replays.get(name, 0) + 1
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    graph_replays.clear()
 
 
 def launch(op: str, x: torch.Tensor, *args, **kwargs):

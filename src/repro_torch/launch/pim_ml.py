@@ -13,6 +13,9 @@ on ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload logreg \\
       --system host --device cpu --versions fp32
 
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload linreg \\
+      --device cpu --versions int32 --iters 100 --fuse-steps 10
+
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload kmeans \\
       --device cpu --samples 20000 --param n_clusters=16 --param n_init=2
 
@@ -77,7 +80,8 @@ def main(argv=None):
     ap.add_argument("--reduce", default="fabric",
                     choices=("fabric", "host", "hierarchical"))
     ap.add_argument("--fuse-steps", type=int, default=1,
-                    help="step fusion is not ported yet: only 1 runs")
+                    help="iterations per fused chunk (one CUDA graph "
+                         "replay on a card); 1 = the per-step host loop")
     ap.add_argument("--sweep", default="",
                     help="hyper sweep, e.g. lr=0.05,0.1,0.2")
     ap.add_argument("--param", action="append", default=[],
@@ -85,14 +89,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.fuse_steps > 1:
-        ap.error(f"--fuse-steps {args.fuse_steps}: step fusion is not "
-                 f"ported to PyTorch yet; run with --fuse-steps 1")
     wl = get_workload(args.workload)
     versions = ([v for v in args.versions.split(",") if v]
                 or list(wl.versions))
     params = dict(p.split("=", 1) for p in args.param)
     params = {k: _parse_value(v) for k, v in params.items()}
+    if args.fuse_steps > 1:
+        if "fuse_steps" not in wl.defaults:
+            ap.error(f"--fuse-steps does not apply to {wl.name} (no step "
+                     f"fusion: not an iterative GD/Lloyd's workload)")
+        params["fuse_steps"] = args.fuse_steps
     if args.iters > 0:
         iter_key = next((k for k in ("max_iter", "n_iters")
                          if k in wl.defaults), None)

@@ -8,8 +8,9 @@ construction path the launcher and the tests use.
 """
 from __future__ import annotations
 
-from .base import (ChunkTick, FabricReduce, HierarchicalReduce, HostReduce,
-                   ReduceStrategy, System, TransferStats, chunk_schedule,
+from .base import (ChunkBoundary, ChunkPipeline, ChunkTick, FabricReduce,
+                   HierarchicalReduce, HostReduce, ReduceStrategy,
+                   StepProgram, System, TransferStats, chunk_schedule,
                    host_array, resolve_reduce_strategy, run_steps)
 from .compress import CompressedReduce
 from .host import HostConfig, HostSystem
@@ -36,10 +37,10 @@ def make_system(kind: str = "pim", **config_kwargs) -> System:
 
 
 __all__ = [
-    "ChunkTick", "CompressedReduce", "FabricReduce", "HierarchicalReduce",
-    "HostConfig", "HostReduce", "HostSystem", "PimConfig", "PimSystem",
-    "PimTopology",
-    "ReduceStrategy", "SYSTEM_KINDS", "System", "TransferStats",
+    "ChunkBoundary", "ChunkPipeline", "ChunkTick", "CompressedReduce",
+    "FabricReduce", "HierarchicalReduce", "HostConfig", "HostReduce",
+    "HostSystem", "PimConfig", "PimSystem", "PimTopology", "ReduceStrategy",
+    "SYSTEM_KINDS", "StepProgram", "System", "TransferStats",
     "chunk_schedule", "default_rank_size", "host_array", "make_system",
     "resolve_reduce_strategy", "run_steps",
 ]

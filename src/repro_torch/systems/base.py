@@ -1,8 +1,11 @@
 """The ``System`` protocol: data placement, reduce strategies, execution.
 
-Port of the main-path half of ``repro.systems.base``.  A trainer sees
-only ``dataset.system``; the system owns the device, the resident shards,
-the named-kernel registry and the ``TransferStats`` accounting.
+Port of ``repro.systems.base``.  A trainer sees only ``dataset.system``;
+the system owns the device, the resident shards, the named-kernel
+registry and the ``TransferStats`` accounting.  :class:`StepProgram` runs
+k training steps as one fused chunk and :class:`ChunkPipeline` keeps
+chunks in flight while the host drains earlier boundaries; on a CUDA
+device each chunk is one CUDA graph replay (``systems/step_graph.py``).
 
 The simulated cores are the leading axis of one device tensor
 ``[C, n_pc, ...]``.  A per-core kernel here is written over that whole
@@ -16,6 +19,7 @@ of the same calls leave equal ``TransferStats``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Callable, Optional, Union
 
@@ -34,9 +38,9 @@ class TransferStats:
     ``dram_bytes`` counts the bytes each training pass streams.
     ``shard_transfers``/``shard_bytes`` count dataset view
     materializations; ``kernel_launches`` and ``host_syncs`` count
-    ``map_*`` calls.  The remaining fields belong to layers not ported
-    yet and stay zero; they are kept so the whole record compares equal
-    to the reference's.
+    ``map_*`` calls and fused chunks (one each per chunk).  The
+    remaining fields belong to layers not ported yet and stay zero; they
+    are kept so the whole record compares equal to the reference's.
     """
 
     cpu_to_pim: int = 0
@@ -131,7 +135,7 @@ def _leaf_bytes(v) -> int:
 
 
 def _tree_bytes(tree) -> int:
-    return sum(_leaf_bytes(v) for v in _leaves(tree))
+    return sum(_leaf_bytes(v) for v in _leaves(tree) if v is not None)
 
 
 def _host_sum(tree):
@@ -169,15 +173,32 @@ class ReduceStrategy:
     afterwards; ``count_pim_to_cpu`` models the PIM->CPU bytes the
     schedule moves (PIM systems only — processor-centric systems bypass
     strategy byte accounting, see ``System._charge_reduce``).
+
+    Step fusion: ``fusable`` says whether the schedule can run entirely
+    on the device inside a fused chunk; ``device_reduce_full`` is the
+    fully on-device reduction a chunk's steps use; ``count_chunk``
+    charges a chunk's reduce movement, k times one step's.
     """
+
+    #: False when the per-step reduction needs the host (HostReduce): a
+    #: StepProgram then degrades to per-step map_reduce calls
+    fusable = True
 
     def bind(self, system: "System") -> "ReduceStrategy":
         """Resolve topology-derived parameters against the system about
-        to execute (called once per map_reduce)."""
+        to execute (called once per map_reduce or StepProgram)."""
         return self
+
+    def cache_token(self):
+        """What distinguishes this strategy in a chunk-graph key."""
+        return type(self).__name__
 
     def device_reduce(self, partials):
         return partials
+
+    def device_reduce_full(self, partials):
+        """Complete on-device reduction, for the steps of a fused chunk."""
+        return self.device_reduce(partials)
 
     def finalize(self, system: "System", out):
         return out
@@ -190,6 +211,13 @@ class ReduceStrategy:
         one step's reduce movement: flat schedules ship every partial
         over the host link, so all of it crosses a rank boundary."""
         return 0, self.count_pim_to_cpu(system, out)
+
+    def count_chunk(self, system: "System", out, k: int) -> None:
+        """Charge k fused steps' reduce movement (``out`` has the shapes
+        of one step's ``device_reduce`` result)."""
+        system.stats.pim_to_cpu += k * self.count_pim_to_cpu(system, out)
+        rank_local, cross_rank = self.count_topology(system, out)
+        system._charge_topology(k * rank_local, k * cross_rank)
 
 
 class FabricReduce(ReduceStrategy):
@@ -205,7 +233,10 @@ class FabricReduce(ReduceStrategy):
 
 class HostReduce(ReduceStrategy):
     """Paper-faithful schedule: per-core partials are copied to the host
-    and reduced with numpy; the result lives on the host."""
+    and reduced with numpy; the result lives on the host.  Not fusable:
+    the reduce is itself a host round trip."""
+
+    fusable = False
 
     def count_pim_to_cpu(self, system, out) -> int:
         return _tree_bytes(out)  # stacked (n_cores, ...) leaves
@@ -235,6 +266,9 @@ class HierarchicalReduce(ReduceStrategy):
         group = max((d for d in range(1, min(cap, n) + 1) if n % d == 0),
                     default=1)
         return HierarchicalReduce(group)
+
+    def cache_token(self):
+        return ("hier", self.group_size)
 
     def _groups(self, n_cores: int) -> int:
         g = self.group_size
@@ -270,6 +304,20 @@ class HierarchicalReduce(ReduceStrategy):
         if self._groups_rank_local(system):
             return intra, out_bytes
         return 0, intra + out_bytes
+
+    def device_reduce_full(self, partials):
+        """In a fused chunk the rank partials are summed on the device, in
+        the partials' dtype (int32 wraps as the host sum's demotion does)."""
+        return _map(lambda v: _device_sum(v, 0), self.device_reduce(partials))
+
+    def count_chunk(self, system, out, k: int) -> None:
+        # each step the rank partials leave the ranks and cross the
+        # modeled host link, as in the unfused schedule
+        system.stats.pim_to_cpu += k * self.count_pim_to_cpu(system, out)
+        if self._groups(system.config.n_cores):
+            system._charge_inter_core(k * _tree_bytes(out))
+        rank_local, cross_rank = self.count_topology(system, out)
+        system._charge_topology(k * rank_local, k * cross_rank)
 
     def finalize(self, system, out):
         # record the rank->host leg (none if the core count forced the
@@ -346,6 +394,9 @@ class System:
         self.stats = TransferStats()
         self._kernels: dict[str, Callable] = {}
         self._kernel_gen: dict[str, int] = {}
+        #: StepProgram's per-system cache: one step's reduce shapes and
+        #: the captured chunk graphs (see StepProgram)
+        self._step_cache: dict = {}
 
     @property
     def n_shards(self) -> int:
@@ -440,6 +491,19 @@ class System:
         self.stats.cpu_to_pim += _tree_bytes(tuple(replicated)) \
             * self.config.n_cores
 
+    def _charge_chunk(self, carry, sharded, reduced_shape,
+                      strat: ReduceStrategy, k: int) -> None:
+        """One fused k-step chunk: the carry (model state) enters the
+        banks once per chunk; the reduce legs move k times one step's
+        bytes."""
+        self.stats.cpu_to_pim += _tree_bytes(carry) * self.config.n_cores
+        strat.count_chunk(self, reduced_shape, k)
+
+    def _charge_chunk_boundary(self, carry, outs) -> None:
+        """One sync per chunk boundary: the final carry and the stacked
+        per-step emits."""
+        self.stats.pim_to_cpu += _tree_bytes(carry) + _tree_bytes(outs)
+
     # -- execution ------------------------------------------------------------
 
     def map_reduce(self, kernel, sharded: tuple, replicated: tuple,
@@ -480,3 +544,244 @@ class System:
         self.stats.kernel_launches += 1
         self._charge_elementwise(sharded, replicated)
         return fn(*sharded, *replicated)
+
+    def step_program(self, kernel, prepare: Callable, update: Callable,
+                     *, name: str, strategy: StrategyLike = None,
+                     select: Optional[Callable] = None,
+                     shipped: Optional[Callable] = None) -> "StepProgram":
+        """A :class:`StepProgram` over ``kernel``: ``prepare(carry) ->
+        replicated`` derives one step's broadcast arguments from the
+        carry, ``update(carry, reduced) -> (carry, out)`` applies the
+        update, ``select(sharded, x) -> sharded`` (optional) derives
+        each step's shard view from a per-step input ``x``, and
+        ``shipped(outs)`` (optional) maps the stacked emits to what the
+        boundary sync moves to the host (default: all of them).
+        ``name`` must encode every parameter baked into the closures."""
+        return StepProgram(self, kernel, prepare, update, name=name,
+                           strategy=strategy, select=select,
+                           shipped=shipped)
+
+
+def _stack(outs: list):
+    """The per-step emits of a chunk stacked along a new leading axis
+    (None when ``update`` emits nothing)."""
+    if not outs or outs[0] is None:
+        return None
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs]) for k in sorted(first)}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([o[i] for o in outs])
+                           for i in range(len(first)))
+    return torch.stack([torch.as_tensor(v) for v in outs])
+
+
+def _signature(tree) -> tuple:
+    return tuple((tuple(v.shape), v.dtype) for v in _leaves(tree)
+                 if isinstance(v, torch.Tensor))
+
+
+class StepProgram:
+    """k consecutive training steps as ONE fused chunk: one launch and one
+    host sync instead of k of each.
+
+    Each step runs ``prepare(carry)``, the per-core kernel over the
+    shards (or ``select(sharded, xs[i])``), the strategy's full on-device
+    reduce and ``update(carry, reduced)`` — the closures the serial loop
+    applies between launches, so for the integer versions a fused chunk
+    is bit-identical to k serial steps.  On the CPU the chunk is a plain
+    loop of those k steps.  On a CUDA device it is one replay of a CUDA
+    graph captured from them (:class:`~repro_torch.systems.step_graph.
+    ChunkGraph`), one graph per program, strategy, k, operand shapes and
+    core count, as the reference keys its compiled scans; a capture or a
+    replay that fails raises.
+
+    Accounting follows the reference: the carry broadcast once per
+    chunk, the reduce legs k times, one boundary sync of the final carry
+    and the emits (or the part of them ``shipped`` names).  A
+    non-``fusable`` strategy (HostReduce, CompressedReduce) degrades to k
+    ordinary ``map_reduce`` steps with the unfused accounting.
+    """
+
+    def __init__(self, system: System, kernel, prepare: Callable,
+                 update: Callable, *, name: str,
+                 strategy: StrategyLike = None,
+                 select: Optional[Callable] = None,
+                 shipped: Optional[Callable] = None):
+        self.system = system
+        self.prepare = prepare
+        self.update = update
+        self.select = select
+        self.shipped = shipped
+        self.name = name
+        self.strategy = resolve_reduce_strategy(
+            strategy, system.config.reduce).bind(system)
+        self._kernel = kernel
+        self._fn = system._resolve_kernel(kernel)
+
+    def _key(self, *parts) -> tuple:
+        return (self._fn, self.name, self.strategy.cache_token(), *parts,
+                self.system.config.n_cores)
+
+    def steps(self, carry, sharded: tuple, xs, k: int):
+        """The k steps, eagerly: ``(carry, stacked emits)``.  The first
+        call for an operand signature records one step's reduce shapes
+        (as meta tensors) for the chunk accounting."""
+        key = self._key("reduce", _signature((carry, sharded)))
+        outs = []
+        for i in range(k):
+            shards = sharded
+            if xs is not None:
+                shards = tuple(self.select(sharded, _map(lambda v: v[i],
+                                                         xs)))
+            partials = self._fn(*shards, *self.prepare(carry))
+            if key not in self.system._step_cache:
+                self.system._step_cache[key] = self.strategy.device_reduce(
+                    _map(lambda v: torch.empty_like(v, device="meta"),
+                         partials))
+            carry, out = self.update(
+                carry, self.strategy.device_reduce_full(partials))
+            outs.append(out)
+        return carry, _stack(outs)
+
+    def run(self, carry, sharded: tuple, k: int, xs=None, *,
+            donate: bool = True):
+        """Advance ``carry`` by ``k`` fused steps over the resident
+        shards; returns ``(carry, outs)``, ``outs`` stacking the per-step
+        emits.  ``xs`` is a tree of per-step inputs with leading dim k,
+        routed to ``select``.  ``donate=False`` hands back a carry that
+        stays valid while later chunks run (a :class:`ChunkPipeline` of
+        depth >= 2); numerics are the same either way."""
+        sharded = tuple(sharded)
+        if k <= 0:
+            return carry, None
+        if xs is not None and self.select is None:
+            raise ValueError("xs given but this StepProgram has no "
+                             "select hook")
+        if not self.strategy.fusable:
+            return self._run_per_step(carry, sharded, k, xs)
+        stats = self.system.stats
+        stats.kernel_launches += 1
+        stats.host_syncs += 1
+        carry_in = carry
+        if _leaves(carry)[0].device.type == "cuda":
+            from .step_graph import chunk_graph
+            graph = chunk_graph(self, carry, sharded, xs, k)
+            carry, outs = graph.replay(carry, xs, clone=not donate)
+        else:
+            carry, outs = self.steps(carry, sharded, xs, k)
+        reduced = self.system._step_cache[
+            self._key("reduce", _signature((carry_in, sharded)))]
+        self.system._charge_chunk(carry_in, sharded, reduced,
+                                  self.strategy, k)
+        self.system._charge_chunk_boundary(
+            carry, outs if self.shipped is None else self.shipped(outs))
+        return carry, outs
+
+    def release(self) -> None:
+        """Drop this program's cached chunk graphs, with their memory
+        pools, and its reduce shapes.  A fit calls it when it ends, so a
+        graph never outlives the fit whose closures it captured."""
+        cache = self.system._step_cache
+        for key in [k for k in cache if k[:2] == (self._fn, self.name)]:
+            del cache[key]
+
+    def _run_per_step(self, carry, sharded: tuple, k: int, xs=None):
+        """k single steps, each with the broadcast, reduce and update of
+        the unfused loop (launches, syncs and bytes as if not fused)."""
+        outs = []
+        for i in range(k):
+            shards = sharded
+            if xs is not None:
+                shards = tuple(self.select(sharded, _map(lambda v: v[i],
+                                                         xs)))
+            replicated = self.system.broadcast(self.prepare(carry))
+            reduced = self.system.map_reduce(
+                self._kernel, shards, tuple(replicated),
+                strategy=self.strategy)
+            carry, out = self.update(carry, reduced)
+            outs.append(out)
+        return carry, _stack(outs)
+
+
+@dataclasses.dataclass
+class ChunkBoundary:
+    """One dispatched chunk inside a :class:`ChunkPipeline`: its carry and
+    emits, the caller's ``tag`` (host state captured at dispatch: the
+    iteration count, the packed rng, ...), and on a CUDA device a copy of
+    both in pinned host memory with the event that marks it complete."""
+
+    k: int
+    carry: Any
+    outs: Any
+    tag: Any = None
+    _host: Any = dataclasses.field(default=None, repr=False)
+    _ready: Any = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        leaves = [v for v in _leaves((self.carry, self.outs))
+                  if isinstance(v, torch.Tensor)]
+        if leaves and leaves[0].device.type == "cuda":
+            def _pinned(v):
+                if not isinstance(v, torch.Tensor):
+                    return v
+                out = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                return out.copy_(v, non_blocking=True)
+            self._host = _map(_pinned, (self.carry, self.outs))
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+
+    def host(self) -> tuple:
+        """``(carry, outs)`` on the host.  On a card this waits for this
+        boundary's copy only, not for the chunks dispatched after it."""
+        if self._ready is None:
+            return self.carry, self.outs
+        self._ready.synchronize()
+        return self._host
+
+
+class ChunkPipeline:
+    """Keeps ``depth`` chunks of a :class:`StepProgram` in flight.
+
+    ``dispatch()`` launches the next chunk at once and hands back the
+    boundaries that have fallen ``depth`` behind, which the caller drains
+    (``ChunkBoundary.host()``) while the device works.  Everything the
+    drain needs from the host (iteration counters, rng state) travels in
+    the boundary's ``tag``, captured at dispatch.  ``depth=1`` is the
+    serial cadence (dispatch, drain, repeat) with the carry donated;
+    ``depth>=2`` keeps each boundary's carry valid while the next chunk
+    runs.  Pipelining reorders host work only: a pipelined fit is
+    bit-identical to the serial one."""
+
+    def __init__(self, program: StepProgram, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self.program = program
+        self.depth = depth
+        self._pending: collections.deque = collections.deque()
+
+    @property
+    def donate(self) -> bool:
+        """Depth 1 never holds a boundary while the next chunk runs."""
+        return self.depth == 1
+
+    def dispatch(self, carry, sharded: tuple, k: int, xs=None, tag=None):
+        """Launch the next ``k``-step chunk; returns ``(new_carry,
+        drained)``, ``drained`` listing the boundaries now due (empty
+        until the pipeline fills).  Feed ``new_carry`` to the next
+        dispatch; read drained boundaries instead of it."""
+        carry, outs = self.program.run(carry, sharded, k, xs=xs,
+                                       donate=self.donate)
+        self._pending.append(ChunkBoundary(k, carry, outs, tag))
+        drained = []
+        while len(self._pending) >= self.depth:
+            drained.append(self._pending.popleft())
+        return carry, drained
+
+    def flush(self) -> list:
+        """Hand back every boundary still in flight (end of schedule or
+        early stop; boundaries dispatched after a stop are the caller's
+        to discard)."""
+        drained = list(self._pending)
+        self._pending.clear()
+        return drained

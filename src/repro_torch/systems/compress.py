@@ -81,6 +81,8 @@ def _is_float(v) -> bool:
 class CompressedReduce(ReduceStrategy):
     """int8 + error-feedback over any inner :class:`ReduceStrategy`."""
 
+    fusable = False  # the quantizer is a host-side finalize leg
+
     def __init__(self, inner: StrategyLike = None):
         self.inner = (inner if isinstance(inner, ReduceStrategy)
                       else resolve_reduce_strategy(inner, FabricReduce()))
@@ -92,8 +94,14 @@ class CompressedReduce(ReduceStrategy):
         self.inner = self.inner.bind(system)
         return self  # NOT a copy: the buffers must survive across steps
 
+    def cache_token(self):
+        return ("compressed", self.inner.cache_token())
+
     def device_reduce(self, partials):
         return self.inner.device_reduce(partials)
+
+    def device_reduce_full(self, partials):
+        return self.inner.device_reduce_full(partials)
 
     def finalize(self, system, out):
         positions = iter(range(len(_leaves(out))))

@@ -88,3 +88,11 @@ class HostSystem(System):
     def _charge_elementwise(self, sharded, replicated) -> None:
         self.stats.dram_bytes += _tree_bytes(tuple(sharded)) \
             + _tree_bytes(tuple(replicated))
+
+    def _charge_chunk(self, carry, sharded, reduced_shape, strat,
+                      k: int) -> None:
+        # a fused k-step chunk still streams the dataset k times
+        self.stats.dram_bytes += k * _tree_bytes(tuple(sharded))
+
+    def _charge_chunk_boundary(self, carry, outs) -> None:
+        pass

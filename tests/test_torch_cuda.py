@@ -7,6 +7,7 @@ runs where only the port is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -799,3 +800,167 @@ def test_serve_on_the_card_counts_launches_and_matches_the_cpu(cuda):
     assert out[True, "cuda"][1] == {"int_matmul": 3 * layers * calls,
                                     "mha": layers * len(prompts)}
     assert out[True, "cpu"][1] == {}
+
+
+# -- step fusion: each fused chunk is one CUDA graph replay ------------------
+
+def test_captured_chunk_equals_the_eager_steps(cuda):
+    """A LOG int32_lut_wram chunk replayed from its graph gives the k
+    eager steps' carry bit for bit; a second replay starts from the new
+    carry, not from the captured one."""
+    from repro_torch.core import logreg as tlog
+    X, y = make_classification(5000, 16, seed=0)
+    system = make_system("pim", n_cores=64, device="cuda")
+    ds = system.put(X, y)
+    cfg = tlog.LogRegConfig(version="int32_lut_wram", n_iters=10)
+    base = dataclasses.replace(cfg, version="int32")
+    prepare, update = tlog.make_gd_step_fns(base)
+    program = system.step_program(tlog._grad_kernel(system, cfg), prepare,
+                                  update, name="test.log.chunk")
+    sharded = ds.gd_view(cfg.version, cfg.frac_bits, cfg.x8_frac)
+    carry = (torch.zeros(16, device=cuda), torch.zeros((), device=cuda),
+             torch.tensor(np.float32(5.0 / 5000), device=cuda))
+    eager, _ = program.steps(carry, sharded, None, 5)
+    eager2, _ = program.steps(eager, sharded, None, 5)
+    replayed, _ = program.run(carry, sharded, 5, donate=False)
+    replayed2, _ = program.run(replayed, sharded, 5, donate=False)
+    torch.cuda.synchronize()
+    for got, want in ((replayed, eager), (replayed2, eager2)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_replays_count_the_captured_launches(cuda):
+    """Fused fits count the serial fits' launches, through replays: 10
+    fx_matvec and 10 lut_sigmoid for 10 LOG iterations, one replay per
+    chunk; the warm-up and the capture count nothing."""
+    X, y = make_classification(5000, 16, seed=1)
+    system = make_system("pim", n_cores=64, device="cuda")
+    ds = system.put(X, y)
+    fits = {}
+    for fuse, depth in ((1, 2), (5, 1), (5, 2), (10, 2)):
+        dispatch.reset_launch_counts()
+        est = make_estimator("logreg", version="int32_lut_wram", n_iters=10,
+                             fuse_steps=fuse, pipeline_depth=depth,
+                             system=system).fit(ds)
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts == {"fx_matvec": 10, "lut_sigmoid": 10}
+        assert sum(dispatch.graph_replays.values()) == (
+            0 if fuse == 1 else 10 // fuse)
+        fits[fuse, depth] = (est.coef_, est.intercept_)
+    for w, b in fits.values():
+        np.testing.assert_array_equal(w, fits[1, 2][0])
+        assert b == fits[1, 2][1]
+
+
+@pytest.mark.parametrize("workload,version", [
+    ("linreg", v) for v in ("fp32", "int32", "hyb", "bui")] + [
+    ("logreg", v) for v in ("fp32", "int32", "int32_lut_mram",
+                            "int32_lut_wram", "hyb_lut", "bui_lut")] + [
+    ("kmeans", "fp32"), ("emb", "fp32")])
+def test_every_version_fuses_on_the_card(cuda, workload, version):
+    """Every version's step captures into a graph: fused on the card
+    equals serial on the card, bit for bit for the integer versions,
+    fp32 within the float32 reorderings of the serial comparisons (KME's
+    fused update is float32 where the serial one is float64)."""
+    if workload == "emb":
+        X, y = make_recsys(20_000, 1250, 833, dim=16, seed=0)
+        params = dict(n_iters=24, dim=16, flush_every=8, record_every=8)
+    elif workload == "kmeans":
+        X, y = make_blobs(6000, 16, centers=16, seed=3)[0], None
+        params = dict(n_clusters=16, max_iter=12, tol=0.0)
+    else:
+        X, y = (make_linear_dataset(4000, 16, seed=2)[:2]
+                if workload == "linreg" else
+                make_classification(4000, 16, seed=2))
+        params = dict(n_iters=12)
+    system = make_system("pim", n_cores=64, device="cuda")
+    ds = system.put(X, y)
+    fits = [make_estimator(workload, version=version, fuse_steps=fuse,
+                           system=system, **params).fit(ds)
+            for fuse in (1, 4)]
+    torch.cuda.synchronize()
+    if workload == "emb":
+        a, b = (f.result_.model.user_raw for f in fits)
+    elif workload == "kmeans":
+        a, b = (f.cluster_centers_ for f in fits)
+    else:
+        a, b = (np.append(f.coef_, f.intercept_) for f in fits)
+    if version == "fp32":
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(b, a)
+
+
+def test_fused_fits_on_the_card_equal_the_cpu(cuda):
+    """LIN int32 minibatch SGD, KME int16 and EMB int32 deferred windows,
+    fused on the card and on the CPU: identical results and stats; every
+    fit drops its chunk graphs when it ends."""
+    X, y, _ = make_linear_dataset(4000, 16, seed=2)
+    Xb, _, _ = make_blobs(6000, 16, centers=16, seed=3)
+    Xr, yr = make_recsys(20_000, 1250, 833, dim=16, seed=0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        system = make_system("pim", n_cores=64, device=device)
+        lin = make_estimator("linreg", version="int32", n_iters=12,
+                             minibatch=16, fuse_steps=5,
+                             system=system).fit(system.put(X, y))
+        kme = make_estimator("kmeans", n_clusters=16, max_iter=12, tol=1e-4,
+                             fuse_steps=4, system=system).fit(
+                                 system.put(Xb))
+        emb = make_estimator("emb", version="int32", n_iters=40, dim=16,
+                             lr=1.0, frac_bits=12, flush_every=8,
+                             fuse_steps=8, record_every=10,
+                             system=system).fit(system.put(Xr, yr))
+        out[device] = (lin.coef_, lin.intercept_, kme.cluster_centers_,
+                       kme.n_iter_, emb.result_.model, system.stats)
+        assert system._step_cache == {}
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(g[0], c[0])
+    assert g[1] == c[1]
+    np.testing.assert_array_equal(g[2], c[2])
+    assert g[3] == c[3]
+    np.testing.assert_array_equal(g[4].user_raw, c[4].user_raw)
+    np.testing.assert_array_equal(g[4].item_raw, c[4].item_raw)
+    assert g[4].history == c[4].history
+    assert g[5] == c[5]
+
+
+def test_a_refit_on_the_card_equals_the_cpu(cuda):
+    """The same fused minibatch LIN fit twice on one card system, then
+    under another seed: each equals its CPU fit, so no fit replays a
+    graph that reads what an earlier fit freed."""
+    X, y, _ = make_linear_dataset(4000, 16, seed=2)
+    systems = {d: make_system("pim", n_cores=64, device=d)
+               for d in ("cuda", "cpu")}
+    sets = {d: s.put(X, y) for d, s in systems.items()}
+    for seed in (0, 0, 1):
+        fits = {}
+        for device, system in systems.items():
+            est = make_estimator("linreg", version="int32", n_iters=12,
+                                 minibatch=16, fuse_steps=5, seed=seed,
+                                 system=system).fit(sets[device])
+            assert system._step_cache == {}
+            fits[device] = np.append(est.coef_, est.intercept_)
+        np.testing.assert_array_equal(fits["cuda"], fits["cpu"])
+
+
+def test_a_failed_capture_raises(cuda):
+    """A step that reads a device value cannot be captured: the chunk
+    raises, and the launch counts stay as they were."""
+    system = make_system("pim", n_cores=8, device="cuda")
+
+    def update(carry, red):
+        if float(red["s"]) < 0:          # a host read inside the chunk
+            return carry, None
+        return carry + red["s"], None
+
+    program = system.step_program(lambda x: {"s": x.sum(-1)},
+                                  lambda carry: (), update, name="host.read")
+    x = torch.ones((8, 3), device=cuda)
+    dispatch.reset_launch_counts()
+    dispatch.count_launch("fx_matvec")
+    with pytest.raises(RuntimeError):
+        program.run(torch.zeros((), device=cuda), (x,), 3)
+    assert dispatch.launch_counts == {"fx_matvec": 1}
+    assert dispatch.graph_replays == {}

@@ -638,10 +638,20 @@ def test_estimator_round_trip():
 
 
 def test_step_fusion_is_refused_until_ported(recsys):
-    ts = tapi.make_system("pim", n_cores=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="fuse_steps"):
-        tapi.make_estimator("emb", version="int32", fuse_steps=4,
-                            flush_every=4, system=ts).fit(*recsys)
+    """Step fusion runs: fused deferred int32 windows equal the serial
+    deferred fit (tables and history), one launch a chunk plus the
+    flushes."""
+    fits = {}
+    for fuse in (1, 4):
+        ts = tapi.make_system("pim", n_cores=4, device="cpu")
+        fits[fuse] = (tapi.make_estimator(
+            "emb", version="int32", fuse_steps=fuse, flush_every=4,
+            system=ts, **PARAMS).fit(*recsys).result_.model, ts.stats)
+    (r1, s1), (r4, s4) = fits[1], fits[4]
+    np.testing.assert_array_equal(r4.user_raw, r1.user_raw)
+    np.testing.assert_array_equal(r4.item_raw, r1.item_raw)
+    assert r4.history == r1.history and r4.n_flushes == r1.n_flushes == 5
+    assert s4.kernel_launches == 5 + 5 and s1.kernel_launches == 20 + 5
 
 
 def test_emb_view_validation():

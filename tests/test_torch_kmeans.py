@@ -203,10 +203,18 @@ def test_estimator_surface(blobs):
 
 
 def test_step_fusion_is_refused_until_ported(blobs):
-    ts = tapi.make_system("pim", n_cores=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="fuse_steps"):
-        tapi.make_estimator("kmeans", fuse_steps=8, system=ts,
-                            **PARAMS).fit(blobs)
+    """Step fusion runs: a fused int16 fit stops at the serial fit's
+    iteration and lands on its centroids (the fused update is float32,
+    the serial one float64)."""
+    fits = {}
+    for fuse in (1, 8):
+        ts = tapi.make_system("pim", n_cores=4, device="cpu")
+        fits[fuse] = tapi.make_estimator("kmeans", fuse_steps=fuse,
+                                         system=ts, **PARAMS).fit(blobs)
+    assert fits[8].n_iter_ == fits[1].n_iter_
+    np.testing.assert_allclose(fits[8].cluster_centers_,
+                               fits[1].cluster_centers_, rtol=1e-4,
+                               atol=1e-3)
 
 
 def test_cpu_fit_counts_no_kernel_launches(blobs):

@@ -223,7 +223,7 @@ def test_cli_grows_a_tree_on_cpu():
 
 
 @pytest.mark.parametrize("args,needle", [
-    (("--fuse-steps", "4"), "step fusion"),
+    (("--workload", "dtree", "--fuse-steps", "4"), "step fusion"),
     (("--system", "gpu-model"), "invalid choice"),
     (("--workload", "dtree", "--iters", "3"), "does not apply"),
 ])

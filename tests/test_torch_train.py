@@ -227,10 +227,19 @@ def test_estimator_surface(data):
 
 @pytest.mark.parametrize("workload", ["linreg", "logreg"])
 def test_step_fusion_is_refused_until_ported(workload, data):
-    ts = tapi.make_system("pim", n_cores=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="fuse_steps"):
-        tapi.make_estimator(workload, version="int32", fuse_steps=8,
-                            system=ts).fit(*data)
+    """Step fusion runs: a fused int32 fit through the estimator equals
+    the serial one bit for bit, in one launch and one sync a chunk."""
+    fits = {}
+    for fuse in (1, 8):
+        ts = tapi.make_system("pim", n_cores=4, device="cpu")
+        est = tapi.make_estimator(workload, version="int32", n_iters=20,
+                                  fuse_steps=fuse, system=ts).fit(*data)
+        fits[fuse] = (est.coef_, est.intercept_, ts.stats)
+    (w1, b1, s1), (w8, b8, s8) = fits[1], fits[8]
+    np.testing.assert_array_equal(w8, w1)
+    assert b8 == b1
+    assert (s1.kernel_launches, s8.kernel_launches) == (20, 3)
+    assert s8.host_syncs == 3
 
 
 def test_cpu_fit_counts_no_kernel_launches(data):
