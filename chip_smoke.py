@@ -81,6 +81,17 @@ Phases, in order; any failure exits non-zero:
               launches through replays); fused against serial times,
               capture times, graph pool bytes and the card's busy share
               over a fused KME and EMB fit
+  7. compare  the paper's three-way compare (launch/compare.py) on the
+              card at its CLI defaults (16 features, 16 cores): LIN, LOG,
+              DTR, KME and EMB each on pim (DPU seconds modeled), host
+              (fp32 on the card, measured) and gpu-model (the host's
+              numerics, seconds modeled for an A100), 15 rows, with the
+              launch counts zeroed just before it: every host row's score
+              equal to its gpu-model row's, every modeled time above 0,
+              the six PIM-ML kernels launched; then the tiny compare over
+              4 cores on the card and on the CPU: equal integer pim
+              scores, iterations, transfer bytes and modeled seconds, and
+              equal gpu-model launches, flops and bytes
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -271,6 +282,20 @@ def bound(nbytes: float, ops: float,
     ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+#: the peak each declared cost's operations run at (KernelCost.rate)
+PEAK_OPS_PER_S = {"int32": PEAK_INT32_OPS_PER_S, "fp32": PEAK_FP32_OPS_PER_S,
+                  "int8": PEAK_INT8_OPS_PER_S, "bf16": PEAK_BF16_FLOPS}
+
+
+def declared_bound(op: str, *args) -> tuple[float, str]:
+    """The bound of one call of a PIM-ML kernel op from the cost it
+    declares (kernels/dispatch.py), the same count the gpu-model target
+    charges it."""
+    from repro_torch.kernels import dispatch
+    cost = dispatch.declared_cost(op, *args)
+    return bound(cost.bytes, cost.ops, PEAK_OPS_PER_S[cost.rate])
 
 
 def host_samples(sizes, bytes_per_sample: int) -> tuple[int, int]:
@@ -724,8 +749,8 @@ def emb_kernel_times(torch, emb: dict, flush) -> dict:
             flat, 0, slot), flush)
         # what the function moves: the [C, B, D] partials, the B rows it
         # looks up and idx; PR 13-15 counted every id and C*R*B compares
-        g[pre + "bound_ms"], g[pre + "bound_by"] = bound(
-            n_cores * b * dim * 4 + b * dim * 4 + b * 4, 0)
+        g[pre + "bound_ms"], g[pre + "bound_by"] = declared_bound(
+            "emb_gather", e["table"], e["ids"], e["idx"])
         g[pre + "old_bound_ms"], _ = bound(
             n_cores * n_rows * 4 + b * 4 + n_cores * b * dim * 4,
             n_cores * n_rows * b)
@@ -735,9 +760,8 @@ def emb_kernel_times(torch, emb: dict, flush) -> dict:
             torch, lambda: scatter(e, "flush", "flush_upd"), flush)
         s[pre + "library_ms"] = cuda_ms(torch, lambda: torch.index_add(
             flat, 0, slot, e["upd"]), flush)
-        s[pre + "bound_ms"], s[pre + "bound_by"] = bound(
-            2 * n_cores * n_rows * dim * 4 + n_cores * n_rows * 4 + b * 4
-            + b * dim * 4, n_cores * n_rows * b)
+        s[pre + "bound_ms"], s[pre + "bound_by"] = declared_bound(
+            "emb_scatter_add", e["table"], e["ids"], e["idx"], e["upd"])
     e = emb["users", "int32"]
     g["plain_ms"] = cuda_ms(torch, lambda: emb_gather_plain(
         e["table"], e["ids"], e["idx"]), flush)
@@ -981,11 +1005,13 @@ def gini_round_times(torch, dispatch, fit):
         end.record()
         events.append((start, end))
         return out
-    dispatch.register_op("gini_split", cuda=timed, plain=op.plain)
+    dispatch.register_op("gini_split", cuda=timed, plain=op.plain,
+                         cost=op.cost)
     try:
         result = fit()
     finally:
-        dispatch.register_op("gini_split", cuda=op.cuda, plain=op.plain)
+        dispatch.register_op("gini_split", cuda=op.cuda, plain=op.plain,
+                             cost=op.cost)
     torch.cuda.synchronize()
     return [s.elapsed_time(e) for s, e in events], result
 
@@ -1050,12 +1076,14 @@ def log_fit_z(dispatch, make_estimator, ds) -> dict:
     def capture(z, *args, **kwargs):
         seen.append(z.clone())
         return op.cuda(z, *args, **kwargs)
-    dispatch.register_op("lut_sigmoid", cuda=capture, plain=op.plain)
+    dispatch.register_op("lut_sigmoid", cuda=capture, plain=op.plain,
+                         cost=op.cost)
     try:
         make_estimator("logreg", version="int32_lut_wram", n_iters=ITERS,
                        system=ds.system).fit(ds)
     finally:
-        dispatch.register_op("lut_sigmoid", cuda=op.cuda, plain=op.plain)
+        dispatch.register_op("lut_sigmoid", cuda=op.cuda, plain=op.plain,
+                             cost=op.cost)
     return {"first": seen[0], "last": seen[-1]}
 
 
@@ -1430,6 +1458,73 @@ def lm_kernel_times(torch, flush, prompt_lens) -> dict:
     return out
 
 
+#: the compare's kernels: those its pim rows run (LIN/LOG int32, KME
+#: int16, DTR, EMB int32), DTR's and EMB's also in the host and gpu-model
+#: rows
+COMPARE_KERNELS = ("fx_matvec", "lut_sigmoid", "kmeans_assign", "gini_split",
+                   "emb_gather", "emb_scatter_add")
+
+
+def compare_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 7: the three-way compare at its CLI defaults on the card,
+    then the tiny compare on the card against the CPU.  Returns the
+    launch counts of the full run."""
+    from repro_torch.launch.compare import render_compare_table, run_compare
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    record = run_compare(tiny=False, cores=16, device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    say(f"compare: the full run in {time.perf_counter() - t0:.1f} s; "
+        f"launch counts {counts}")
+    say(render_compare_table(record))
+    rows = {(r["workload"], r["system"]): r for r in record["rows"]}
+    if len(rows) != 15 or record["meta"]["gpu"] != smi:
+        fail(f"compare: {len(rows)} rows on {record['meta']['gpu']}")
+    for (workload, kind), row in rows.items():
+        if not row["modeled_s"] > 0:
+            fail(f"compare {workload} {kind}: modeled_s {row['modeled_s']}")
+        if kind == "host" and row["score"] != rows[workload,
+                                                  "gpu-model"]["score"]:
+            fail(f"compare {workload}: host score {row['score']} != "
+                 f"gpu-model {rows[workload, 'gpu-model']['score']}")
+    missing = [k for k in COMPARE_KERNELS if not counts.get(k)]
+    if missing:
+        fail(f"compare: kernels not launched: {missing}")
+    say("compare rows: " + json.dumps([
+        {k: r.get(k) for k in ("workload", "system", "version", "wall_s",
+                               "modeled_s", "drift_ratio", "score",
+                               "kernel_launches", "iterations",
+                               "modeled_kernel_s", "modeled_transfer_s",
+                               "modeled_flops", "modeled_hbm_bytes")}
+        for r in record["rows"]]))
+    t0 = time.perf_counter()
+    tiny = {dev: {(r["workload"], r["system"]): r for r in run_compare(
+        tiny=True, cores=4, device=dev)["rows"]} for dev in ("cuda", "cpu")}
+    fields = {"pim": ("iterations", "cpu_to_pim_bytes", "pim_to_cpu_bytes",
+                      "modeled_s", "modeled_kernel_s", "modeled_transfer_s"),
+              "gpu-model": ("modeled_launches", "modeled_flops",
+                            "modeled_hbm_bytes")}
+    for key, row in tiny["cuda"].items():
+        other = tiny["cpu"][key]
+        check = list(fields.get(key[1], ()))
+        if key[1] == "pim" and key[0] != "dtree":      # the integer rows
+            check.append("score")
+        for field in check:
+            if row[field] != other[field]:
+                fail(f"tiny compare {key} {field}: card {row[field]} != "
+                     f"cpu {other[field]}")
+    say(f"compare: tiny (4 cores) card == cpu in "
+        f"{time.perf_counter() - t0:.1f} s: integer pim scores, iterations, "
+        f"transfer bytes and modeled seconds; gpu-model launches, flops "
+        f"and bytes (" + ", ".join(
+            f"{w} {tiny['cuda'][w, 'gpu-model']['modeled_launches']} / "
+            f"{tiny['cuda'][w, 'gpu-model']['modeled_flops']:.6g} / "
+            f"{tiny['cuda'][w, 'gpu-model']['modeled_hbm_bytes']:.6g}"
+            for w in ("linreg", "logreg", "dtree", "kmeans", "emb")) + ")")
+    return counts
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -1707,8 +1802,6 @@ def main() -> int:
     lm_card_equals_cpu(torch)
 
     # -- 5. timing -----------------------------------------------------------
-    n = x.numel() // N_FEATURES
-
     flush = L2Flush(torch)
     # the method's floor: no kernel reads below a one-element add_
     tiny = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -1717,9 +1810,7 @@ def main() -> int:
     fx = dict(ms=cuda_ms(torch, lambda: fx_matvec_cuda(x, w, 10), flush),
               plain_ms=cuda_ms(torch, lambda: fx_matvec_plain(x, w, 10),
                                flush))
-    fx["bound_ms"], fx["bound_by"] = bound(n * N_FEATURES * 4
-                                           + N_FEATURES * 4 + n * 4,
-                                           n * N_FEATURES * 4)
+    fx["bound_ms"], fx["bound_by"] = declared_bound("fx_matvec", x, w, 10)
     say(f"timing: fx_matvec {fx['ms']:.4f} ms, plain {fx['plain_ms']:.4f} "
         f"ms, bound {fx['bound_ms']:.4f} ms ({fx['bound_by']}; H100 SXM "
         f"peaks {PEAK_BYTES_PER_S:.3g} B/s, {PEAK_INT32_OPS_PER_S:.3g} "
@@ -1735,8 +1826,7 @@ def main() -> int:
                   z, lut, "mram"), flush),
               plain_ms=cuda_ms(torch, lambda: lut_sigmoid_plain(z, lut),
                                flush))
-    lu["bound_ms"], lu["bound_by"] = bound(z.numel() * 8 + n_table * 2,
-                                           z.numel() * 5)
+    lu["bound_ms"], lu["bound_by"] = declared_bound("lut_sigmoid", z, lut)
     lu["fit_z_ms"] = {f"{it}_{placement}": cuda_ms(
         torch, lambda: lut_sigmoid_cuda(zi, lut, placement), flush)
         for it, zi in fit_z.items() for placement in ("wram", "mram")}
@@ -1766,15 +1856,12 @@ def main() -> int:
                                flush))
     # the products run on the tensor cores as four int8 products (the
     # byte split); on the CUDA cores they were 2 n K F int32 operations
-    km_bytes = (n_km * N_FEATURES * 2 + KME_K * N_FEATURES * 2 + n_km * 4
-                + N_CORES * KME_K * (N_FEATURES + 1) * 4)
-    kt["bound_ms"], kt["bound_by"] = bound(
-        km_bytes, 4 * 2 * n_km * KME_K * N_FEATURES, PEAK_INT8_OPS_PER_S)
+    km_bytes = dispatch.declared_cost("kmeans_assign", kx, kc).bytes
+    kt["bound_ms"], kt["bound_by"] = declared_bound("kmeans_assign", kx, kc)
     cuda_core_bound_ms = bound(km_bytes, 2 * n_km * KME_K * N_FEATURES)[0]
     n_leaves = gi["th"].shape[0]
     g_args = (gi["x"], gi["y"], gi["spread"], gi["th"], 2)
     g_root = (gi["x"], gi["y"], gi["root"], gi["th"], 2)
-    n_gi = gi["x"].shape[0] * gi["x"].shape[1]
     g_front = (gi["x"], gi["y"], gi["frontier"], gi["th"], 2)
     gt = dict(ms=cuda_ms(torch, lambda: gini_split_cuda(*g_args), flush),
               root_ms=cuda_ms(torch, lambda: gini_split_cuda(*g_root),
@@ -1787,10 +1874,7 @@ def main() -> int:
                   *gi["few_cores"](gi["root"])), flush),
               plain_ms=cuda_ms(torch, lambda: gini_split_plain(*g_args),
                                flush))
-    gt["bound_ms"], gt["bound_by"] = bound(
-        n_gi * (N_FEATURES + 2) * 4 + n_leaves * N_FEATURES * 4
-        + N_CORES * n_leaves * 2 * (N_FEATURES + 1) * 4,
-        n_gi * N_FEATURES, PEAK_FP32_OPS_PER_S)
+    gt["bound_ms"], gt["bound_by"] = declared_bound("gini_split", *g_args)
     say(f"timing: kmeans_assign {kt['ms']:.4f} ms, plain "
         f"{kt['plain_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
         f"({kt['bound_by']}: {km_bytes:.4g} B at {PEAK_BYTES_PER_S:.3g} "
@@ -1901,6 +1985,11 @@ def main() -> int:
     say(f"profile: EMB int32 D={EMB_FLUSH} fused (fuse_steps {EMB_FUSE}), "
         f"{EMB_ITERS} steps at the Netflix size: {emb_fused_profile}")
 
+    # -- 7. the paper's three-way compare on the card ------------------------
+    t0 = time.perf_counter()
+    compare_counts = compare_on_card(torch, dispatch, smi)
+    say(f"compare: phase 7 in {time.perf_counter() - t0:.1f} s on {smi}")
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -1963,6 +2052,10 @@ def main() -> int:
          "launches": lm["counts"]["mha"], "max_abs_err": err_fa,
          "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",]},
     ]
+    for k in kernels:
+        op = "gini_split" if k["name"] == "gini_counts" else k["name"]
+        if op in COMPARE_KERNELS:
+            k["compare_launches"] = compare_counts[op]
     say("serve: " + json.dumps({
         name: {k: lm[name][k] for k in ("tokens_per_s", "ttft_ms",
                                         "prefill_ms", "decode_ms", "wall_s")}

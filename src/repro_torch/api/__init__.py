@@ -4,8 +4,12 @@ Training data is partitioned ONCE and stays resident across iterations
 (paper §2.2, Fig. 3):
 
   System / make_system    execution targets: PimSystem (simulated PIM
-                          cores on one device) and HostSystem (the
-                          processor-centric baseline)
+                          cores on one device), HostSystem (the
+                          processor-centric baseline) and
+                          ModeledGpuSystem (host numerics priced on an
+                          A100 roofline)
+  HierarchicalCostModel   the PIM machine's launch pricing (DPU kernel
+                          time + rank-serialized transfer legs)
   PimDataset              resident dataset handle (System.put); quantized
                           views are lazy and cached
   ShardedTable            row-sharded embedding table handle
@@ -26,10 +30,12 @@ Typical session::
         make_estimator("linreg", version="int32", lr=lr,
                        system=system).fit(ds)
 """
-from ..systems import (FabricReduce, HierarchicalReduce, HostConfig,
-                       HostReduce, HostSystem, PimConfig, PimSystem,
-                       PimTopology, ReduceStrategy, System, TransferStats,
-                       make_system, resolve_reduce_strategy)
+from ..systems import (DpuCostModel, FabricReduce, GpuModelConfig,
+                       HierarchicalCostModel, HierarchicalReduce,
+                       HostConfig, HostReduce, HostSystem, ModeledGpuSystem,
+                       PimConfig, PimSystem, PimTopology, ReduceStrategy,
+                       ReduceVia, System, TransferStats, make_system,
+                       resolve_reduce_strategy)
 from .dataset import PimDataset
 from .estimator import PimEstimator, make_estimator
 from .registry import (FitResult, TrainerSpec, Workload, get_workload,
@@ -38,9 +44,11 @@ from .table import ShardedTable
 from . import workloads  # noqa: F401 — registers the workloads
 
 __all__ = [
-    "FabricReduce", "FitResult", "HierarchicalReduce", "HostConfig",
-    "HostReduce", "HostSystem", "PimConfig", "PimDataset", "PimEstimator",
-    "PimSystem", "PimTopology", "ReduceStrategy", "ShardedTable", "System",
+    "DpuCostModel", "FabricReduce", "FitResult", "GpuModelConfig",
+    "HierarchicalCostModel", "HierarchicalReduce", "HostConfig",
+    "HostReduce", "HostSystem", "ModeledGpuSystem", "PimConfig",
+    "PimDataset", "PimEstimator", "PimSystem", "PimTopology",
+    "ReduceStrategy", "ReduceVia", "ShardedTable", "System",
     "TrainerSpec", "TransferStats", "Workload", "get_workload",
     "list_workloads", "make_estimator", "make_system", "register_workload",
     "resolve_reduce_strategy",

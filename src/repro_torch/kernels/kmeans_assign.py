@@ -212,5 +212,21 @@ def kmeans_assign_cuda(x_q: torch.Tensor, c_q: torch.Tensor):
     return labels, sums, counts
 
 
+def kmeans_assign_cost(x_q: torch.Tensor,
+                       c_q: torch.Tensor) -> dispatch.KernelCost:
+    """x and the centroids read; the int32 labels and each core's int32
+    sums and counts written.  The products run on the tensor cores as
+    four int8 products of the int16 operands' bytes: 8 n K F int8
+    operations for the distances' 2 n K F."""
+    n_cores, n_pc, f_dim = x_q.shape
+    n, k = n_cores * n_pc, c_q.shape[0]
+    return dispatch.KernelCost(
+        ops=4 * 2 * n * k * f_dim,
+        bytes=x_q.numel() * x_q.element_size()
+        + c_q.numel() * c_q.element_size() + n * 4
+        + n_cores * k * (f_dim + 1) * 4,
+        rate="int8")
+
+
 dispatch.register_op("kmeans_assign", cuda=kmeans_assign_cuda,
-                     plain=kmeans_assign_plain)
+                     plain=kmeans_assign_plain, cost=kmeans_assign_cost)

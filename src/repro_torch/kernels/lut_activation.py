@@ -163,5 +163,16 @@ def lut_sigmoid_cuda(x_q: torch.Tensor, lut: SigmoidLut,
     return out
 
 
+def lut_sigmoid_cost(x_q: torch.Tensor, lut: SigmoidLut,
+                     placement: str = "wram") -> dispatch.KernelCost:
+    """z read and the int32 result written, the table read once; five
+    int32 operations an element, as ``PERF.md`` section 6 counts the
+    bound."""
+    return dispatch.KernelCost(
+        ops=5 * x_q.numel(),
+        bytes=x_q.numel() * 8 + lut.table.numel() * lut.table.element_size(),
+        rate="int32")
+
+
 dispatch.register_op("lut_sigmoid", cuda=lut_sigmoid_cuda,
-                     plain=lut_sigmoid_plain)
+                     plain=lut_sigmoid_plain, cost=lut_sigmoid_cost)

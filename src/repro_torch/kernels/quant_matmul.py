@@ -95,7 +95,21 @@ def fx_matvec_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
-dispatch.register_op("fx_matvec", cuda=fx_matvec_cuda, plain=fx_matvec_plain)
+def fx_matvec_cost(x_q: torch.Tensor, w_q: torch.Tensor,
+                   frac_bits: int) -> dispatch.KernelCost:
+    """x and w read, the int32 ``[...]`` result written; four int32
+    operations an element of x, as ``PERF.md`` section 6 counts the
+    bound."""
+    n = x_q.numel() // max(1, x_q.shape[-1])
+    return dispatch.KernelCost(
+        ops=4 * x_q.numel(),
+        bytes=x_q.numel() * x_q.element_size()
+        + w_q.numel() * w_q.element_size() + n * 4,
+        rate="int32")
+
+
+dispatch.register_op("fx_matvec", cuda=fx_matvec_cuda, plain=fx_matvec_plain,
+                     cost=fx_matvec_cost)
 
 
 #: the largest K whose int32 sum cannot overflow: K * 128**2 <= 2**31

@@ -247,7 +247,34 @@ def emb_scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def emb_gather_cost(table: torch.Tensor, ids: torch.Tensor,
+                    idx: torch.Tensor,
+                    index: Optional[GatherIndex] = None
+                    ) -> dispatch.KernelCost:
+    """What the function moves: the ``[C, B, D]`` partials written, the B
+    rows it looks up and idx read; no arithmetic."""
+    n_cores, _, dim = table.shape
+    b, es = idx.numel(), table.element_size()
+    return dispatch.KernelCost(
+        ops=0, bytes=n_cores * b * dim * es + b * dim * es + b * 4,
+        rate="int32")
+
+
+def emb_scatter_add_cost(table: torch.Tensor, ids: torch.Tensor,
+                         idx: torch.Tensor,
+                         upd: torch.Tensor) -> dispatch.KernelCost:
+    """The table read and the new table written, the ids, idx and the
+    updates read; one id compare per (row, lookup)."""
+    n_cores, n_rows, dim = table.shape
+    b, es = idx.numel(), table.element_size()
+    return dispatch.KernelCost(
+        ops=n_cores * n_rows * b,
+        bytes=2 * n_cores * n_rows * dim * es + n_cores * n_rows * 4
+        + b * 4 + b * dim * es,
+        rate="int32")
+
+
 dispatch.register_op("emb_gather", cuda=emb_gather_cuda,
-                     plain=emb_gather_plain)
+                     plain=emb_gather_plain, cost=emb_gather_cost)
 dispatch.register_op("emb_scatter_add", cuda=emb_scatter_add_cuda,
-                     plain=emb_scatter_add_plain)
+                     plain=emb_scatter_add_plain, cost=emb_scatter_add_cost)

@@ -14,6 +14,9 @@ on ``--device cpu``.
       --system host --device cpu --versions fp32
 
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload linreg \\
+      --system gpu-model --device cpu --versions fp32
+
+  PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload linreg \\
       --device cpu --versions int32 --iters 100 --fuse-steps 10
 
   PYTHONPATH=src python -m repro_torch.launch.pim_ml --workload kmeans \\
@@ -70,9 +73,11 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=8192)
     ap.add_argument("--features", type=int, default=16)
     ap.add_argument("--cores", type=int, default=16)
-    ap.add_argument("--system", default="pim", choices=("pim", "host"),
-                    help="execution target: the simulated PIM machine or "
-                         "the processor-centric host baseline")
+    ap.add_argument("--system", default="pim",
+                    choices=("pim", "host", "gpu-model"),
+                    help="execution target: the simulated PIM machine, "
+                         "the processor-centric host baseline, or the host "
+                         "numerics priced on an A100 roofline")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the system runs; cuda without a GPU fails")
     ap.add_argument("--iters", type=int, default=0,
@@ -145,6 +150,11 @@ def main(argv=None):
               f"{s.kernel_launches} launches "
               f"({s.shard_transfers} view materializations, "
               f"{s.shard_bytes:,} B resident)")
+    if system.kind == "gpu-model":
+        g = system.gpu
+        print(f"modeled A100: {g.modeled_seconds * 1e3:.3f} ms, "
+              f"{g.modeled_energy_j:.3f} J over {g.launches} launches "
+              f"({g.flops:.3e} FLOPs, {g.hbm_bytes:.3e} HBM B)")
 
 
 if __name__ == "__main__":

@@ -16,15 +16,33 @@ reference traced a per-core function under ``jax.vmap``.
 The byte counters are deterministic integers computed from the same
 shapes and dtypes as the reference's, so a port fit and a reference fit
 of the same calls leave equal ``TransferStats``.
+
+Every launch — a ``map_*`` call or a fused chunk — runs through
+:meth:`System._launch`, the counterpart of the reference's
+``_record_execution`` hook: a modeled target
+(:class:`~repro_torch.systems.gpu_model.ModeledGpuSystem`) prices it
+there; the PIM and host targets just run it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import enum
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
+
+
+class ReduceVia(enum.Enum):
+    """Legacy reduction selector, kept for config compatibility: the
+    per-call ``strategy=`` accepts these, their string values, or a
+    :class:`ReduceStrategy`."""
+
+    FABRIC = "fabric"              # on-device sum over the cores axis
+    HOST = "host"                  # explicit host round trip (the paper's)
+    HIERARCHICAL = "hierarchical"  # rank-level device sum + host combine
 
 
 @dataclasses.dataclass
@@ -59,6 +77,12 @@ class TransferStats:
     def snapshot(self) -> "TransferStats":
         """Point-in-time copy of every counter."""
         return dataclasses.replace(self)
+
+    def delta(self, snapshot: "TransferStats") -> "TransferStats":
+        """Counters accumulated since ``snapshot`` was taken."""
+        return TransferStats(
+            **{f.name: getattr(self, f.name) - getattr(snapshot, f.name)
+               for f in dataclasses.fields(TransferStats)})
 
 
 def run_steps(gen):
@@ -335,7 +359,7 @@ _STRATEGIES: dict[str, Callable[[], ReduceStrategy]] = {
     "hierarchical-auto": lambda: HierarchicalReduce(group_size=None),
 }
 
-StrategyLike = Union[None, str, ReduceStrategy]
+StrategyLike = Union[None, str, ReduceVia, ReduceStrategy]
 
 
 def resolve_reduce_strategy(spec: StrategyLike,
@@ -344,6 +368,8 @@ def resolve_reduce_strategy(spec: StrategyLike,
         spec = default if default is not None else "fabric"
     if isinstance(spec, ReduceStrategy):
         return spec
+    if isinstance(spec, ReduceVia):
+        spec = spec.value
     if isinstance(spec, str) and spec in _STRATEGIES:
         return _STRATEGIES[spec]()
     raise ValueError(f"unknown reduce strategy {spec!r}; "
@@ -465,6 +491,30 @@ class System:
                             f"callable, got {type(kernel).__name__}")
         return kernel
 
+    def _kernel_key(self, kernel) -> tuple:
+        """A kernel's identity in a launch's price key: (name, generation)
+        for a registered name, the function itself for a callable."""
+        if isinstance(kernel, str):
+            return ("named", kernel, self._kernel_gen[kernel])
+        return ("fn", kernel)
+
+    # -- launch pricing ------------------------------------------------------
+
+    def _launch(self, key: tuple, run: Callable, operands):
+        """Run one launch, ``run()``, and return its result.  ``key``
+        names the program (kernel, strategy, chunk length) and
+        ``operands`` are its inputs; a modeled target prices the launch
+        by both (:class:`~repro_torch.systems.gpu_model.
+        ModeledGpuSystem`).  The PIM and host targets just run it."""
+        return run()
+
+    def _pricing(self, key: tuple, operands):
+        """Context in which a modeled target counts the work of the
+        launch ``key`` once per operand signature; a CUDA graph's capture
+        runs in it (``systems/step_graph.py``), since a replay runs no
+        op it could count.  A no-op here."""
+        return contextlib.nullcontext()
+
     # -- accounting hooks (per-system TransferStats semantics) ---------------
 
     def _charge_launch_operands(self, sharded, replicated) -> None:
@@ -517,7 +567,11 @@ class System:
         self.stats.kernel_launches += 1
         self.stats.host_syncs += 1
         self._charge_launch_operands(sharded, replicated)
-        out = strat.device_reduce(fn(*sharded, *replicated))
+        out = self._launch(
+            ("map_reduce", self._kernel_key(kernel), len(sharded),
+             len(replicated), strat.cache_token()),
+            lambda: strat.device_reduce(fn(*sharded, *replicated)),
+            (sharded, replicated))
         self._charge_reduce(strat, out)
         return strat.finalize(self, out)
 
@@ -529,11 +583,16 @@ class System:
         self.stats.kernel_launches += 1
         self.stats.host_syncs += 1
         self._charge_launch_operands(sharded, replicated)
-        partials = fn(*sharded, *replicated)
         ops = {"sum": lambda v: _device_sum(v, 0),
                "min": lambda v: torch.amin(v, dim=0),
                "max": lambda v: torch.amax(v, dim=0)}
-        out = {k: ops[reduce[k]](v) for k, v in partials.items()}
+
+        def run():
+            partials = fn(*sharded, *replicated)
+            return {k: ops[reduce[k]](v) for k, v in partials.items()}
+        out = self._launch(
+            ("custom", self._kernel_key(kernel), tuple(sorted(
+                reduce.items()))), run, (sharded, replicated))
         self._charge_reduce_custom(out)
         return out
 
@@ -543,7 +602,9 @@ class System:
         fn = self._resolve_kernel(kernel)
         self.stats.kernel_launches += 1
         self._charge_elementwise(sharded, replicated)
-        return fn(*sharded, *replicated)
+        return self._launch(("elem", self._kernel_key(kernel)),
+                            lambda: fn(*sharded, *replicated),
+                            (sharded, replicated))
 
     def step_program(self, kernel, prepare: Callable, update: Callable,
                      *, name: str, strategy: StrategyLike = None,
@@ -618,9 +679,17 @@ class StepProgram:
             strategy, system.config.reduce).bind(system)
         self._kernel = kernel
         self._fn = system._resolve_kernel(kernel)
+        self._kkey = system._kernel_key(kernel)
 
     def _key(self, *parts) -> tuple:
         return (self._fn, self.name, self.strategy.cache_token(), *parts,
+                self.system.config.n_cores)
+
+    def price_key(self, k: int, xs) -> tuple:
+        """The price key of a k-step chunk: one priced launch covers the
+        k steps, on the CPU and on a card alike."""
+        return ("step_program", self._kkey, self.name,
+                self.strategy.cache_token(), k, xs is not None,
                 self.system.config.n_cores)
 
     def steps(self, carry, sharded: tuple, xs, k: int):
@@ -667,9 +736,14 @@ class StepProgram:
         if _leaves(carry)[0].device.type == "cuda":
             from .step_graph import chunk_graph
             graph = chunk_graph(self, carry, sharded, xs, k)
-            carry, outs = graph.replay(carry, xs, clone=not donate)
+
+            def run():
+                return graph.replay(carry_in, xs, clone=not donate)
         else:
-            carry, outs = self.steps(carry, sharded, xs, k)
+            def run():
+                return self.steps(carry_in, sharded, xs, k)
+        carry, outs = self.system._launch(self.price_key(k, xs), run,
+                                          (carry_in, sharded, xs))
         reduced = self.system._step_cache[
             self._key("reduce", _signature((carry_in, sharded)))]
         self.system._charge_chunk(carry_in, sharded, reduced,

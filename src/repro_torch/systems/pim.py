@@ -10,22 +10,42 @@ device tensor ``[C, n_pc, ...]``; its bank-resident shard is that slice.
 The per-core kernels take the whole batch and launch once for all cores.
 Rows are padded and ordered exactly as ``repro.systems.pim.PimSystem``
 orders them, so every core holds the same rows as in the reference.
+
+Time on the modeled DPUs comes from
+:class:`~repro_torch.systems.topology.HierarchicalCostModel`
+(:meth:`PimSystem.cost_model`); the on-bank storage-dtype table its MRAM
+byte counting reads (``WORKLOAD_STORAGE_DTYPE`` /
+``workload_element_bytes``) lives here because it mirrors what
+``PimDataset`` materializes.  ``DpuCostModel`` is the reference's
+one-warning deprecation shim over the per-DPU leaf.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..core.quantization import storage_bytes
 from .base import System, _tree_bytes
-from .topology import DEFAULT_RANKS_PER_CHANNEL, PimTopology
+from .topology import (DEFAULT_RANKS_PER_CHANNEL, DPU_FREQ_HZ,
+                       DPU_MRAM_BYTES_PER_CYCLE, DPU_OP_CYCLES,
+                       DPU_PIPELINE_SATURATION_THREADS,
+                       HierarchicalCostModel, PimTopology)
+
+__all__ = [
+    "DPU_FREQ_HZ", "DPU_MRAM_BYTES_PER_CYCLE", "DPU_OP_CYCLES",
+    "DPU_PIPELINE_SATURATION_THREADS", "DpuCostModel", "PimConfig",
+    "PimSystem", "WORKLOAD_STORAGE_DTYPE", "workload_element_bytes",
+]
 
 
 @dataclasses.dataclass
 class PimConfig:
     n_cores: int = 64
+    n_threads: int = 16          # tasklets per core (the cost model's)
     reduce: str = "fabric"       # default strategy for map_reduce
     dpus_per_rank: Optional[int] = None  # None: largest divisor <= 64
     ranks_per_channel: int = DEFAULT_RANKS_PER_CHANNEL
@@ -48,6 +68,10 @@ class PimSystem(System):
             self.config.n_cores,
             dpus_per_rank=self.config.dpus_per_rank,
             ranks_per_channel=self.config.ranks_per_channel)
+
+    def cost_model(self) -> HierarchicalCostModel:
+        """A :class:`HierarchicalCostModel` over this machine's tree."""
+        return HierarchicalCostModel(self.topology)
 
     # -- data placement ------------------------------------------------------
 
@@ -82,3 +106,71 @@ class PimSystem(System):
         The simulated cores share one device, so nothing moves."""
         self.stats.cpu_to_pim += _tree_bytes(tree) * self.config.n_cores
         return tree
+
+
+# ---------------------------------------------------------------------------
+# Storage-dtype table (feeds the cost model's MRAM byte counting).
+# ---------------------------------------------------------------------------
+
+#: on-bank storage dtype of the training data per (workload, version),
+#: with the per-dtype widths of ``quantization.STORAGE_BYTES``; mirrors
+#: the quantized views PimDataset materializes (``api/dataset.py``)
+WORKLOAD_STORAGE_DTYPE: dict[tuple[str, str], str] = {
+    ("lin", "fp32"): "fp32",
+    ("lin", "int32"): "int32",
+    ("lin", "hyb"): "int8",
+    ("lin", "bui"): "int8",
+    ("log", "fp32"): "fp32",
+    ("log", "int32"): "int32",
+    ("log", "int32_lut_mram"): "int32",
+    ("log", "int32_lut_wram"): "int32",
+    ("log", "hyb_lut"): "int8",
+    ("log", "bui_lut"): "int8",
+    ("dtr", "fp32"): "fp32",
+    ("kme", "int16"): "int16",
+    ("kme", "fp32"): "fp32",
+    ("emb", "fp32"): "fp32",     # ShardedTable float shards
+    ("emb", "int32"): "int32",   # ShardedTable Q(frac_bits) shards
+}
+
+
+def workload_element_bytes(workload: str, version: str) -> int:
+    """Bytes per stored feature value for a workload version."""
+    try:
+        name = WORKLOAD_STORAGE_DTYPE[(workload, version)]
+    except KeyError:
+        raise ValueError(
+            f"no storage dtype recorded for {workload}/{version}; "
+            f"add it to WORKLOAD_STORAGE_DTYPE") from None
+    return storage_bytes(name)
+
+
+# ---------------------------------------------------------------------------
+# DpuCostModel — deprecation shim over the hierarchical model.
+# ---------------------------------------------------------------------------
+
+_DPU_COST_MODEL_WARNED = False
+
+
+class DpuCostModel(HierarchicalCostModel):
+    """Deprecated flat cost model: use
+    :class:`~repro_torch.systems.topology.HierarchicalCostModel`.
+
+    The hierarchical model pinned to a single-DPU topology, so
+    ``kernel_seconds``/``workload_seconds`` keep their per-DPU semantics
+    (no transfer legs).  Emits one ``DeprecationWarning`` per process.
+    """
+
+    def __init__(self, freq_hz: float = DPU_FREQ_HZ,
+                 saturation_threads: int = DPU_PIPELINE_SATURATION_THREADS):
+        global _DPU_COST_MODEL_WARNED
+        if not _DPU_COST_MODEL_WARNED:
+            _DPU_COST_MODEL_WARNED = True
+            warnings.warn(
+                "DpuCostModel is deprecated; use "
+                "repro_torch.systems.topology.HierarchicalCostModel "
+                "(topology-aware launch pricing)",
+                DeprecationWarning, stacklevel=2)
+        super().__init__(topology=PimTopology(n_cores=1),
+                         freq_hz=freq_hz,
+                         saturation_threads=saturation_threads)

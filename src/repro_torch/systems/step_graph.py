@@ -32,6 +32,10 @@ Launch counts: a replay calls no kernel wrapper, so the graph records
 the count each op gained during its capture and adds it again at every
 replay; the warm-up's and the capture's own counts are taken back.
 ``dispatch.graph_replays`` counts the replays per program name.
+Pricing: a replay runs no op a modeled target could count either, so
+the capture runs inside ``System._pricing`` under the chunk's price key:
+a ``ModeledGpuSystem`` counts the k captured steps once there, as one
+launch, and charges that cost at every replay.
 Nothing falls back: a failed capture or replay raises.
 """
 from __future__ import annotations
@@ -71,7 +75,8 @@ class ChunkGraph:
                 torch.cuda.synchronize()
                 self.graph = torch.cuda.CUDAGraph()
                 mark = dict(dispatch.launch_counts)
-                with torch.cuda.graph(self.graph):
+                with torch.cuda.graph(self.graph), program.system._pricing(
+                        program.price_key(k, xs), (carry, sharded, xs)):
                     self.carry_out, self.outs = program.steps(
                         self.carry_in, sharded, self.xs_in, k)
                 self.launches = {

@@ -964,3 +964,109 @@ def test_a_failed_capture_raises(cuda):
         program.run(torch.zeros((), device=cuda), (x,), 3)
     assert dispatch.launch_counts == {"fx_matvec": 1}
     assert dispatch.graph_replays == {}
+
+
+# ---------------------------------------------------------------------------
+# Declared kernel costs and the gpu-model target on the card.
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports nothing of the port at
+    import time)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_declared_costs_are_chip_smokes_bounds(cuda):
+    """The cost each of the six PIM-ML ops declares is what chip_smoke.py
+    bounds the kernel with (PERF.md section 6's counts), at main-path
+    shapes on the card."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(3)
+    c, r, f, k, leaves, b, d = 64, 3072, 16, 16, 1024, 64, 16
+    n = c * r
+    lut = build_sigmoid_lut(device=cuda)
+    x16 = _ints(rng, (c, r, f), -32768, 32768).to(torch.int16).to(cuda)
+    c16 = _ints(rng, (k, f), -32768, 32768).to(torch.int16).to(cuda)
+    ids = torch.arange(c * 40, dtype=torch.int32).reshape(c, 40).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, c * 40, b).astype(np.int32)) \
+        .to(cuda)
+
+    def floats(*shape):     # from numpy: the card's generator is not used
+        return torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    cases = {
+        "fx_matvec": ((_ints(rng, (c, r, f)).to(cuda),
+                       _ints(rng, (f,)).to(cuda), 10),
+                      cs.bound(n * f * 4 + f * 4 + n * 4, n * f * 4)),
+        "lut_sigmoid": ((_ints(rng, (c, r), -30000, 30000).to(cuda), lut),
+                        cs.bound(n * 8 + lut.table.numel() * 2, n * 5)),
+        "kmeans_assign": ((x16, c16), cs.bound(
+            n * f * 2 + k * f * 2 + n * 4 + c * k * (f + 1) * 4,
+            4 * 2 * n * k * f, cs.PEAK_INT8_OPS_PER_S)),
+        "gini_split": ((floats(c, r, f), _ints(rng, (c, r), 0, 2).to(cuda),
+                        _ints(rng, (c, r), 0, leaves).to(cuda),
+                        floats(leaves, f), 2),
+                       cs.bound(n * (f + 2) * 4 + leaves * f * 4
+                                + c * leaves * 2 * (f + 1) * 4, n * f,
+                                cs.PEAK_FP32_OPS_PER_S)),
+        "emb_gather": ((floats(c, 40, d), ids, idx,
+                        gather_index(ids)),
+                       cs.bound(c * b * d * 4 + b * d * 4 + b * 4, 0)),
+        "emb_scatter_add": ((_ints(rng, (c, 40, d), -99, 99).to(cuda), ids,
+                             idx, _ints(rng, (b, d), -99, 99).to(cuda)),
+                            cs.bound(2 * c * 40 * d * 4 + c * 40 * 4 + b * 4
+                                     + b * d * 4, c * 40 * b)),
+    }
+    from repro_torch.systems.gpu_model import OpCounter
+    for op, (args, expected) in cases.items():
+        assert cs.declared_bound(op, *args) == expected, op
+        # charged that, and not what the kernel's wrapper runs
+        cost = dispatch.declared_cost(op, *args)
+        with OpCounter() as counter:
+            dispatch.launch(op, *args)
+        torch.cuda.synchronize()
+        assert (counter.flops, counter.bytes) == (cost.ops, cost.bytes), op
+
+
+@pytest.mark.parametrize("workload,version,params", [
+    ("linreg", "fp32", {"n_iters": 12}),
+    ("linreg", "fp32", {"n_iters": 12, "fuse_steps": 4}),
+    ("logreg", "fp32", {"n_iters": 12, "fuse_steps": 6}),
+    ("kmeans", "fp32", {"n_clusters": 4, "max_iter": 8}),
+    ("dtree", "fp32", {"max_depth": 4}),
+    ("emb", "fp32", {"n_iters": 20, "batch": 32, "dim": 4}),
+])
+def test_gpu_model_counts_the_same_on_the_card_as_on_the_cpu(
+        cuda, workload, version, params):
+    """Launches, flops and bytes do not depend on the device (a fused
+    chunk counted at its graph's capture on the card, in its loop on the
+    CPU), and the scores equal the host target's on the same device."""
+    from repro_torch.api import get_workload
+    n, f = (2048, 8) if workload != "emb" else (2048, 4)
+    if workload == "kmeans":
+        X, y = make_blobs(n, f, centers=4, seed=0)[0], None
+    elif workload == "dtree":
+        X, y = make_classification(n, f, seed=0, class_sep=1.4)
+    elif workload == "emb":
+        X, y = make_recsys(n, n_users=128, n_items=85, dim=f, seed=0)
+    else:
+        X, y, _ = make_linear_dataset(n, f, seed=0)
+    wl = get_workload(workload)
+    spec = wl.spec(version, **params)
+    out = {}
+    for device in ("cuda", "cpu"):
+        system = make_system("gpu-model", n_cores=4, device=device)
+        host = make_system("host", n_cores=4, device=device)
+        res = wl.fit(system.put(X, y), spec)
+        ref = wl.fit(host.put(X, y), spec)
+        assert wl.score(res, X, y) == wl.score(ref, X, y)
+        out[device] = dataclasses.asdict(system.gpu)
+    for key in ("launches", "flops", "hbm_bytes"):
+        assert out["cuda"][key] == out["cpu"][key], key
+    assert out["cuda"]["modeled_seconds"] == pytest.approx(
+        out["cpu"]["modeled_seconds"], rel=1e-12)

@@ -165,13 +165,11 @@ def test_cuda_device_raises_without_a_gpu():
     if torch.cuda.is_available():
         assert tapi.make_system("pim", n_cores=4).device.type == "cuda"
         return
-    for kind in ("pim", "host"):
+    for kind in ("pim", "host", "gpu-model"):
         with pytest.raises(RuntimeError, match="cuda"):
             tapi.make_system(kind, n_cores=4)
     with pytest.raises(RuntimeError, match="cuda"):
         tapi.make_estimator("linreg", version="int32")
-    with pytest.raises(ValueError):
-        tapi.make_system("gpu-model", device="cpu")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -215,6 +213,15 @@ def test_cli_runs_end_to_end_on_cpu(args):
     assert ("transfers:" in out.stdout) or ("traffic:" in out.stdout)
 
 
+def test_cli_runs_the_gpu_model_on_cpu():
+    out = _cli("--device", "cpu", "--samples", "1000", "--features", "13",
+               "--iters", "5", "--system", "gpu-model", "--versions",
+               "fp32")
+    assert out.returncode == 0, out.stderr
+    assert "traffic:" in out.stdout
+    assert "modeled A100:" in out.stdout and "over 5 launches" in out.stdout
+
+
 def test_cli_grows_a_tree_on_cpu():
     out = _cli("--device", "cpu", "--samples", "1000", "--workload",
                "dtree", "--cores", "7", "--param", "max_depth=4")
@@ -224,7 +231,6 @@ def test_cli_grows_a_tree_on_cpu():
 
 @pytest.mark.parametrize("args,needle", [
     (("--workload", "dtree", "--fuse-steps", "4"), "step fusion"),
-    (("--system", "gpu-model"), "invalid choice"),
     (("--workload", "dtree", "--iters", "3"), "does not apply"),
 ])
 def test_cli_refuses_what_is_not_ported(args, needle):
