@@ -218,6 +218,20 @@ LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
 LIN_VERSIONS = ("int32", "hyb", "fp32")
 LOG_VERSIONS = ("int32_lut_wram", "int32_lut_mram")
 
+#: phase 8: fx_matvec's lane counts against the plain version, the gangs'
+#: learning rates (an 8-point LIN sweep around the launcher's 0.1, a
+#: 4-point LOG one around its 5.0), the LOG lane cancelled after
+#: GANG_CANCEL_AT iterations, the chunked gang's fuse_steps, the slices'
+#: rank and width, and the iteration of the snapshots
+LANE_KS = (1, 2, 3, 8, 13)
+GANG_LIN_LRS = (0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5)
+GANG_LOG_LRS = (1.0, 2.0, 5.0, 10.0)
+GANG_CANCEL_AT, GANG_FUSE = 3, 5
+#: the gang timed untraced (False) and traced (True) in these turns
+TRACE_TURNS = (False, True, True, False) * 2
+SLICE_RANK, SLICE_CORES = 64, 1024
+SNAPSHOT_LIN_AT, SNAPSHOT_KME_AT = 5, 3
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -1525,6 +1539,315 @@ def compare_on_card(torch, dispatch, smi: str) -> dict:
     return counts
 
 
+def lane_kernel_on_card(torch, dispatch, rng, flush, smi: str) -> dict:
+    """Phase 8a: fx_matvec with lanes against its plain version at the
+    gang's shape for every LANE_KS and on full-range wrapping operands
+    over F = 13 (the scalar path); K = 1 and K = 8 timed beside their
+    declared bounds.  Returns the lane entries of the kernel table."""
+    from repro_torch.kernels.quant_matmul import (fx_matvec_cuda,
+                                                  fx_matvec_plain)
+
+    def ints(shape, lo, hi):
+        return torch.from_numpy(rng.randint(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).to("cuda")
+    n_pc = N_SAMPLES // N_CORES
+    x = ints((N_CORES, n_pc, N_FEATURES), -(16 << 10), 16 << 10)
+    wide = ints((1_000_003, 13), INT32_MIN, INT32_MAX)
+    err = 0
+    for k in LANE_KS:
+        for xs, ws in ((x, ints((k, N_FEATURES), -(4 << 10), 4 << 10)),
+                       (wide, ints((k, 13), INT32_MIN, INT32_MAX))):
+            out = fx_matvec_cuda(xs, ws, 10)
+            ref = fx_matvec_plain(xs, ws, 10)
+            err = max(err, same(torch, [out], [ref]))
+            del out, ref
+    say(f"lanes: fx_matvec == plain for K in {LANE_KS} at "
+        f"{tuple(x.shape)} and on full-range operands at "
+        f"{tuple(wide.shape)} (max abs err {err})")
+    out = {"lanes_max_abs_err": err}
+    for k in (1, 8):
+        w = ints((k, N_FEATURES), -(4 << 10), 4 << 10)
+        t = dict(ms=cuda_ms(torch, lambda: fx_matvec_cuda(x, w, 10), flush),
+                 plain_ms=cuda_ms(torch, lambda: fx_matvec_plain(x, w, 10),
+                                  flush))
+        t["bound_ms"], t["bound_by"] = declared_bound("fx_matvec", x, w, 10)
+        cost = dispatch.declared_cost("fx_matvec", x, w, 10)
+        say(f"timing: fx_matvec K={k} lanes at {tuple(x.shape)} "
+            f"{t['ms']:.4f} ms ({100 * t['bound_ms'] / t['ms']:.1f}% of "
+            f"the bound), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {cost.bytes:.4g} B, "
+            f"{cost.ops:.4g} int32 ops) on {smi}")
+        out[f"k{k}"] = t
+    return out
+
+
+def run_gang(torch, gang, per_step: bool = False) -> list:
+    """Step ``gang`` to its end; the wall seconds of each step (each
+    ending in a synchronize when ``per_step``, else one for the run)."""
+    times, t0 = [], time.perf_counter()
+    while not gang.done:
+        gang.step()
+        if per_step:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return times or [time.perf_counter() - t0]
+
+
+def gang_on_card(torch, dispatch, make_estimator, get_workload, system,
+                 lin_ds, log_ds, smi: str) -> dict:
+    """Phase 8b, e and f: the 8-point LIN int32 sweep through
+    FusedGdSweep (each lane bit-identical to a serial card fit; 10 map_*
+    launches and 10 fx_matvec launches against 80 for the serial fits);
+    the 4-point LOG int32_lut_wram sweep with lane 1 cancelled after
+    GANG_CANCEL_AT iterations; the LIN sweep at fuse_steps GANG_FUSE (two
+    chunk replays, equal to the unchunked gang); the LIN gang traced
+    (a valid Chrome trace, one map_reduce span a step); the per-step
+    seconds through StragglerMonitor."""
+    import tempfile
+
+    from repro_torch.obs import (TRACER, summarize, validate_chrome_trace,
+                                 write_chrome_trace)
+    from repro_torch.sched import FusedGdSweep
+    from repro_torch.train.fault_tolerance import StragglerMonitor
+    lin, log = get_workload("linreg"), get_workload("logreg")
+
+    def gang(wl, version, lrs, ds, **params):
+        return FusedGdSweep(wl, [wl.spec(version, lr=lr, n_iters=ITERS,
+                                         **params) for lr in lrs], ds)
+
+    def serial(workload, version, lrs, ds, n_iters=ITERS):
+        return [make_estimator(workload, version=version, lr=lr,
+                               n_iters=n_iters, system=system).fit(ds)
+                for lr in lrs]
+
+    run_gang(torch, gang(lin, "int32", GANG_LIN_LRS, lin_ds))   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dispatch.reset_launch_counts()
+    snap = system.stats.snapshot()
+    g = gang(lin, "int32", GANG_LIN_LRS, lin_ds)
+    dt = sum(run_gang(torch, g))
+    counts = dict(dispatch.launch_counts)
+    launches = system.stats.delta(snap).kernel_launches
+    peak = torch.cuda.max_memory_allocated() - base
+    dispatch.reset_launch_counts()
+    dt_serial, fits = timed(torch, lambda: serial("linreg", "int32",
+                                                  GANG_LIN_LRS, lin_ds))
+    serial_counts = dict(dispatch.launch_counts)
+    k = len(GANG_LIN_LRS)
+    say(f"gang: LIN int32 {k} lanes {dt / ITERS * 1e3:.3f} ms/iteration, "
+        f"the {k} serial fits {dt_serial / ITERS * 1e3:.3f} ms per "
+        f"iteration of all {k} ({dt_serial / dt:.2f}x); launch counts "
+        f"{counts} ({launches} map_* calls) against {serial_counts}; peak "
+        f"{peak / 2 ** 30:.2f} GiB above the resident data "
+        f"(torch.cuda.max_memory_allocated) at {N_SAMPLES}x{N_FEATURES} "
+        f"over {N_CORES} cores on {smi}")
+    if counts != {"fx_matvec": ITERS} or launches != ITERS \
+            or serial_counts != {"fx_matvec": k * ITERS}:
+        fail(f"gang: launch counts {counts}, {launches} launches, serial "
+             f"{serial_counts}")
+    for lane, est in enumerate(fits):
+        r = g.result(lane).model
+        if not (np.array_equal(r.w, est.coef_) and r.b == est.intercept_):
+            fail(f"gang: LIN lane {lane} differs from its serial card fit")
+    say(f"gang: every LIN lane == its serial card fit (lr {GANG_LIN_LRS})")
+
+    dispatch.reset_launch_counts()
+    lg = gang(log, "int32_lut_wram", GANG_LOG_LRS, log_ds)
+    while not lg.done:
+        lg.step()
+        if lg.it == GANG_CANCEL_AT:
+            lg.deactivate(1)
+    torch.cuda.synchronize()
+    log_counts = dict(dispatch.launch_counts)
+    if log_counts != {"fx_matvec": ITERS, "lut_sigmoid": ITERS}:
+        fail(f"gang: LOG launch counts {log_counts}")
+    frozen = serial("logreg", "int32_lut_wram", [GANG_LOG_LRS[1]], log_ds,
+                    n_iters=GANG_CANCEL_AT)[0]
+    if lg.result(1) is not None or not np.array_equal(
+            lg.lane_state(1)["arrays"]["w"], frozen.coef_):
+        fail("gang: the cancelled LOG lane did not freeze")
+    for lane, est in zip((0, 2, 3), serial(
+            "logreg", "int32_lut_wram",
+            [GANG_LOG_LRS[i] for i in (0, 2, 3)], log_ds)):
+        r = lg.result(lane).model
+        if not (np.array_equal(r.w, est.coef_) and r.b == est.intercept_):
+            fail(f"gang: LOG lane {lane} differs from its serial card fit")
+    say(f"gang: LOG int32_lut_wram {len(GANG_LOG_LRS)} lanes, lane 1 "
+        f"cancelled after iteration {GANG_CANCEL_AT}: frozen there, lanes "
+        f"0, 2, 3 == their serial card fits; launch counts {log_counts}")
+
+    dispatch.reset_launch_counts()
+    syncs = system.stats.host_syncs
+    fg = gang(lin, "int32", GANG_LIN_LRS, lin_ds, fuse_steps=GANG_FUSE)
+    dt_fused = sum(run_gang(torch, fg))
+    fused_counts = dict(dispatch.launch_counts)
+    replays = sum(dispatch.graph_replays.values())
+    chunks = system.stats.host_syncs - syncs
+    if fused_counts != counts or replays != chunks or chunks != -(
+            -ITERS // GANG_FUSE):
+        fail(f"gang fused: launch counts {fused_counts}, {replays} "
+             f"replays, {chunks} chunks")
+    for lane in range(k):
+        a, b = fg.result(lane).model, g.result(lane).model
+        if not (np.array_equal(a.w, b.w) and a.b == b.b):
+            fail(f"gang fused: lane {lane} differs from the unchunked gang")
+    say(f"gang: LIN at fuse_steps {GANG_FUSE}: {replays} chunk replays, "
+        f"every lane == the unchunked gang; {dt_fused / ITERS * 1e3:.3f} "
+        f"ms/iteration with its capture")
+
+    # untraced and traced gangs in turns (off, on, on, off, ...); the
+    # last traced gang's events are the trace
+    per_it = {False: [], True: []}
+    for traced in TRACE_TURNS:
+        TRACER.clear()
+        if traced:
+            TRACER.enable()
+        try:
+            tg = gang(lin, "int32", GANG_LIN_LRS, lin_ds)
+            per_it[traced].append(sum(run_gang(torch, tg)) / ITERS * 1e3)
+            if traced:
+                events = TRACER.events()
+        finally:
+            TRACER.disable()
+            TRACER.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = write_chrome_trace(events, str(Path(tmp) / "gang.json"))
+    validate_chrome_trace(doc)
+    name = f"map_reduce:{tg.kernel}"
+    spans = sum(1 for e in events if e["name"] == name)
+    if spans != ITERS:
+        fail(f"trace: {spans} {name!r} spans for {ITERS} gang steps")
+    say(f"trace: the LIN gang traced, a valid Chrome trace of "
+        f"{len(events)} events; per track " + json.dumps(summarize(doc))
+        + f"; {spans} {name!r} spans (one a step; a span times the "
+        f"enqueue); ms/iteration in turns, traced "
+        f"{' '.join(f'{t:.3f}' for t in per_it[True])}, untraced "
+        f"{' '.join(f'{t:.3f}' for t in per_it[False])}")
+
+    steps = run_gang(torch, gang(lin, "int32", GANG_LIN_LRS, lin_ds),
+                     per_step=True)
+    monitor = StragglerMonitor()
+    flags = [monitor.observe(t) for t in steps]
+    say(f"straggler: {monitor.flagged} of {len(steps)} gang steps flagged "
+        f"(steps {' '.join(f'{t * 1e3:.2f}' for t in steps)} ms, each "
+        f"ending in a synchronize; flags {flags})")
+    return {"gang_ms_per_iteration": dt / ITERS * 1e3,
+            "serial_ms_per_iteration": dt_serial / ITERS * 1e3,
+            "gang_traced_ms_per_iteration": per_it[True],
+            "gang_untraced_ms_per_iteration": per_it[False],
+            "gang_launches": counts["fx_matvec"],
+            "serial_launches": serial_counts["fx_matvec"],
+            "gang_peak_bytes": peak}
+
+
+def slices_on_card(torch, make_system, make_estimator, X, y, Xc, yc,
+                   smi: str) -> None:
+    """Phase 8c: two SLICE_CORES-core slices of an N_CORES-core machine
+    leased through BankAllocator; LIN int32 on one, LOG int32_lut_wram on
+    the other, each bit-identical to its fit on a standalone
+    SLICE_CORES-core system; the parent's TransferStats the sum of the
+    slices' deltas."""
+    import dataclasses as dc
+
+    from repro_torch.sched import BankAllocator
+    parent = make_system("pim", n_cores=N_CORES, device="cuda")
+    alloc = BankAllocator(N_CORES, rank_size=SLICE_RANK)
+    leases = [alloc.allocate(SLICE_CORES) for _ in range(2)]
+    deltas = []
+    for lease, (workload, version, Xw, yw) in zip(leases, (
+            ("linreg", "int32", X, y), ("logreg", "int32_lut_wram", Xc,
+                                        yc))):
+        sl = parent.slice(lease)
+        snap = sl.stats.snapshot()
+        t, got = timed(torch, lambda: make_estimator(
+            workload, version=version, n_iters=ITERS, system=sl).fit(
+                sl.put(Xw, yw)))
+        deltas.append(sl.stats.delta(snap))
+        alone = make_system("pim", n_cores=SLICE_CORES, device="cuda")
+        want = make_estimator(workload, version=version, n_iters=ITERS,
+                              system=alone).fit(alone.put(Xw, yw))
+        if not (np.array_equal(got.coef_, want.coef_)
+                and got.intercept_ == want.intercept_
+                and sl.stats.snapshot() == alone.stats.snapshot()):
+            fail(f"slices: {workload} {version} on cores [{lease.start}, "
+                 f"{lease.stop}) differs from a standalone system")
+        say(f"slices: {workload} {version} on cores [{lease.start}, "
+            f"{lease.stop}) (ranks {lease.ranks[0]}-{lease.ranks[-1]}) == "
+            f"a standalone {SLICE_CORES}-core system, weights and "
+            f"TransferStats; {t:.2f} s with the put")
+    for f in dc.fields(parent.stats):
+        if getattr(parent.stats, f.name) != sum(getattr(d, f.name)
+                                                 for d in deltas):
+            fail(f"slices: parent {f.name} is not the slices' sum")
+    say(f"slices: the parent's TransferStats == the sum of the slices' "
+        f"deltas: {parent.stats}")
+    say(f"slices: occupied {alloc.fragmentation()}")
+    for lease in leases:
+        alloc.release(lease)
+    say(f"slices: released {alloc.fragmentation()} on {smi}")
+
+
+def elastic_on_card(torch, dispatch, get_workload, system, lin_ds, kme_ds,
+                    lin_ref, kme_ref, smi: str) -> None:
+    """Phase 8d: LIN int32 snapshotted at iteration SNAPSHOT_LIN_AT and
+    KME int16 after SNAPSHOT_KME_AT iterations (its MT19937 state in the
+    snapshot) through elastic.save_snapshot, resumed through
+    fit_steps(state=load_snapshot(...)[0]): each bit-identical to its
+    uninterrupted phase-4 fit."""
+    import tempfile
+
+    from repro_torch.elastic import load_snapshot, save_snapshot
+    cases = (("linreg", lin_ds, SNAPSHOT_LIN_AT,
+              get_workload("linreg").spec("int32", n_iters=ITERS)),
+             ("kmeans", kme_ds, SNAPSHOT_KME_AT,
+              get_workload("kmeans").spec(
+                  "int16", n_clusters=KME_K, n_init=1, max_iter=ITERS,
+                  tol=0.0)))
+    for workload, ds, at, spec in cases:
+        wl = get_workload(workload)
+        gen = wl.fit_steps(ds, spec)
+        for _ in range(at):
+            tick = next(gen)
+        snap = tick.snapshot()
+        gen.close()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = save_snapshot(tmp, snap, envelope={
+                "workload": workload, "version": spec.version,
+                "system_kind": system.kind,
+                "iters": snap["meta"]["iters"]})
+            state, envelope = load_snapshot(tmp)
+        dispatch.reset_launch_counts()
+        gen = wl.fit_steps(ds, spec, state=state)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                res = stop.value
+                break
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launch_counts)
+        if workload == "linreg":
+            ok = (np.array_equal(res.attributes["coef_"], lin_ref[0])
+                  and res.attributes["intercept_"] == lin_ref[1])
+        else:
+            ok = ("rng_mt_keys" in state["arrays"] and np.array_equal(
+                res.attributes["cluster_centers_"],
+                kme_ref.cluster_centers_)
+                and np.array_equal(res.attributes["labels_"],
+                                   kme_ref.labels_))
+        if not ok:
+            fail(f"elastic: the resumed {workload} fit differs from the "
+                 f"uninterrupted one")
+        say(f"elastic: {workload} {spec.version} snapshotted at iteration "
+            f"{snap['meta']['iters']} ({Path(path).name}, "
+            f"{len(state['arrays'])} arrays: {sorted(state['arrays'])}), "
+            f"resumed == uninterrupted; launch counts of the resumed part "
+            f"{counts} on {smi}")
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -1990,6 +2313,19 @@ def main() -> int:
     compare_counts = compare_on_card(torch, dispatch, smi)
     say(f"compare: phase 7 in {time.perf_counter() - t0:.1f} s on {smi}")
 
+    # -- 8. orchestration: lanes, the fused gang, slices, elastic, trace ----
+    t0 = time.perf_counter()
+    flush = L2Flush(torch)
+    lanes = lane_kernel_on_card(torch, dispatch, rng, flush, smi)
+    del flush
+    lanes.update(gang_on_card(torch, dispatch, make_estimator, get_workload,
+                              system, lin_ds, log_ds, smi))
+    slices_on_card(torch, make_system, make_estimator, X, y, Xc, yc, smi)
+    elastic_on_card(torch, dispatch, get_workload, system, lin_ds, kme_ds,
+                    results["cuda", "int32"], kme["int16"], smi)
+    say(f"orchestration: phase 8 in {time.perf_counter() - t0:.1f} s on "
+        f"{smi}")
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -1997,7 +2333,7 @@ def main() -> int:
          "launches": counts["fx_matvec"], "max_abs_err": err_fx,
          "ms": fx["ms"], "plain_ms": fx["plain_ms"],
          "bound_ms": fx["bound_ms"], "bound_by": fx["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "lanes": lanes},
         {"name": "lut_sigmoid", "route": "cuda",
          "source": "src/repro_torch/csrc/lut_sigmoid.cu",
          "replaces": "src/repro/kernels/lut_activation/kernel.py:37",

@@ -20,6 +20,7 @@ from ..core.fixed_point import to_fixed
 # 12-bit symmetric range stored in int16; single source of truth in
 # core/kmeans.py
 from ..core.kmeans import QUANT_RANGE as KMEANS_QUANT_RANGE
+from ..obs.trace import TRACER
 
 _GD_DATA_VERSION = {
     "fp32": "fp32", "int32": "int32", "hyb": "hyb", "bui": "hyb",
@@ -63,7 +64,13 @@ class PimDataset:
     def _cached(self, key: tuple, builder):
         view = self._views.get(key)
         if view is None:
-            view = self._views[key] = builder()
+            if TRACER.enabled:
+                track = getattr(self.system, "_trace_track", "system:?")
+                with TRACER.span(f"shard:{key[0]}", track, "transfer"):
+                    view = builder()
+            else:
+                view = builder()
+            self._views[key] = view
         return view
 
     @property

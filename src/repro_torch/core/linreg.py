@@ -78,33 +78,60 @@ class GdResult:
 
 # ---------------------------------------------------------------------------
 # Per-core kernels, batched over the leading cores axis: shards are
-# [C, n, F] / [C, n], partials come back [C, F] / [C].
+# [C, n, F] / [C, n], partials come back [C, F] / [C].  Given lane weights
+# w [K, F] and b [K] (K models over the same shards: the fused sweep of
+# sched/gang.py), the same kernels give [C, K, F] / [C, K], each lane
+# what the serial kernel gives for that lane's weights.
 # ---------------------------------------------------------------------------
 
+def lane_rows(w: torch.Tensor, *rows: torch.Tensor) -> tuple:
+    """Per-row operands (targets, mask: ``[C, n]``) as the kernel needs
+    them for ``w``: unchanged for one model ``[F]``, ``[C, n, 1]`` for
+    lane weights ``[K, F]``, so that the errors come out ``[C, n, K]``."""
+    if w.dim() == 2:
+        return tuple(r.unsqueeze(-1) for r in rows)
+    return rows
+
+
+def _matvec(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-core ``X @ w``: [C, n, F] @ [F] -> [C, n]; lanes -> [C, n, K]."""
+    return torch.matmul(X, w.T if w.dim() == 2 else w)
+
+
 def _xt_err(X: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
-    """Per-core ``X.T @ err``: [C, n, F], [C, n] -> [C, F]."""
+    """Per-core ``X.T @ err``: [C, n, F], [C, n] -> [C, F]; lane errors
+    [C, n, K] -> [C, K, F]."""
+    if err.dim() == X.dim():
+        return torch.matmul(err.transpose(-1, -2), X)
     return torch.matmul(err.unsqueeze(-2), X).squeeze(-2)
 
 
 def _local_grad_fp32(Xc, yc, mask, w, b):
-    pred = torch.matmul(Xc, w) + b
-    err = (pred - yc) * mask
-    return {"gw": _xt_err(Xc, err), "gb": err.sum(-1)}
+    yc, mask = lane_rows(w, yc, mask)
+    err = (_matvec(Xc, w) + b - yc) * mask
+    return {"gw": _xt_err(Xc, err), "gb": err.sum(1)}
 
 
 def int_grad(Xq: torch.Tensor, err: torch.Tensor, shift: int) -> dict:
-    """Per-core fixed-point gradient sums, kept int32 like ``jnp.sum``."""
-    prod = err.unsqueeze(-1) * Xq.to(torch.int32)
-    return {"gw": torch.sum(_shift_round(prod, shift), dim=-2,
+    """Per-core fixed-point gradient sums over the rows, kept int32 like
+    ``jnp.sum``: errors [C, n] give [C, F] / [C], lane errors [C, n, K]
+    give [C, K, F] / [C, K] (a [C, n, K, F] product)."""
+    x = Xq.to(torch.int32)
+    if err.dim() == x.dim():                  # lanes
+        x = x.unsqueeze(-2)
+    prod = err.unsqueeze(-1) * x
+    return {"gw": torch.sum(_shift_round(prod, shift), dim=1,
                             dtype=torch.int32),
-            "gb": torch.sum(err, dim=-1, dtype=torch.int32)}
+            "gb": torch.sum(err, dim=1, dtype=torch.int32)}
 
 
 def make_local_grad_int32(frac_bits: int):
     def _local(Xq, yq, mask, wq, bq):
-        # the Q-format matvec: the fx_matvec kernel on a CUDA device
+        # the Q-format matvec: the fx_matvec kernel on a CUDA device, one
+        # launch for every lane
         dot = dispatch.launch("fx_matvec", Xq.contiguous(), wq,
                               frac_bits) + bq             # Q(f)
+        yq, mask = lane_rows(wq, yq, mask)
         err = (dot - yq) * mask                           # Q(f)
         return int_grad(Xq, err, frac_bits)
     return _local
@@ -112,8 +139,10 @@ def make_local_grad_int32(frac_bits: int):
 
 def make_local_grad_hyb(x8_frac: int, w16_frac: int, out_frac: int):
     def _local(Xq8, yq, mask, wq16, bq):
+        xq8 = Xq8.unsqueeze(-2) if wq16.dim() == 2 else Xq8
+        yq, mask = lane_rows(wq16, yq, mask)
         # 16-bit saturating dot product (the paper's stated precision)
-        dot = fx_dot_hybrid(Xq8, wq16, x8_frac, w16_frac, out_frac) + bq
+        dot = fx_dot_hybrid(xq8, wq16, x8_frac, w16_frac, out_frac) + bq
         err = (dot - yq) * mask                           # Q(out_frac)
         return int_grad(Xq8, err, x8_frac)
     return _local

@@ -25,8 +25,8 @@ import torch
 from ..kernels import dispatch
 from ..systems import ChunkPipeline, ChunkTick, System, run_steps
 from .fixed_point import _shift_round, fx_dot_hybrid
-from .linreg import (GdConfig, GdResult, _xt_err, carry_snapshot,
-                     gd_boundaries, initial_carry, int_grad,
+from .linreg import (GdConfig, GdResult, _matvec, _xt_err, carry_snapshot,
+                     gd_boundaries, initial_carry, int_grad, lane_rows,
                      make_gd_step_fns)
 from .lut import SigmoidLut, build_sigmoid_lut, taylor_sigmoid_fixed
 
@@ -66,7 +66,9 @@ def _gd_version_of(version: str) -> str:
 
 def make_local_grad(cfg: LogRegConfig, lut: Optional[SigmoidLut],
                     exact_sigmoid: bool = False) -> Callable:
-    """The batched per-core kernel for the configured version.
+    """The batched per-core kernel for the configured version (with lane
+    weights ``[K, F]`` it computes every lane, as ``linreg``'s kernels
+    do).
 
     ``exact_sigmoid`` selects the native fp32 sigmoid a processor-centric
     system provides (the paper's MKL baseline, §5.4) instead of the DPU
@@ -79,14 +81,16 @@ def make_local_grad(cfg: LogRegConfig, lut: Optional[SigmoidLut],
             terms = cfg.taylor_terms
 
             def _local_fp32_taylor(Xc, yc, mask, w, b):
-                p = _sigmoid_taylor_f32(torch.matmul(Xc, w) + b, terms)
+                yc, mask = lane_rows(w, yc, mask)
+                p = _sigmoid_taylor_f32(_matvec(Xc, w) + b, terms)
                 err = (p - yc) * mask
-                return {"gw": _xt_err(Xc, err), "gb": err.sum(-1)}
+                return {"gw": _xt_err(Xc, err), "gb": err.sum(1)}
             return _local_fp32_taylor
 
         def _local_fp32_exact(Xc, yc, mask, w, b):
-            err = (torch.sigmoid(torch.matmul(Xc, w) + b) - yc) * mask
-            return {"gw": _xt_err(Xc, err), "gb": err.sum(-1)}
+            yc, mask = lane_rows(w, yc, mask)
+            err = (torch.sigmoid(_matvec(Xc, w) + b) - yc) * mask
+            return {"gw": _xt_err(Xc, err), "gb": err.sum(1)}
         return _local_fp32_exact
 
     if cfg.version == "int32":
@@ -95,6 +99,7 @@ def make_local_grad(cfg: LogRegConfig, lut: Optional[SigmoidLut],
         def _local_int32_taylor(Xq, yq, mask, wq, bq):
             z = dispatch.launch("fx_matvec", Xq.contiguous(), wq, f) + bq
             p = taylor_sigmoid_fixed(z, f, terms=terms)      # Q(f)
+            yq, mask = lane_rows(wq, yq, mask)
             return int_grad(Xq, (p - yq) * mask, f)
         return _local_int32_taylor
 
@@ -107,6 +112,7 @@ def make_local_grad(cfg: LogRegConfig, lut: Optional[SigmoidLut],
             p15 = dispatch.launch("lut_sigmoid", z, lut,
                                   placement=placement)     # Q(value_frac)
             p = _shift_round(p15, lut.value_frac - f)      # -> Q(f)
+            yq, mask = lane_rows(wq, yq, mask)
             return int_grad(Xq, (p - yq) * mask, f)
         return _local_int32_lut
 
@@ -116,7 +122,9 @@ def make_local_grad(cfg: LogRegConfig, lut: Optional[SigmoidLut],
     x8, w16 = cfg.x8_frac, cfg.w16_frac
 
     def _local_hyb_lut(Xq8, yq, mask, wq16, bq):
-        z = fx_dot_hybrid(Xq8, wq16, x8, w16, f) + bq      # Q(f), 16-bit acc
+        xq8 = Xq8.unsqueeze(-2) if wq16.dim() == 2 else Xq8
+        yq, mask = lane_rows(wq16, yq, mask)
+        z = fx_dot_hybrid(xq8, wq16, x8, w16, f) + bq      # Q(f), 16-bit acc
         p15 = dispatch.launch("lut_sigmoid", z, lut, placement=placement)
         p = _shift_round(p15, lut.value_frac - f)
         return int_grad(Xq8, (p - yq) * mask, x8)
@@ -133,17 +141,24 @@ def grad_kernel_name(cfg: LogRegConfig, exact_sigmoid: bool = False) -> str:
             f".lb{cfg.lut_boundary}.lf{cfg.lut_frac_bits}")
 
 
+def build_local_grad(cfg: LogRegConfig, device: torch.device,
+                     exact_sigmoid: bool = False) -> Callable:
+    """The per-core kernel for ``cfg.version`` with its LUT built on
+    ``device`` (unregistered): shared by the serial trainer and the fused
+    gang step (``sched/gang.py``)."""
+    lut = (build_sigmoid_lut(cfg.lut_boundary, cfg.lut_frac_bits,
+                             device=device)
+           if "lut" in cfg.version else None)
+    return make_local_grad(cfg, lut, exact_sigmoid)
+
+
 def _grad_kernel(system: System, cfg: LogRegConfig) -> str:
     """Named per-core kernel; the LUT is built once, on the system's
     device, inside the builder."""
     exact = cfg.version == "fp32" and system.exact_transcendentals
-
-    def builder():
-        lut = (build_sigmoid_lut(cfg.lut_boundary, cfg.lut_frac_bits,
-                                 device=system.device)
-               if "lut" in cfg.version else None)
-        return make_local_grad(cfg, lut, exact)
-    return system.named_kernel(grad_kernel_name(cfg, exact), builder)
+    return system.named_kernel(
+        grad_kernel_name(cfg, exact),
+        lambda: build_local_grad(cfg, system.device, exact))
 
 
 def fit_steps(dataset, cfg: Optional[LogRegConfig] = None,

@@ -4,7 +4,10 @@
 ``[..., F]`` · int32 ``[F]`` -> int32 ``[...]``, each product rounded
 back to Q(f) by ``(p + 2^(f-1)) >> f`` before the int32 sum.  The
 trainers pass the cores' shards ``[C, n_pc, F]`` whole, so one launch
-covers every core.
+covers every core.  With lanes, ``w_q`` int32 ``[K, F]`` (K models over
+the same rows: the fused learning-rate sweep, ``sched/gang.py``) gives
+int32 ``[..., K]``, each lane the same sum; one launch reads x once for
+all K lanes, where the reference vmaps its Pallas kernel over the lanes.
 
 ``dispatch.launch("int_matmul", a_q, b_q)``: int8 ``[M, K]`` @ int8
 ``[K, N]`` -> int32 ``[M, N]``, exact (``|sum| <= K * 128**2 < 2**31`` for
@@ -38,12 +41,15 @@ from ..core.fixed_point import fx_dot
 from ..core.quantization import symmetric_quantize
 from . import build, dispatch
 
-#: w is staged in the kernel's (static-limit) shared memory
+#: w (all K lanes of it) is staged in the kernel's (static-limit) shared
+#: memory: K * F <= MAX_FEATURES
 MAX_FEATURES = 48 * 1024 // 4
 
 
 def fx_matvec_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                     frac_bits: int) -> torch.Tensor:
+    if w_q.dim() == 2:         # lanes: [..., 1, F] against [K, F]
+        return fx_dot(x_q.unsqueeze(-2), w_q, frac_bits)
     return fx_dot(x_q, w_q, frac_bits)
 
 
@@ -54,6 +60,11 @@ def _bind() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fx_matvec_lanes_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -68,26 +79,36 @@ def fx_matvec_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     if x_q.dtype != torch.int32 or w_q.dtype != torch.int32:
         raise TypeError(f"fx_matvec_cuda: int32 operands required, got "
                         f"{x_q.dtype} and {w_q.dtype}")
-    if x_q.dim() < 1 or w_q.shape != (x_q.shape[-1],):
+    lanes = w_q.dim() == 2
+    if (x_q.dim() < 1 or w_q.dim() not in (1, 2)
+            or w_q.shape[-1] != x_q.shape[-1]):
         raise ValueError(f"fx_matvec_cuda: shapes {tuple(x_q.shape)} and "
-                         f"{tuple(w_q.shape)} do not form [..., F] . [F]")
+                         f"{tuple(w_q.shape)} do not form [..., F] . [F] or "
+                         f"[..., F] . [K, F]")
     if not (x_q.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("fx_matvec_cuda: operands must be contiguous")
     f_dim = x_q.shape[-1]
-    if not (0 <= frac_bits < 32 and f_dim <= MAX_FEATURES):
+    k = w_q.shape[0] if lanes else 1
+    if not (0 <= frac_bits < 32 and k * f_dim <= MAX_FEATURES):
         raise ValueError(f"fx_matvec_cuda: frac_bits={frac_bits} or "
-                         f"F={f_dim} out of range")
-    out = torch.empty(x_q.shape[:-1], dtype=torch.int32, device=x_q.device)
-    n = out.numel()
-    if n == 0:
+                         f"K={k} x F={f_dim} out of range")
+    out = torch.empty(x_q.shape[:-1] + ((k,) if lanes else ()),
+                      dtype=torch.int32, device=x_q.device)
+    if out.numel() == 0:
         return out
+    n = out.numel() // k               # rows of x
     lib = _bind()
     vec = int(f_dim % 4 == 0 and x_q.data_ptr() % 16 == 0)
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fx_matvec_launch(x_q.data_ptr(), w_q.data_ptr(),
-                                   out.data_ptr(), n, f_dim, frac_bits, vec,
-                                   stream)
+        if k == 1:                     # [F] or one lane: the row kernel
+            err = lib.fx_matvec_launch(x_q.data_ptr(), w_q.data_ptr(),
+                                       out.data_ptr(), n, f_dim, frac_bits,
+                                       vec, stream)
+        else:
+            err = lib.fx_matvec_lanes_launch(
+                x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), n, f_dim, k,
+                frac_bits, vec, stream)
     if err:
         raise RuntimeError(f"fx_matvec kernel launch failed: CUDA error "
                            f"{err}")
@@ -97,14 +118,15 @@ def fx_matvec_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
 
 def fx_matvec_cost(x_q: torch.Tensor, w_q: torch.Tensor,
                    frac_bits: int) -> dispatch.KernelCost:
-    """x and w read, the int32 ``[...]`` result written; four int32
-    operations an element of x, as ``PERF.md`` section 6 counts the
-    bound."""
+    """x and w read once, the int32 ``[...]`` (``[..., K]``) result
+    written; four int32 operations an element of x per lane, as
+    ``PERF.md`` section 6 counts the bound."""
     n = x_q.numel() // max(1, x_q.shape[-1])
+    k = w_q.shape[0] if w_q.dim() == 2 else 1
     return dispatch.KernelCost(
-        ops=4 * x_q.numel(),
+        ops=4 * x_q.numel() * k,
         bytes=x_q.numel() * x_q.element_size()
-        + w_q.numel() * w_q.element_size() + n * 4,
+        + w_q.numel() * w_q.element_size() + n * k * 4,
         rate="int32")
 
 

@@ -15,8 +15,9 @@ from .base import (ChunkBoundary, ChunkPipeline, ChunkTick, FabricReduce,
                    StepProgram, System, TransferStats, chunk_schedule,
                    host_array, resolve_reduce_strategy, run_steps)
 from .compress import CompressedReduce
-from .gpu_model import GpuModelConfig, GpuModelReport, ModeledGpuSystem
-from .host import HostConfig, HostSystem
+from .gpu_model import (GpuModelConfig, GpuModelReport, GpuModelSlice,
+                        ModeledGpuSystem)
+from .host import HostConfig, HostSlice, HostSystem
 from .pim import (DPU_FREQ_HZ, DPU_MRAM_BYTES_PER_CYCLE, DPU_OP_CYCLES,
                   DPU_PIPELINE_SATURATION_THREADS, WORKLOAD_STORAGE_DTYPE,
                   DpuCostModel, PimConfig, PimSystem,
@@ -55,9 +56,10 @@ __all__ = [
     "DPU_MRAM_BYTES", "DPU_MRAM_BYTES_PER_CYCLE", "DPU_OP_CYCLES",
     "DPU_PIPELINE_SATURATION_THREADS", "DPU_WRAM_BYTES", "DpuCostModel",
     "ExtentFootprint", "FabricReduce", "GpuModelConfig", "GpuModelReport",
-    "HierarchicalCostModel", "HierarchicalReduce", "HostConfig",
-    "HostReduce", "HostSystem", "ModeledGpuSystem", "PimConfig",
-    "PimSystem", "PimTopology", "ReduceStrategy", "ReduceVia",
+    "GpuModelSlice", "HierarchicalCostModel", "HierarchicalReduce",
+    "HostConfig", "HostReduce", "HostSlice", "HostSystem",
+    "ModeledGpuSystem", "PimConfig", "PimSystem", "PimTopology",
+    "ReduceStrategy", "ReduceVia",
     "SYSTEM_KINDS", "StepProgram", "System", "TransferStats",
     "WORKLOAD_STORAGE_DTYPE", "chunk_schedule", "default_rank_size",
     "host_array", "make_system", "resolve_reduce_strategy", "run_steps",

@@ -29,10 +29,13 @@ import collections
 import contextlib
 import dataclasses
 import enum
+import threading
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from ..obs.trace import NULL_SPAN, TRACER
 
 
 class ReduceVia(enum.Enum):
@@ -74,15 +77,77 @@ class TransferStats:
     flush_bytes: int = 0
     compressed_bytes: int = 0
 
+    def reset(self) -> None:
+        for field in dataclasses.fields(TransferStats):
+            setattr(self, field.name, 0)
+
     def snapshot(self) -> "TransferStats":
-        """Point-in-time copy of every counter."""
-        return dataclasses.replace(self)
+        """Point-in-time copy of every counter (a plain TransferStats),
+        taken under the mirroring lock so that a reading never sees a
+        slice's increment half-propagated to its parent."""
+        with _STATS_LOCK:
+            return TransferStats(
+                **{f.name: getattr(self, f.name)
+                   for f in dataclasses.fields(TransferStats)})
 
     def delta(self, snapshot: "TransferStats") -> "TransferStats":
         """Counters accumulated since ``snapshot`` was taken."""
         return TransferStats(
             **{f.name: getattr(self, f.name) - getattr(snapshot, f.name)
                for f in dataclasses.fields(TransferStats)})
+
+
+_STAT_FIELDS = tuple(f.name for f in dataclasses.fields(TransferStats))
+
+#: Serializes _MirrorStats increment mirroring against snapshot readings
+#: on other threads.  Reentrant because a mirror's parent can itself be a
+#: mirror (a slice of a slice).
+_STATS_LOCK = threading.RLock()
+
+
+class _MirrorStats(TransferStats):
+    """Slice-local counters that forward every *increment* to the parent
+    system's stats.  ``reset()`` zeroes only the slice view: the parent's
+    cumulative totals are never rolled back (only positive deltas
+    mirror)."""
+
+    def __init__(self, parent: TransferStats):
+        object.__setattr__(self, "_parent", parent)
+        super().__init__()
+
+    def __setattr__(self, name, value):
+        if name in _STAT_FIELDS:
+            with _STATS_LOCK:
+                delta = value - getattr(self, name, 0)
+                if delta > 0:
+                    setattr(self._parent, name,
+                            getattr(self._parent, name) + delta)
+                object.__setattr__(self, name, value)
+            return
+        object.__setattr__(self, name, value)
+
+
+def check_lease_bounds(parent: "System", lease, unit: str = "cores") -> None:
+    """Reject a lease extending past the parent's capacity (shared by
+    every slice type: PimSlice, HostSlice, GpuModelSlice)."""
+    if lease.stop > parent.config.n_cores:
+        raise ValueError(f"lease {lease} exceeds the parent system "
+                         f"({parent.config.n_cores} {unit})")
+
+
+def adopt_parent_session(slice_: "System", parent: "System") -> None:
+    """Wire a slice to its parent's session state: mirrored stats and the
+    shared kernel registry (one kernel object serves every tenant).
+
+    The reference also shares its jit cache.  The port's counterpart,
+    ``_step_cache``, holds CUDA graphs that read the shards at the
+    addresses they were captured on, and a dataset belongs to one slice,
+    so no graph of one slice could serve another; each slice keeps its
+    own, so that one slice's fit releasing its program's graphs
+    (``StepProgram.release``) never drops another slice's."""
+    slice_.stats = _MirrorStats(parent.stats)
+    slice_._kernels = parent._kernels
+    slice_._kernel_gen = parent._kernel_gen
 
 
 def run_steps(gen):
@@ -423,6 +488,21 @@ class System:
         #: StepProgram's per-system cache: one step's reduce shapes and
         #: the captured chunk graphs (see StepProgram)
         self._step_cache: dict = {}
+        #: trace timeline for this system's kernel launches (precomputed
+        #: so that the hot path never builds the string)
+        self._trace_track = f"system:{self.kind}"
+
+    def _launch_span(self, op: str, kkey):
+        """Span covering one launch on the system's trace track: on a
+        card, the enqueue of its kernels (no span synchronizes).
+
+        The overhead contract (``obs/trace.py``): with tracing off this
+        returns the shared no-op before any span *name* is built."""
+        if not TRACER.enabled:
+            return NULL_SPAN
+        name = (kkey[1] if kkey[0] == "named"
+                else getattr(kkey[1], "__name__", "fn"))
+        return TRACER.span(f"{op}:{name}", self._trace_track, "launch")
 
     @property
     def n_shards(self) -> int:
@@ -567,11 +647,13 @@ class System:
         self.stats.kernel_launches += 1
         self.stats.host_syncs += 1
         self._charge_launch_operands(sharded, replicated)
-        out = self._launch(
-            ("map_reduce", self._kernel_key(kernel), len(sharded),
-             len(replicated), strat.cache_token()),
-            lambda: strat.device_reduce(fn(*sharded, *replicated)),
-            (sharded, replicated))
+        kkey = self._kernel_key(kernel)
+        with self._launch_span("map_reduce", kkey):
+            out = self._launch(
+                ("map_reduce", kkey, len(sharded), len(replicated),
+                 strat.cache_token()),
+                lambda: strat.device_reduce(fn(*sharded, *replicated)),
+                (sharded, replicated))
         self._charge_reduce(strat, out)
         return strat.finalize(self, out)
 
@@ -590,9 +672,11 @@ class System:
         def run():
             partials = fn(*sharded, *replicated)
             return {k: ops[reduce[k]](v) for k, v in partials.items()}
-        out = self._launch(
-            ("custom", self._kernel_key(kernel), tuple(sorted(
-                reduce.items()))), run, (sharded, replicated))
+        kkey = self._kernel_key(kernel)
+        with self._launch_span("custom", kkey):
+            out = self._launch(
+                ("custom", kkey, tuple(sorted(reduce.items()))), run,
+                (sharded, replicated))
         self._charge_reduce_custom(out)
         return out
 
@@ -602,9 +686,11 @@ class System:
         fn = self._resolve_kernel(kernel)
         self.stats.kernel_launches += 1
         self._charge_elementwise(sharded, replicated)
-        return self._launch(("elem", self._kernel_key(kernel)),
-                            lambda: fn(*sharded, *replicated),
-                            (sharded, replicated))
+        kkey = self._kernel_key(kernel)
+        with self._launch_span("elem", kkey):
+            return self._launch(("elem", kkey),
+                                lambda: fn(*sharded, *replicated),
+                                (sharded, replicated))
 
     def step_program(self, kernel, prepare: Callable, update: Callable,
                      *, name: str, strategy: StrategyLike = None,
@@ -621,6 +707,14 @@ class System:
         return StepProgram(self, kernel, prepare, update, name=name,
                            strategy=strategy, select=select,
                            shipped=shipped)
+
+    # -- multi-tenancy -------------------------------------------------------
+
+    def slice(self, lease) -> "System":
+        """Execution view scoped to a :class:`~repro_torch.sched.allocator.
+        BankLease`: the surface the job scheduler runs tenants on."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support scheduling slices")
 
 
 def _stack(outs: list):
@@ -742,8 +836,11 @@ class StepProgram:
         else:
             def run():
                 return self.steps(carry_in, sharded, xs, k)
-        carry, outs = self.system._launch(self.price_key(k, xs), run,
-                                          (carry_in, sharded, xs))
+        span = (TRACER.span(f"chunk:{self.name}", self.system._trace_track,
+                            "launch", k=k) if TRACER.enabled else NULL_SPAN)
+        with span:
+            carry, outs = self.system._launch(self.price_key(k, xs), run,
+                                              (carry_in, sharded, xs))
         reduced = self.system._step_cache[
             self._key("reduce", _signature((carry_in, sharded)))]
         self.system._charge_chunk(carry_in, sharded, reduced,

@@ -60,7 +60,7 @@ from torch.utils.flop_counter import flop_registry
 
 from ..kernels import dispatch
 from ..launch.roofline import GpuRoofline, a100
-from .base import _leaves
+from .base import _leaves, adopt_parent_session, check_lease_bounds
 from .host import HostConfig, HostSystem
 
 _aten = torch.ops.aten
@@ -205,6 +205,38 @@ class GpuModelReport:
                for f in dataclasses.fields(GpuModelReport)})
 
 
+_REPORT_FIELDS = tuple(f.name for f in
+                       dataclasses.fields(GpuModelReport))
+
+
+class _MirrorGpuReport(GpuModelReport):
+    """Slice-local roofline ledger that forwards every *increment* to the
+    parent system's ``gpu`` report (the ``_MirrorStats`` pattern of
+    systems/base.py), so a job queue's global totals accumulate in one
+    place while each slice's ``snapshot()/delta()`` stays per job."""
+
+    def __init__(self, parent: GpuModelReport):
+        object.__setattr__(self, "_parent", parent)
+        super().__init__()
+
+    def __setattr__(self, name, value):
+        if name in _REPORT_FIELDS:
+            delta = value - getattr(self, name, 0)
+            if delta > 0:
+                setattr(self._parent, name,
+                        getattr(self._parent, name) + delta)
+        object.__setattr__(self, name, value)
+
+    def snapshot(self) -> GpuModelReport:
+        # a plain value snapshot: dataclasses.replace would construct
+        # another mirror, whose __init__ wants a parent
+        return GpuModelReport(**{f: getattr(self, f)
+                                 for f in _REPORT_FIELDS})
+
+    def delta(self, snapshot: GpuModelReport) -> GpuModelReport:
+        return self.snapshot().delta(snapshot)
+
+
 class ModeledGpuSystem(HostSystem):
     """Host execution on the caller's device whose time and energy report
     is an A100 roofline."""
@@ -245,3 +277,26 @@ class ModeledGpuSystem(HostSystem):
         self.gpu.modeled_seconds += seconds
         self.gpu.modeled_energy_j += self.roofline.kernel_energy_j(seconds)
         return out
+
+    # -- multi-tenancy -------------------------------------------------------
+
+    def slice(self, lease) -> "ModeledGpuSystem":
+        return GpuModelSlice(self, lease)
+
+
+class GpuModelSlice(ModeledGpuSystem):
+    """Lane-scoped view of a parent ModeledGpuSystem: the shared kernel
+    registry and cost cache, mirrored TransferStats, and a slice-local
+    :class:`_MirrorGpuReport` whose increments forward to the parent's
+    ``gpu``, so ``slice.gpu.snapshot()/delta()`` gives one job's modeled
+    seconds in a mixed queue."""
+
+    def __init__(self, parent: ModeledGpuSystem, lease):
+        check_lease_bounds(parent, lease, "lanes")
+        self.parent = parent
+        self.lease = lease
+        super().__init__(dataclasses.replace(parent.config,
+                                             n_cores=lease.n_cores))
+        adopt_parent_session(self, parent)
+        self.gpu = _MirrorGpuReport(parent.gpu)
+        self._cost_cache = parent._cost_cache

@@ -22,7 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from .base import System, _tree_bytes
+from .base import (System, _tree_bytes, adopt_parent_session,
+                   check_lease_bounds)
 
 
 @dataclasses.dataclass
@@ -96,3 +97,26 @@ class HostSystem(System):
 
     def _charge_chunk_boundary(self, carry, outs) -> None:
         pass
+
+    # -- multi-tenancy -------------------------------------------------------
+
+    def slice(self, lease) -> "HostSystem":
+        return HostSlice(self, lease)
+
+
+class HostSlice(HostSystem):
+    """A lane-scoped accounting view of a parent :class:`HostSystem`.
+
+    A host target has no core axis to carve, so a lease degrades to a
+    grant of thread-pool lanes: the slice shares the parent's kernel
+    registry, executes identically over the single resident image, and
+    mirrors its ``TransferStats`` into the parent's, so per-job deltas
+    stay attributable."""
+
+    def __init__(self, parent: HostSystem, lease):
+        check_lease_bounds(parent, lease, "lanes")
+        self.parent = parent
+        self.lease = lease
+        super().__init__(dataclasses.replace(parent.config,
+                                             n_cores=lease.n_cores))
+        adopt_parent_session(self, parent)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.quantization import storage_bytes
+from ..obs.trace import TRACER
 from .base import System, _tree_bytes
 from .topology import (DEFAULT_RANKS_PER_CHANNEL, DPU_FREQ_HZ,
                        DPU_MRAM_BYTES_PER_CYCLE, DPU_OP_CYCLES,
@@ -104,8 +105,20 @@ class PimSystem(System):
     def broadcast(self, tree: Any) -> Any:
         """Host -> all cores broadcast of model state (counted per core).
         The simulated cores share one device, so nothing moves."""
-        self.stats.cpu_to_pim += _tree_bytes(tree) * self.config.n_cores
+        nbytes = _tree_bytes(tree) * self.config.n_cores
+        self.stats.cpu_to_pim += nbytes
+        if TRACER.enabled:
+            TRACER.instant("broadcast", self._trace_track, "transfer",
+                           bytes=nbytes)
         return tree
+
+    # -- multi-tenancy -------------------------------------------------------
+
+    def slice(self, lease) -> "PimSystem":
+        """A :class:`~repro_torch.sched.allocator.PimSlice` over the leased
+        extent: itself a PimSystem, so trainers run on it unmodified."""
+        from ..sched.allocator import PimSlice  # local: sched -> systems
+        return PimSlice(self, lease)
 
 
 # ---------------------------------------------------------------------------

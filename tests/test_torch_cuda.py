@@ -1070,3 +1070,131 @@ def test_gpu_model_counts_the_same_on_the_card_as_on_the_cpu(
         assert out["cuda"][key] == out["cpu"][key], key
     assert out["cuda"]["modeled_seconds"] == pytest.approx(
         out["cpu"]["modeled_seconds"], rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# fx_matvec with lanes, the fused gang and slices on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 13, 17])
+@pytest.mark.parametrize("f", [13, 16])
+@pytest.mark.parametrize("rows", [(2048, 33), (1_000_003,)])
+def test_fx_matvec_lanes_kernel_equals_plain(cuda, k, f, rows):
+    """Full-range int32 operands (the products and sums wrap); F = 13
+    takes the scalar path, F = 16 the 16-byte one; K = 17 runs two full
+    tiles of 8 and a tile of 1, K = 13 a tile of 8 and one of 5."""
+    rng = np.random.RandomState(k * 100 + f)
+    x, w = _ints(rng, (*rows, f)), _ints(rng, (k, f))
+    out = fx_matvec_cuda(x.to(cuda), w.to(cuda), 10)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (*rows, k)
+    assert torch.equal(out.cpu(), fx_matvec_plain(x, w, 10))
+
+
+def test_fx_matvec_lanes_unaligned_rows(cuda):
+    rng = np.random.RandomState(2)
+    flat, w = _ints(rng, 999 * 16 + 1), _ints(rng, (8, 16))
+    xs = flat.to(cuda)[1:].reshape(999, 16)
+    assert xs.data_ptr() % 16
+    out = fx_matvec_cuda(xs, w.to(cuda), 7)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), fx_matvec_plain(flat[1:].reshape(999, 16),
+                                                  w, 7))
+
+
+def test_fx_matvec_lanes_counts_one_launch_and_refuses_wide_w(cuda):
+    x = torch.zeros((64, 16), dtype=torch.int32, device=cuda)
+    dispatch.reset_launch_counts()
+    fx_matvec_cuda(x, torch.zeros((8, 16), dtype=torch.int32,
+                                  device=cuda), 10)
+    assert dispatch.launch_counts == {"fx_matvec": 1}
+    with pytest.raises(ValueError, match="out of range"):
+        fx_matvec_cuda(x, torch.zeros((769, 16), dtype=torch.int32,
+                                      device=cuda), 10)
+    with pytest.raises(ValueError, match="do not form"):
+        fx_matvec_cuda(x, torch.zeros((2, 15), dtype=torch.int32,
+                                      device=cuda), 10)
+
+
+def _card_gang(system, workload, version, X, y, lrs, cancel_after=None,
+               **params):
+    from repro_torch.api import get_workload
+    from repro_torch.sched import FusedGdSweep
+    wl = get_workload(workload)
+    gang = FusedGdSweep(wl, [wl.spec(version, lr=lr, n_iters=10, **params)
+                             for lr in lrs], system.put(X, y))
+    while not gang.done:
+        gang.step()
+        if cancel_after is not None and gang.it == cancel_after:
+            gang.deactivate(1)
+    torch.cuda.synchronize()
+    return gang
+
+
+@pytest.mark.parametrize("workload,version", [("linreg", "int32"),
+                                              ("logreg", "int32_lut_wram")])
+@pytest.mark.parametrize("fuse", [1, 5])
+def test_gang_lanes_equal_serial_card_fits(cuda, workload, version, fuse):
+    """A 4-lane gang on the card: one fx_matvec launch a step for all
+    lanes, each lane bit-identical to a serial card fit; lane 1 cancelled
+    after iteration 5 (between two chunk replays when fused) freezes."""
+    X, y, _ = make_linear_dataset(5000, 16, seed=2)
+    if workload == "logreg":
+        y = (y > np.median(y)).astype(np.float32)
+    lrs = (0.02, 0.05, 0.1, 0.2) if workload == "linreg" else (1, 2, 4, 8)
+    system = make_system("pim", n_cores=64, device="cuda")
+    dispatch.reset_launch_counts()
+    gang = _card_gang(system, workload, version, X, y, lrs,
+                      cancel_after=5, fuse_steps=fuse)
+    assert dispatch.launch_counts["fx_matvec"] == 10
+    assert sum(dispatch.graph_replays.values()) == (0 if fuse == 1 else 2)
+    assert gang.result(1) is None
+    frozen = make_estimator(workload, version=version, lr=lrs[1], n_iters=5,
+                            system=system).fit(system.put(X, y))
+    np.testing.assert_array_equal(gang.lane_state(1)["arrays"]["w"],
+                                  frozen.coef_)
+    for lane in (0, 2, 3):
+        est = make_estimator(workload, version=version, lr=lrs[lane],
+                             n_iters=10, system=system).fit(system.put(X, y))
+        np.testing.assert_array_equal(gang.result(lane).model.w, est.coef_)
+        assert gang.result(lane).model.b == est.intercept_
+
+
+def test_two_slices_fused_fits_do_not_share_a_graph(cuda):
+    """Two slices of one machine, two datasets, fused fits of the same
+    program on both: each equals its standalone fit, each slice captured
+    its own graphs (a graph reads the shards at its capture's addresses),
+    and one slice's fit releasing its graphs leaves the other's."""
+    from repro_torch.sched import BankAllocator
+    X1, y1, _ = make_linear_dataset(4096, 16, seed=3)
+    X2, y2, _ = make_linear_dataset(4096, 16, seed=4)
+    parent = make_system("pim", n_cores=128, device="cuda")
+    alloc = BankAllocator(128, rank_size=64)
+    a, b = (parent.slice(alloc.allocate(64)) for _ in range(2))
+    assert a._step_cache is not b._step_cache
+    ds_a, ds_b = a.put(X1, y1), b.put(X2, y2)
+    spec = dict(version="int32", n_iters=10, fuse_steps=5)
+    from repro_torch.api import get_workload
+    wl = get_workload("linreg")
+    ga = wl.fit_steps(ds_a, wl.spec(**spec))
+    gb = wl.fit_steps(ds_b, wl.spec(**spec))
+    next(ga)
+    next(gb)                       # both mid-fit, each with a graph
+    graphs = [k for k in a._step_cache if k[3] == "graph"] + \
+        [k for k in b._step_cache if k[3] == "graph"]
+    assert len(graphs) == 2
+    fits = {}
+    for name, gen in (("a", ga), ("b", gb)):
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                fits[name] = stop.value
+                break
+    torch.cuda.synchronize()
+    for name, (X, y) in (("a", (X1, y1)), ("b", (X2, y2))):
+        alone = make_system("pim", n_cores=64, device="cuda")
+        ref = make_estimator("linreg", system=alone, **spec).fit(
+            alone.put(X, y))
+        np.testing.assert_array_equal(fits[name].attributes["coef_"],
+                                      ref.coef_)
