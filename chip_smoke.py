@@ -92,6 +92,32 @@ Phases, in order; any failure exits non-zero:
               4 cores on the card and on the CPU: equal integer pim
               scores, iterations, transfer bytes and modeled seconds, and
               equal gpu-model launches, flops and bytes
+  8. orchestration  fx_matvec with lane weights [K, F] against its plain
+              version (K = 1, 2, 3, 8, 13) and timed; the 8-point LIN
+              int32 learning-rate sweep (GANG_LIN_LRS) as one
+              FusedGdSweep against its 8 serial fits (every lane
+              bit-identical, 10 fx_matvec launches against 80), the LOG
+              gang with a lane cancelled, the LIN gang at fuse_steps 5
+              and traced (a valid Chrome trace); two 1,024-core slices
+              each equal to a standalone system; LIN and KME int16
+              resumed from disk snapshots equal to the uninterrupted fits
+  9. service  the training service at the LIN/LOG, KME and DTR cells'
+              full width over N_CORES cores in 64-core ranks: one
+              PimScheduler (deadline policy, preemptive) drains LIN
+              int32, LOG int32_lut_wram, KME int16, DTR and the fused
+              8-lane LIN gang, and a priority LIN job at fuse_steps 5
+              that evicts one at a chunk boundary, with the launch counts
+              zeroed just before it: every job DONE without an error and
+              bit-identical to its standalone card fit, the counts exact,
+              the parent's TransferStats the jobs' sum, device memory back
+              within SERVICE_MEMORY_SLACK; per-job queue and completion
+              latency, measured and modeled seconds and drift, the
+              scheduler's host time a turn and the card's busy share;
+              then serve mode with 4 jobs submitted while the loop runs
+              (a chunk graph captured on the serve thread); then
+              ``python -m repro_torch.launch.pim_jobs`` on
+              examples/jobs.yaml as JSON and again with --resume, which
+              restores every job without a launch
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -101,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -231,6 +258,39 @@ GANG_CANCEL_AT, GANG_FUSE = 3, 5
 TRACE_TURNS = (False, True, True, False) * 2
 SLICE_RANK, SLICE_CORES = 64, 1024
 SNAPSHOT_LIN_AT, SNAPSHOT_KME_AT = 5, 3
+
+#: phase 9, the training service over N_CORES cores in UPMEM's 64-core
+#: ranks: the priority job's arrival (after this many turns) and chunk
+#: length, the drain's and the serve loop's time limits, the service's
+#: device-memory allowance after a drain, and examples/jobs.yaml as JSON
+#: (the card's machine has no PyYAML; tests/test_torch_service.py holds
+#: this equal to the YAML file)
+SERVICE_RANK, SERVICE_PRIORITY_AT, SERVICE_FUSE = 64, 3, 5
+SERVICE_TIMEOUT = 300.0
+SERVICE_MEMORY_SLACK = 64 << 20
+TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_class",
+               "depth")
+JOBS_YAML_AS_JSON = {
+    "system": {"cores": 32, "rank_size": 4, "reduce": "fabric"},
+    "datasets": {
+        "lin": {"kind": "linear", "samples": 2048, "features": 16,
+                "seed": 0},
+        "blobs": {"kind": "blobs", "samples": 4096, "features": 8,
+                  "centers": 8, "seed": 1},
+    },
+    "jobs": [
+        {"workload": "kmeans", "dataset": "blobs", "cores": 8,
+         "priority": 1, "params": {"n_clusters": 8, "max_iter": 40}},
+        {"workload": "logreg", "dataset": "lin",
+         "version": "int32_lut_wram", "cores": 4,
+         "params": {"n_iters": 150}},
+    ],
+    "sweeps": [
+        {"workload": "linreg", "dataset": "lin", "version": "hyb",
+         "cores": 8, "fused": True, "grid": {"lr": [0.05, 0.1, 0.2, 0.4]},
+         "params": {"n_iters": 150}},
+    ],
+}
 
 
 def say(msg: str) -> None:
@@ -1101,15 +1161,18 @@ def log_fit_z(dispatch, make_estimator, ds) -> dict:
     return {"first": seen[0], "last": seen[-1]}
 
 
-def device_profile(torch, fn, top: int = 6) -> str:
+def device_profile(torch, fn, top: int = 6, host: bool = True) -> str:
     """Run ``fn`` under torch.profiler: the device's busy share of the
     wall time ``fn`` took inside the profiler (its start-up and the trace's
     processing at exit excluded) and the kernels with the most device
-    time."""
+    time.  ``host=False`` traces the device only, which leaves the
+    host's timings of ``fn`` nearly as they are."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1848,6 +1911,357 @@ def elastic_on_card(torch, dispatch, get_workload, system, lin_ds, kme_ds,
             f"{counts} on {smi}")
 
 
+# -- phase 9: the training service --------------------------------------------
+
+def service_sizes(n_cores: int) -> dict:
+    """Phase 9's leases: LIN and the fused gang half the machine each;
+    LOG, KME, DTR and the priority job a quarter each."""
+    half, quarter = n_cores // 2, n_cores // 4
+    return {"lin": half, "log": quarter, "kme": quarter, "dtr": quarter,
+            "gang": half, "priority": quarter}
+
+
+def service_specs(data: dict, iters: int, depth: int,
+                  fuse: int = SERVICE_FUSE) -> dict:
+    """name -> (workload, (X, y), version, hyperparameters) of every
+    phase-9 job but the gang's lanes."""
+    lin, log = data["lin"], data["log"]
+    return {
+        "lin": ("linreg", lin, "int32", {"n_iters": iters}),
+        "log": ("logreg", log, "int32_lut_wram", {"n_iters": iters}),
+        "kme": ("kmeans", (data["kme"], None), "int16",
+                {"n_clusters": KME_K, "max_iter": iters, "tol": 0.0}),
+        "dtr": ("dtree", log, "fp32", {"max_depth": depth}),
+        "priority": ("linreg", lin, "int32",
+                     {"n_iters": iters, "fuse_steps": fuse}),
+    }
+
+
+def turn_states(sched) -> list:
+    """Every job's state, turns, iterations and lease."""
+    return [(h.name, h.state.value, h.steps, h.iters,
+             None if h.lease is None else (h.lease.start, h.lease.n_cores))
+            for h in sched.handles]
+
+
+def service_drain(sched, data: dict, sizes: dict, iters: int, depth: int,
+                  priority_at: int = SERVICE_PRIORITY_AT) -> dict:
+    """Phase 9's queue, drained one turn at a time: LIN int32, LOG
+    int32_lut_wram, KME int16 and DTR, the fused 8-point LIN int32 gang
+    (GANG_LIN_LRS), then after ``priority_at`` turns a priority-1 LIN
+    int32 job at fuse_steps SERVICE_FUSE, which evicts a priority-0 job.
+    Returns the handles by name, each turn's states, wall seconds and
+    the scheduler's own seconds (the turn's wall outside its jobs'
+    chunks), and the TransferStats a preempted job settled before it
+    resumed (its handle then keeps only the resumed run's delta)."""
+    specs = service_specs(data, iters, depth)
+    handles = {}
+    for name in ("lin", "log", "kme", "dtr"):
+        workload, d, version, params = specs[name]
+        handles[name] = sched.submit(workload, d, version=version,
+                                     n_cores=sizes[name], name=name,
+                                     **params)
+    lanes = sched.sweep("linreg", data["lin"], {"lr": list(GANG_LIN_LRS)},
+                        version="int32", n_iters=iters,
+                        n_cores=sizes["gang"], fused=True)
+    handles.update((f"gang{i}", h) for i, h in enumerate(lanes))
+    log, turns, own, segments = [], [], [], []
+    preempted = {}
+
+    def in_chunks():     # gang lanes each see their shared chunk's time
+        return sum(h.measured_seconds for n, h in handles.items()
+                   if not n.startswith("gang") or n == "gang0")
+
+    more = True
+    while more:
+        if len(turns) == priority_at:
+            workload, d, version, params = specs["priority"]
+            handles["priority"] = sched.submit(
+                workload, d, version=version, n_cores=sizes["priority"],
+                priority=1, name="priority", **params)
+        inside = in_chunks()
+        t0 = time.perf_counter()
+        more = sched.step()
+        turns.append(time.perf_counter() - t0)
+        own.append(turns[-1] - (in_chunks() - inside))
+        log.append(turn_states(sched))
+        for h in sched.handles:
+            if h.preemptions > preempted.get(h.name, 0):
+                preempted[h.name] = h.preemptions
+                segments.append(h.transfer)
+    return {"handles": handles, "log": log, "turns": turns, "own": own,
+            "segments": segments}
+
+
+def same_fit(got, want) -> bool:
+    """Two FitResults: weights, centroids, labels and trees bit for bit
+    (the int16 inertia, a float32 sum, to 1e-6)."""
+    if got is None or sorted(got.attributes) != sorted(want.attributes):
+        return False
+    for key, w in want.attributes.items():
+        g = got.attributes[key]
+        if key == "tree_":
+            ok = all(np.array_equal(getattr(g, f), getattr(w, f))
+                     for f in TREE_FIELDS)
+        elif key == "inertia_":
+            ok = bool(np.isclose(g, w, rtol=1e-6, atol=0.0))
+        else:
+            ok = np.array_equal(np.asarray(g), np.asarray(w))
+        if not ok:
+            return False
+    return True
+
+
+def standalone_fits(torch, make_system, get_workload, data: dict,
+                    sizes: dict, iters: int, depth: int) -> dict:
+    """Each phase-9 job fitted alone on a card PimSystem of its lease's
+    size (each gang lane as its serial fit), one after another, as one
+    user would: one system a size, one dataset a (size, data) pair, so
+    the first fit on a dataset builds its views.  name -> (FitResult,
+    wall seconds)."""
+    out, systems, datasets = {}, {}, {}
+    specs = service_specs(data, iters, depth)
+    specs.update((f"gang{i}", ("linreg", data["lin"], "int32",
+                               {"n_iters": iters, "lr": lr}))
+                 for i, lr in enumerate(GANG_LIN_LRS))
+    for name, (workload, (X, y), version, params) in specs.items():
+        size = sizes["gang" if name.startswith("gang") else name]
+        if size not in systems:
+            systems[size] = make_system("pim", n_cores=size, device="cuda")
+        key = (size, id(X))
+        if key not in datasets:
+            datasets[key] = systems[size].put(X, y)
+        wl = get_workload(workload)
+        seconds, result = timed(torch, lambda: wl.fit(
+            datasets[key], wl.spec(version, **params)))
+        out[name] = (result, seconds)
+    return out
+
+
+def service_on_card(torch, dispatch, make_system, get_workload, data: dict,
+                    smi: str) -> dict:
+    """Phase 9: the training service on the card.
+
+    (a) A drain: one PimScheduler over N_CORES cores (rank SERVICE_RANK,
+    the deadline policy, preemptive) runs service_drain's queue with the
+    launch counts zeroed just before it.  Every job DONE without an
+    error, no retry and no serve error; each job and gang lane
+    bit-identical to its standalone card fit; launch counts exactly what
+    the iterations imply (the gang one fx_matvec launch a step for its 8
+    lanes, the evicted job none again for an iteration done before its
+    eviction); the parent's TransferStats the sum of the jobs' deltas;
+    the allocator empty; device memory back within SERVICE_MEMORY_SLACK
+    with the scheduler alive; the card's busy share over the drain
+    (torch.profiler tracing the device only).
+    (b) Serve mode: a fresh scheduler's serve loop takes 4 jobs submitted
+    from this thread while it runs (one at fuse_steps SERVICE_FUSE, its
+    chunk graph captured on the serve thread); shutdown(wait=True) loses
+    none, each equals its standalone fit, the counts are exact.
+    (c) The CLI: ``python -m repro_torch.launch.pim_jobs`` on
+    examples/jobs.yaml as JSON with --checkpoint-dir, then again with
+    --resume: every job restored without one kernel launch."""
+    import gc
+    import tempfile
+
+    from repro_torch.sched import JobState, PimScheduler
+    sizes = service_sizes(N_CORES)
+    specs = service_specs(data, ITERS, DTR_DEPTH)
+    alone = standalone_fits(torch, make_system, get_workload, data, sizes,
+                            ITERS, DTR_DEPTH)
+    alone_s = sum(t for _, t in alone.values())
+    rounds = tree_rounds(alone["dtr"][0].model)
+
+    def scheduler():
+        return PimScheduler(make_system("pim", n_cores=N_CORES,
+                                        device="cuda"),
+                            rank_size=SERVICE_RANK, policy="deadline",
+                            preemptive=True)
+
+    def check_jobs(sched, handles: dict, what: str) -> None:
+        bad = [h.name for h in handles.values()
+               if h.state is not JobState.DONE or h.error is not None]
+        if bad:
+            fail(f"service {what}: jobs {bad} not DONE cleanly: " + "; ".join(
+                f"{handles[n].state.value} {handles[n].error!r}"
+                for n in bad))
+        errors = {c: sched.metrics.counter(c).value
+                  for c in ("sched.serve_errors", "sched.retries")}
+        if any(errors.values()):
+            fail(f"service {what}: {errors}")
+        for name, h in handles.items():
+            if not same_fit(h.result, alone[name][0]):
+                fail(f"service {what}: job {name} differs from its "
+                     f"standalone card fit")
+
+    # (a) the drain
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sched, run = scheduler(), {}
+
+    def drain():
+        t0 = time.perf_counter()
+        run.update(service_drain(sched, data, sizes, ITERS, DTR_DEPTH))
+        torch.cuda.synchronize()
+        run["wall"] = time.perf_counter() - t0
+
+    dispatch.reset_launch_counts()
+    busy = device_profile(torch, drain, host=False)
+    wall = run["wall"]
+    counts = dict(dispatch.launch_counts)
+    replays = sum(dispatch.graph_replays.values())
+    handles = run["handles"]
+    check_jobs(sched, handles, "drain")
+    expected = {"fx_matvec": 4 * ITERS, "lut_sigmoid": ITERS,
+                "kmeans_assign": ITERS, "gini_split": rounds}
+    if counts != expected or replays != -(-ITERS // SERVICE_FUSE):
+        fail(f"service drain: launch counts {counts} (expected "
+             f"{expected}), {replays} graph replays")
+    evicted = [h.name for h in handles.values() if h.preemptions]
+    if len(evicted) != 1 or sched.metrics.counter(
+            "sched.evictions").value != 1:
+        fail(f"service drain: evicted {evicted}")
+    parent = sched.system.stats.snapshot()
+    deltas = [h.transfer for n, h in handles.items()
+              if not n.startswith("gang") or n == "gang0"]
+    deltas += run["segments"]
+    for f in dataclasses.fields(parent):
+        total = sum(getattr(d, f.name) for d in deltas)
+        if getattr(parent, f.name) != total:
+            fail(f"service drain: parent {f.name} {getattr(parent, f.name)}"
+                 f" != the jobs' deltas {total}")
+    frag = sched.fragmentation()
+    if frag.used_cores or frag.n_leases:
+        fail(f"service drain: the allocator is not empty: {frag}")
+    gc.collect()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    if grown > SERVICE_MEMORY_SLACK:
+        fail(f"service drain: {grown / 2 ** 20:.1f} MiB of device memory "
+             f"still allocated after the drain")
+    turns, own = run["turns"], run["own"]
+    say(f"service: drain of {len(handles)} jobs over {N_CORES} cores "
+        f"(rank {SERVICE_RANK}, deadline, preemptive) in {wall:.3f} s, "
+        f"{len(turns)} turns; the {len(alone)} standalone card fits one "
+        f"after another (one system a lease size, views shared) "
+        f"{alone_s:.3f} s in all ({alone_s / wall:.2f}x); evicted "
+        f"{evicted} at its chunk boundary and resumed; every job == its "
+        f"standalone card fit; launch counts {counts} == expected, "
+        f"{replays} graph replays; parent TransferStats == the jobs' "
+        f"deltas ({len(run['segments'])} preempted segment); allocator "
+        f"empty; device memory {grown / 2 ** 20:+.1f} MiB against the "
+        f"phase's start (scheduler alive) on {smi}")
+    say(f"service: per turn {statistics.median(turns) * 1e3:.3f} ms median"
+        f" ({min(turns) * 1e3:.3f}-{max(turns) * 1e3:.3f}); the "
+        f"scheduler's own host time (a turn's wall outside its jobs' "
+        f"chunks) {statistics.median(own) * 1e6:.1f} us median a turn "
+        f"({min(own) * 1e6:.1f}-{max(own) * 1e6:.1f}; admission builds a "
+        f"gang's view), {sum(own):.3f} s in all; turn-end synchronizes "
+        f"{sched.syncs}, waiting {sched.sync_seconds * 1e3:.3f} ms in all "
+        f"({sched.sync_seconds / max(sched.syncs, 1) * 1e6:.1f} us each) "
+        f"on {smi}")
+    say(f"profile: service drain (device only traced): {busy}")
+    for name, h in handles.items():
+        fit_s = alone[name][1]
+        say(f"service job {name:<8} {h.workload.name:<7} "
+            f"{h.spec.version:<15} cores {h.n_cores:<5} turns {h.steps:<3}"
+            f" queue {h.queue_latency:.4f} s, completion "
+            f"{h.completion_latency:.4f} s, measured {h.measured_seconds:.4f}"
+            f" s, modeled {h.modeled_seconds:.6g} s, drift "
+            + (f"{h.drift_ratio:.4g}" if h.drift_ratio is not None
+               else "none")
+            + f"; standalone fit {fit_s:.4f} s, on {smi}")
+    stats = sched.stats()
+    say("service: stats " + json.dumps(
+        {k: stats[k] for k in ("jobs", "preemptions", "recoveries",
+                               "straggler_flags")})
+        + f"; latency {json.dumps(sched.latency_summary())}")
+    del sched, handles, run
+
+    # (b) serve mode: submissions from this thread while the loop runs
+    sched = scheduler()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.serve(poll_interval=0.005)
+    served = {}
+    for name in ("lin", "log", "kme", "priority"):
+        workload, d, version, params = specs[name]
+        served[name] = sched.submit(workload, d, version=version,
+                                    n_cores=sizes[name], name=name,
+                                    **params)
+        t_end = time.monotonic() + SERVICE_TIMEOUT
+        while (served[name].state is JobState.QUEUED
+               and time.monotonic() < t_end):
+            time.sleep(0.001)          # mid-flight: the loop has taken it
+    if not sched.wait(list(served.values()), timeout=SERVICE_TIMEOUT):
+        fail("service serve: jobs unfinished after "
+             f"{SERVICE_TIMEOUT} s")
+    sched.shutdown(wait=True, timeout=SERVICE_TIMEOUT)
+    serve_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check_jobs(sched, served, "serve")
+    serve_counts = dict(dispatch.launch_counts)
+    serve_expected = {"fx_matvec": 3 * ITERS, "lut_sigmoid": ITERS,
+                      "kmeans_assign": ITERS}
+    serve_replays = sum(dispatch.graph_replays.values())
+    if serve_counts != serve_expected or serve_replays != -(
+            -ITERS // SERVICE_FUSE):
+        fail(f"service serve: launch counts {serve_counts} (expected "
+             f"{serve_expected}), {serve_replays} graph replays")
+    say(f"service: serve loop took {len(served)} jobs submitted while it "
+        f"ran (the fuse_steps {SERVICE_FUSE} job's chunk graph captured "
+        f"on the serve thread), shutdown lost none, each == its "
+        f"standalone card fit, launch counts {serve_counts}, "
+        f"{serve_replays} replays, in {serve_s:.3f} s; latency "
+        + json.dumps(sched.latency_summary()) + f" on {smi}")
+    del sched, served
+    gc.collect()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    if grown > SERVICE_MEMORY_SLACK:
+        fail(f"service serve: {grown / 2 ** 20:.1f} MiB of device memory "
+             f"still allocated")
+
+    # (c) the CLI on examples/jobs.yaml as JSON, then resumed
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = Path(tmp) / "jobs.json"
+        manifest.write_text(json.dumps(JOBS_YAML_AS_JSON))
+        reports = []
+        for resume in (False, True):
+            out = Path(tmp) / f"report{int(resume)}.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.pim_jobs",
+                 str(manifest), "--checkpoint-dir", str(Path(tmp) / "ck"),
+                 "--json", str(out)] + (["--resume"] if resume else []),
+                env=env, capture_output=True, text=True,
+                timeout=SERVICE_TIMEOUT)
+            if proc.returncode:
+                fail(f"service cli: pim_jobs exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            reports.append((json.loads(out.read_text()),
+                            time.perf_counter() - t0))
+    (first, t_first), (again, t_again) = reports
+    jobs_run = {r["name"]: r for r in first["jobs"]}
+    if {r["state"] for r in first["jobs"]} != {"done"} or not {
+            "fx_matvec", "lut_sigmoid", "kmeans_assign"} <= set(
+                first["launch_counts"]) or first["device"] != "cuda":
+        fail(f"service cli: first run {first['launch_counts']}, "
+             f"{[(r['name'], r['state']) for r in first['jobs']]}")
+    if not all(r.get("restored") and r["state"] == "done"
+               for r in again["jobs"]) or again["launch_counts"] or \
+            again["scheduler"]["transfer"]["pim"]["kernel_launches"]:
+        fail(f"service cli: --resume re-ran work: "
+             f"{again['launch_counts']}, {again['jobs']}")
+    say(f"service: pim_jobs on examples/jobs.yaml as JSON "
+        f"({len(jobs_run)} jobs, launch counts {first['launch_counts']}) "
+        f"in {t_first:.1f} s with its start-up; --resume restored all "
+        f"{len(again['jobs'])} without a launch in {t_again:.1f} s")
+    return {"drain": counts, "serve": serve_counts}
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -2326,6 +2740,13 @@ def main() -> int:
     say(f"orchestration: phase 8 in {time.perf_counter() - t0:.1f} s on "
         f"{smi}")
 
+    # -- 9. the training service: scheduler, serve loop, CLI ----------------
+    t0 = time.perf_counter()
+    service = service_on_card(
+        torch, dispatch, make_system, get_workload,
+        {"lin": (X, y), "log": (Xc, yc), "kme": kme_ds.X}, smi)
+    say(f"service: phase 9 in {time.perf_counter() - t0:.1f} s on {smi}")
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -2392,6 +2813,9 @@ def main() -> int:
         op = "gini_split" if k["name"] == "gini_counts" else k["name"]
         if op in COMPARE_KERNELS:
             k["compare_launches"] = compare_counts[op]
+        if op in service["drain"]:
+            k["service_launches"] = service["drain"][op]
+            k["serve_launches"] = service["serve"].get(op, 0)
     say("serve: " + json.dumps({
         name: {k: lm[name][k] for k in ("tokens_per_s", "ttft_ms",
                                         "prefill_ms", "decode_ms", "wall_s")}

@@ -75,8 +75,19 @@ class Workload:
                   state: Optional[dict] = None):
         """Generator: one training step per ``next()``; the FitResult
         travels on StopIteration.  ``state`` is a snapshot from a
-        ``ChunkTick`` to resume from."""
-        raise NotImplementedError
+        ``ChunkTick`` to resume from.
+
+        The default runs :meth:`fit` as a single macro-step, so every
+        workload is schedulable; iterative workloads override it with
+        their trainer's per-iteration generator.  Only :attr:`resumable`
+        workloads accept a ``state``."""
+        if state is not None:
+            raise ValueError(
+                f"workload {self.name!r} is not resumable; it cannot "
+                f"accept a checkpoint state")
+        result = self.fit(dataset, spec)
+        yield 1
+        return result
 
     def predict(self, result: FitResult, X):
         raise NotImplementedError

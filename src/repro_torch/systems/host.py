@@ -33,6 +33,7 @@ class HostConfig:
     (every strategy is degenerate over a single shard)."""
 
     n_cores: int = 8
+    n_threads: int = 1           # config compatibility (the reference's)
     reduce: str = "fabric"
     device: str = "cuda"
 

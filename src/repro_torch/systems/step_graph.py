@@ -11,9 +11,13 @@ caches it on the system.
 Capture: the static inputs are copies of the first carry and per-step
 inputs; one eager step on a side stream warms up what a capture cannot
 do (a kernel library's first build and load, a kernel's shared-memory
-opt-in); then the k steps are captured into one graph with its own
-memory pool.  The shards are read where they lie: a graph is only
-replayed on shards at the addresses it was captured on, so a caller
+opt-in); then the k steps are captured on that stream into one graph
+with its own memory pool.  The capture is thread-local and on a stream
+of its own: it refuses unsafe CUDA calls from the capturing thread
+only, so a service that captures on its serve thread leaves the
+caller's threads free to use the card meanwhile.  The shards are read
+where they lie: a graph is only replayed on shards at the addresses it
+was captured on, so a caller
 whose state moves (the EMB tables after a flush) copies it back into
 place first.
 
@@ -71,14 +75,25 @@ class ChunkGraph:
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):
                     program.steps(self.carry_in, sharded, self.xs_in, 1)
-                torch.cuda.current_stream().wait_stream(side)
+                caller = torch.cuda.current_stream()
+                caller.wait_stream(side)
                 torch.cuda.synchronize()
                 self.graph = torch.cuda.CUDAGraph()
                 mark = dict(dispatch.launch_counts)
-                with torch.cuda.graph(self.graph), program.system._pricing(
-                        program.price_key(k, xs), (carry, sharded, xs)):
-                    self.carry_out, self.outs = program.steps(
-                        self.carry_in, sharded, self.xs_in, k)
+                try:
+                    with torch.cuda.graph(
+                            self.graph, stream=side,
+                            capture_error_mode="thread_local"), \
+                            program.system._pricing(
+                                program.price_key(k, xs),
+                                (carry, sharded, xs)):
+                        self.carry_out, self.outs = program.steps(
+                            self.carry_in, sharded, self.xs_in, k)
+                finally:
+                    # a capture that fails at its end leaves the graph
+                    # context's stream current; later work must not run
+                    # on a stream another thread may capture on
+                    torch.cuda.set_stream(caller)
                 self.launches = {
                     op: n - mark.get(op, 0)
                     for op, n in dispatch.launch_counts.items()

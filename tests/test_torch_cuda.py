@@ -8,6 +8,7 @@ runs where only the port is installed:
 """
 import copy
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -966,6 +967,29 @@ def test_a_failed_capture_raises(cuda):
     assert dispatch.graph_replays == {}
 
 
+def test_a_failed_capture_leaves_the_callers_stream_current(cuda):
+    """A capture that fails hands the thread back its own stream, not
+    the capture's (torch's graph context skips that restore when the
+    capture's end raises), and the thread's later work runs."""
+    system = make_system("pim", n_cores=8, device="cuda")
+
+    def update(carry, red):
+        if float(red["s"]) < 0:          # a host read inside the chunk
+            return carry, None
+        return carry + red["s"], None
+
+    program = system.step_program(lambda x: {"s": x.sum(-1)},
+                                  lambda carry: (), update,
+                                  name="host.read.stream")
+    before = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError):
+        program.run(torch.zeros((), device=cuda),
+                    (torch.ones((8, 3), device=cuda),), 3)
+    assert torch.cuda.current_stream() == before
+    x = torch.from_numpy(np.arange(4, dtype=np.float32)).to(cuda)
+    assert float((x * 2).sum()) == 12.0
+
+
 # ---------------------------------------------------------------------------
 # Declared kernel costs and the gpu-model target on the card.
 # ---------------------------------------------------------------------------
@@ -1198,3 +1222,130 @@ def test_two_slices_fused_fits_do_not_share_a_graph(cuda):
             alone.put(X, y))
         np.testing.assert_array_equal(fits[name].attributes["coef_"],
                                       ref.coef_)
+
+
+# ---------------------------------------------------------------------------
+# The training service on the card.
+# ---------------------------------------------------------------------------
+
+SERVICE_CORES, SERVICE_RANK, SERVICE_ITERS, SERVICE_DEPTH = 64, 16, 10, 6
+
+
+def _service_data():
+    X, y, _ = make_linear_dataset(20_000, 16, seed=5)
+    Xc, yc = make_classification(20_000, 16, seed=5)
+    Xk, _, _ = make_blobs(30_000, 16, centers=16, seed=5)
+    return {"lin": (X, y), "log": (Xc, yc), "kme": Xk}
+
+
+def _service_scheduler(device):
+    from repro_torch.sched import PimScheduler
+    return PimScheduler(make_system("pim", n_cores=SERVICE_CORES,
+                                    device=device),
+                        rank_size=SERVICE_RANK, policy="deadline",
+                        preemptive=True)
+
+
+def test_scheduler_on_the_card_equals_the_cpu(cuda):
+    """chip_smoke.py's phase-9 queue (four jobs, a fused 8-lane gang, a
+    priority job at fuse_steps 5 that evicts one) on the card and on the
+    CPU: the same turns, states and leases, integer results, per-job
+    and parent TransferStats and modeled seconds; on the card exactly
+    the launches the iterations imply, a synchronize at every turn's
+    end, and no device memory left behind by finished jobs."""
+    import gc
+
+    from repro_torch.sched import JobState
+    smoke = _chip_smoke()
+    data = _service_data()
+    sizes = smoke.service_sizes(SERVICE_CORES)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        sched = _service_scheduler(device)
+        dispatch.reset_launch_counts()
+        run = smoke.service_drain(sched, data, sizes, SERVICE_ITERS,
+                                  SERVICE_DEPTH)
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launch_counts)
+        replays = sum(dispatch.graph_replays.values())
+        gc.collect()
+        grown = torch.cuda.memory_allocated() - base
+        assert grown <= smoke.SERVICE_MEMORY_SLACK, grown
+        assert all(r.slice is None for r in sched._finished)
+        runs[device] = (sched, run, counts, replays)
+    (cs, crun, ccounts, _), (gs, grun, gcounts, greplays) = (
+        runs["cpu"], runs["cuda"])
+    assert grun["log"] == crun["log"]
+    for name, h in grun["handles"].items():
+        c = crun["handles"][name]
+        assert h.state is JobState.DONE and h.error is None, name
+        assert dataclasses.asdict(h.transfer) == dataclasses.asdict(
+            c.transfer), name
+        assert h.modeled_seconds == c.modeled_seconds
+        assert smoke.same_fit(h.result, c.result), name
+    assert [dataclasses.asdict(t) for t in grun["segments"]] == [
+        dataclasses.asdict(t) for t in crun["segments"]]
+    assert len(grun["segments"]) == 1
+    assert dataclasses.asdict(gs.system.stats) == dataclasses.asdict(
+        cs.system.stats)
+    rounds = smoke.tree_rounds(grun["handles"]["dtr"].result.model)
+    assert ccounts == {}
+    assert gcounts == {"fx_matvec": 4 * SERVICE_ITERS,
+                       "lut_sigmoid": SERVICE_ITERS,
+                       "kmeans_assign": SERVICE_ITERS,
+                       "gini_split": rounds}
+    assert greplays == 2
+    assert gs.syncs > 0 and cs.syncs == 0
+    for sched in (gs, cs):
+        assert sched.metrics.counter("sched.retries").value == 0
+        assert sched.fragmentation().used_cores == 0
+
+
+def test_serve_captures_on_its_thread_while_the_caller_uses_the_card(cuda):
+    """Serve mode: four jobs submitted while the loop runs, one at
+    fuse_steps 5 whose chunk graph is captured on the serve thread while
+    this thread keeps allocating and launching plain torch work on the
+    card (a global-mode capture would refuse that).  No job is lost, each
+    equals its standalone card fit, the counts are exact."""
+    from repro_torch.api import get_workload
+    from repro_torch.sched import JobState
+    smoke = _chip_smoke()
+    data = _service_data()
+    sizes = smoke.service_sizes(SERVICE_CORES)
+    specs = smoke.service_specs(data, SERVICE_ITERS, SERVICE_DEPTH)
+    sched = _service_scheduler("cuda")
+    dispatch.reset_launch_counts()
+    sched.serve(poll_interval=0.002)
+    busy = torch.zeros(1 << 20, device=cuda)
+    handles = {}
+    for name in ("priority", "lin", "log", "kme"):
+        workload, d, version, params = specs[name]
+        handles[name] = sched.submit(workload, d, version=version,
+                                     n_cores=sizes[name], name=name,
+                                     **params)
+    t_end = time.monotonic() + 120.0
+    while (not all(h.done for h in handles.values())
+           and time.monotonic() < t_end):
+        busy = busy * 0.5 + 1.0           # allocates and launches
+        torch.cuda.current_stream().synchronize()
+    assert sched.wait(list(handles.values()), timeout=120.0)
+    sched.shutdown(wait=True, timeout=120.0)
+    torch.cuda.synchronize()
+    assert float(busy[0]) == pytest.approx(2.0, abs=1e-3)
+    for name, h in handles.items():
+        assert h.state is JobState.DONE and h.error is None, (name, h.error)
+    assert sched.metrics.counter("sched.serve_errors").value == 0
+    assert sched.metrics.counter("sched.retries").value == 0
+    assert dispatch.launch_counts == {"fx_matvec": 3 * SERVICE_ITERS,
+                                      "lut_sigmoid": SERVICE_ITERS,
+                                      "kmeans_assign": SERVICE_ITERS}
+    assert sum(dispatch.graph_replays.values()) == 2
+    for name, h in handles.items():
+        workload, (X, y), version, params = specs[name]
+        system = make_system("pim", n_cores=sizes[name], device="cuda")
+        wl = get_workload(workload)
+        want = wl.fit(system.put(X, y), wl.spec(version, **params))
+        assert smoke.same_fit(h.result, want), name
