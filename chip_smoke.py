@@ -118,6 +118,30 @@ Phases, in order; any failure exits non-zero:
               ``python -m repro_torch.launch.pim_jobs`` on
               examples/jobs.yaml as JSON and again with --resume, which
               restores every job without a launch
+ 10. train    LM training at full width: granite-3-8b (launch/train.py's
+              default arch; d_model 4096, 32 query heads over 8 KV heads
+              padded to 16, d_ff 12800), 8 of its 40 layers, bf16, remat
+              full, MarkovCorpus batches of 8 x 1024 tokens, AdamW lr 3e-4,
+              through repro_torch.launch.train.train:
+              (a) flash_attention_bwd against its plain version at
+                  [8, 32, 1024, 128] over 16 and 8 KV heads, a window, and
+                  float32 (TRAIN_BWD_*_RTOL of max |plain|); (b) the
+                  forward with lse kept returns the same out, lse within
+                  TRAIN_LSE_ATOL of the plain logsumexp; (c) step 1's loss
+                  and every gradient leaf against the same step with plain
+                  attention under autograd (TRAIN_LOSS_ATOL,
+                  TRAIN_GRAD_RTOL), every wq/wk/wv/wo gradient nonzero;
+                  (d) 5 steps, losses finite and falling; (e) with the
+                  counts zeroed just before: exactly 16 mha (forward and
+                  remat recompute) and 8 mha_bwd a step; (f) 2 steps with
+                  quantize_dense and lut_activations: 48 int_matmul a step,
+                  every gate gradient exactly 0; (g) reduced granite
+                  resumed at step 2 on the card: steps 3-4 and the params
+                  equal the uninterrupted run's.  Printed: ms a step,
+                  forward + backward against AdamW, tokens/s, peak memory,
+                  a profiled step's busy share and top kernels,
+                  flash_attention_bwd's ms, bound and SDPA's forward +
+                  backward, int_matmul at M = 8192
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -208,6 +232,27 @@ INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 #: lut_sigmoid's misaligned and ragged cases: about this many elements,
 #: and the length of the odd table beside the paper's
 LUT_RAGGED, LUT_ODD = 100_000, 1_001
+
+#: phase 10, LM training: launch/train.py's default arch at full width,
+#: depth cut from 40 layers to 8 (8.2B parameters at 12 bytes each for
+#: training is 98 GB, over the card's 80 GB), bf16, remat full; MarkovCorpus
+#: batches of 8 x 1024 tokens, AdamW at lr 3e-4 through launch.train.train;
+#: its MLP linears as (K, N) for int_matmul at M = B * S
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "granite-3-8b", 8, 8, 1024
+TRAIN_STEPS, TRAIN_QUANT_STEPS, TRAIN_TIMED_STEPS, TRAIN_LR = 5, 2, 3, 3e-4
+TRAIN_MLP_SHAPES = ((4096, 12800), (12800, 4096))
+#: step 1 with the kernels against plain attention under autograd, bf16:
+#: the loss (|loss| ~ 11) and each gradient leaf's relative norm.  The
+#: forward kernel rounds P to bf16 for P V (MHA_BF16_ATOL on out) and both
+#: round every activation and gradient to bf16 in other orders through 8
+#: layers (2**-8 a rounding)
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 2e-2, 5e-2
+#: mha_bwd against mha_bwd_plain, max abs error over max |plain|: bf16
+#: outputs round to bf16 (2**-8 of a value) after float32 arithmetic in
+#: both; float32 in other orders (~1e-6), room for dS's cancellation.  The
+#: forward's lse against the plain logsumexp (|lse| <= ~10; the bf16
+#: kernel's exp2 is ex2.approx, ~2**-22 relative)
+TRAIN_BWD_BF16_RTOL, TRAIN_BWD_F32_RTOL, TRAIN_LSE_ATOL = 1e-2, 1e-4, 1e-4
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
@@ -2262,6 +2307,324 @@ def service_on_card(torch, dispatch, make_system, get_workload, data: dict,
     return {"drain": counts, "serve": serve_counts}
 
 
+# -- phase 10: LM training at full width ---------------------------------------
+
+def _rel_err(got, want) -> float:
+    """Max abs error over max |reference|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _leaf_rel(got, want) -> float:
+    """||got - want|| / ||want|| in float32."""
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def check_mha_bwd(torch, dev, gen) -> tuple[float, float, tuple]:
+    """Checks (a) and (b): the forward with lse against itself without
+    lse (equal out) and against the plain logsumexp; mha_bwd against
+    mha_bwd_plain at the full-width shapes (the model's 16 padded KV heads
+    and granite's own 8), in float32 and with a window.  Returns the max
+    of the max abs errors, the max of the errors over max |reference|
+    and the inputs of the main path's shape, for timing."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_cuda,
+                                                     mha_bwd_plain, mha_cuda,
+                                                     mha_plain)
+    b, hq, s, d = TRAIN_BATCH, 32, TRAIN_SEQ, 128
+
+    def inputs(b, hq, hkv, s, dtype):
+        # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv
+        # hands them over; dout as the model's reshape hands it back
+        return [torch.randn((b, s, h, d), generator=gen, device=dev)
+                .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv, hq)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"bf16 [{b}, {hq}, {s}, {d}] over 16 KV heads (the model's "
+              f"padded heads), causal", (b, hq, 16, s, bf16), {}),
+             (f"bf16 [{b}, {hq}, {s}, {d}] over 8 KV heads, causal",
+              (b, hq, 8, s, bf16), {}),
+             (f"bf16 [2, {hq}, {s}, {d}] over 16 KV heads, window 256",
+              (2, hq, 16, s, bf16), {"window": 256}),
+             (f"f32 [2, 8, {s}, {d}] over 2 KV heads, causal",
+              (2, 8, 2, s, f32), {})]
+    worst, worst_abs, main = 0.0, 0.0, None
+    for name, shape, kw in cases:
+        q, k, v, dout = inputs(*shape)
+        out0 = mha_cuda(q, k, v, **kw)
+        out, lse = mha_cuda(q, k, v, with_lse=True, **kw)
+        _, lse_ref = mha_plain(q, k, v, with_lse=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out0, out):
+            fail(f"flash_attention: {name}: out with lse != out without")
+        e_lse = float((lse - lse_ref).abs().max())
+        if not e_lse <= TRAIN_LSE_ATOL:
+            fail(f"flash_attention: {name}: lse off the plain logsumexp by "
+                 f"{e_lse} > {TRAIN_LSE_ATOL}")
+        got = mha_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        want = mha_bwd_plain(q, k, v, out, dout, lse, **kw)
+        tol = TRAIN_BWD_BF16_RTOL if shape[-1] == bf16 else TRAIN_BWD_F32_RTOL
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        if not max(errs) <= tol:
+            fail(f"flash_attention_bwd: {name}: dq, dk, dv errors {errs} > "
+                 f"{tol} of max |plain|")
+        worst = max(worst, max(errs))
+        worst_abs = max(worst_abs, max(float((g.float() - w.float()).abs()
+                                             .max())
+                                       for g, w in zip(got, want)))
+        say(f"kernels: flash_attention_bwd ~ plain, {name}: dq {errs[0]:.3g}"
+            f", dk {errs[1]:.3g}, dv {errs[2]:.3g} of max |plain| (<= {tol})"
+            f"; forward out with lse == without, lse within {e_lse:.3g}")
+        if main is None:
+            main = (q, k, v, out, dout, lse)
+        del q, k, v, dout, out, lse, got, want
+    return worst_abs, worst, main
+
+
+def mha_bwd_times(torch, flush, main) -> dict:
+    """mha_bwd at the main path's shape: kernel, plain, bound from its
+    declared cost; beside them this port's forward + backward through
+    MhaFunction and F.scaled_dot_product_attention's (autograd, the
+    library yardstick), each with dout given."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import (mha, mha_bwd_cuda,
+                                                     mha_bwd_plain)
+    q, k, v, out, dout, lse = main
+    t = dict(ms=cuda_ms(torch, lambda: mha_bwd_cuda(q, k, v, out, dout, lse),
+                        flush),
+             plain_ms=cuda_ms(torch, lambda: mha_bwd_plain(q, k, v, out,
+                                                           dout, lse), flush))
+    cost = dispatch.declared_cost("mha_bwd", q, k, v, out, dout, lse)
+    t["bound_ms"], t["bound_by"] = bound(cost.bytes, cost.ops,
+                                         PEAK_OPS_PER_S[cost.rate])
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    t["tflops"] = cost.ops / t["ms"] / 1e9
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def ours():
+        torch.autograd.grad(mha(qg, kg, vg), (qg, kg, vg), dout)
+
+    def library():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True, enable_gqa=True), (qg, kg, vg), dout)
+    t["fwd_bwd_ms"] = cuda_ms(torch, ours, flush)
+    t["library_ms"] = cuda_ms(torch, library, flush)
+    return t
+
+
+def int_matmul_train_times(torch, flush) -> dict:
+    """int_matmul at the training path's M = B * S = 8192 (granite's MLP
+    shapes): kernel, plain, bound, torch._int_mm."""
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+    for k, n in TRAIN_MLP_SHAPES:
+        a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        t = dict(ms=cuda_ms(torch, lambda: int_matmul_cuda(a, b), flush),
+                 plain_ms=cuda_ms(torch, lambda: int_matmul_plain(a, b),
+                                  flush),
+                 library_ms=cuda_ms(torch, lambda: torch._int_mm(a, b),
+                                    flush))
+        t["bound_ms"], t["bound_by"] = bound(
+            m * k + k * n + 4 * m * n, 2 * m * k * n, PEAK_INT8_OPS_PER_S)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["tops"] = 2 * m * k * n / t["ms"] / 1e9
+        out[f"{m}x{k}x{n}"] = t
+    return out
+
+
+def lm_train_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 10: granite-3-8b at full width (8 of 40 layers, bf16, remat
+    full) trained through repro_torch.launch.train.train, with checks
+    (a)-(g) of the module docstring; returns the launch
+    counts, times and errors for the kernel table."""
+    import tempfile
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.kernels.flash_attention import mha_plain
+    from repro_torch.train.loop import value_and_grad
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    full = dict(reduced=False, overrides={"n_layers": TRAIN_LAYERS},
+                device="cuda")
+    res = {}
+
+    # (a), (b): the kernels against their plain versions at full width
+    torch.cuda.empty_cache()
+    say(f"train: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held by "
+        f"the earlier phases at the start of phase 10")
+    res["bwd_abs_err"], res["bwd_err"], main = check_mha_bwd(torch, dev, gen)
+    flush = L2Flush(torch)
+    res["bwd"] = mha_bwd_times(torch, flush, main)
+    del main
+    res["int_matmul"] = int_matmul_train_times(torch, flush)
+    del flush
+    bt = res["bwd"]
+    say(f"timing: flash_attention_bwd bf16 [{TRAIN_BATCH}, 32, {TRAIN_SEQ}, "
+        f"128] over 16 KV heads, causal: kernel {bt['ms']:.3f} ms "
+        f"({bt['tflops']:.1f} TFLOP/s of the 5 products; bound "
+        f"{bt['bound_ms']:.4f} ms by {bt['bound_by']}, "
+        f"{100 * bt['bound_share']:.1f}%), plain {bt['plain_ms']:.3f} ms; "
+        f"forward + backward: this port's {bt['fwd_bwd_ms']:.3f} ms, "
+        f"F.scaled_dot_product_attention's {bt['library_ms']:.3f} ms "
+        f"(on {smi})")
+    for shape, t in res["int_matmul"].items():
+        say(f"timing: int_matmul {shape}: kernel {t['ms']:.4f} ms "
+            f"({t['tops']:.0f} TOP/s, {100 * t['bound_share']:.1f}% of the "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}), plain "
+            f"{t['plain_ms']:.3f} ms, torch._int_mm {t['library_ms']:.4f} "
+            f"ms (on {smi})")
+
+    # (c): step 1's loss and gradients against plain attention under
+    # autograd, on the same weights and batch
+    cfg, model, opt, step_fn = launch_train.build(TRAIN_ARCH, **full)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    params.trainable_()
+    batch = MarkovCorpus(cfg.vocab_size, seed=SEED).batch(TRAIN_BATCH,
+                                                          TRAIN_SEQ)
+    loss_k, grads_k = value_and_grad(model, params, batch)
+    kernel_mha = attention_mod.mha
+    attention_mod.mha = mha_plain           # the check's plain attention
+    try:
+        loss_p, grads_p = value_and_grad(model, params, batch)
+    finally:
+        attention_mod.mha = kernel_mha
+    errs = {n: _leaf_rel(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    dloss = abs(float(loss_k) - float(loss_p))
+    say(f"train: step 1 at full width, kernels against plain attention "
+        f"under autograd: loss {float(loss_k):.5f} / {float(loss_p):.5f} "
+        f"(|d| {dloss:.3g} <= {TRAIN_LOSS_ATOL}); worst leaf "
+        f"{worst[0]} at {worst[1]:.3g} (<= {TRAIN_GRAD_RTOL} of its norm)")
+    if not dloss <= TRAIN_LOSS_ATOL or not worst[1] <= TRAIN_GRAD_RTOL:
+        fail("train: the kernels' step-1 loss or gradients are off the "
+             "plain attention's")
+    dead = [n for n in grads_k if n.rsplit(".", 1)[-1] in
+            ("wq", "wk", "wv", "wo") and not torch.any(grads_k[n])]
+    if dead:
+        fail(f"train: attention weights with a zero gradient: {dead}")
+    res["step1_loss_err"], res["step1_grad_err"] = dloss, worst[1]
+    del params, grads_k, grads_p, loss_k, loss_p
+
+    # (d), (e): 5 steps through the entry point, counts exact
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses, corpus = launch_train.train(
+        TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR, seed=SEED, log_every=1, **full)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(dispatch.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"mha": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                "mha_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    say(f"train: {TRAIN_ARCH} d_model {cfg.d_model}, {TRAIN_LAYERS} of 40 "
+        f"layers, bf16, remat {cfg.remat}, B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+        f"AdamW lr {TRAIN_LR}: {TRAIN_STEPS} steps through launch.train in "
+        f"{wall:.2f} s (init included), losses {losses}, peak "
+        f"{peak / 2 ** 30:.2f} GiB allocated; launch counts {counts} "
+        f"(expected {expected})")
+    if counts != expected:
+        fail(f"train: launch counts {counts} != {expected}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"train: losses {losses} not finite or not falling")
+    res.update(counts=counts, losses=losses, peak_bytes=peak)
+
+    # timing and the profile: steps on the trained weights
+    opt_state = opt.init(params)
+    batch = corpus.batch(TRAIN_BATCH, TRAIN_SEQ)
+    params, opt_state, _ = step_fn(params, opt_state, batch)    # warm
+    torch.cuda.synchronize()
+    tot, fb, up = [], [], []
+    for _ in range(TRAIN_TIMED_STEPS):       # the step as launch.train runs it
+        t0 = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        tot.append(time.perf_counter() - t0)
+    for _ in range(TRAIN_TIMED_STEPS):       # its split, each part synchronised
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.update(grads, opt_state, params)
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        up.append(time.perf_counter() - t1)
+        del grads
+    step_ms = statistics.median(tot) * 1e3
+    res.update(step_ms=step_ms, fwd_bwd_ms=statistics.median(fb) * 1e3,
+               update_ms=statistics.median(up) * 1e3,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3))
+    res["profile"] = device_profile(
+        torch, lambda: step_fn(params, opt_state, batch), top=8)
+    say(f"train: {step_ms:.1f} ms a step (step_fn, median of "
+        f"{TRAIN_TIMED_STEPS}, host clock, synchronised), "
+        f"{res['tokens_per_s']:.0f} tokens/s; timed apart: forward + "
+        f"backward {res['fwd_bwd_ms']:.1f} ms, AdamW "
+        f"{res['update_ms']:.1f} ms (on {smi})")
+    say(f"profile: one train step: {res['profile']}")
+    del params, opt_state
+
+    # (f): the paper's two techniques, 2 steps
+    dispatch.reset_launch_counts()
+    params, q_losses, _ = launch_train.train(
+        TRAIN_ARCH, steps=TRAIN_QUANT_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED, log_every=1,
+        quantize_dense=True, lut_activations=True, **full)
+    torch.cuda.synchronize()
+    q_counts = dict(dispatch.launch_counts)
+    q_expected = {"int_matmul": 6 * TRAIN_LAYERS * TRAIN_QUANT_STEPS,
+                  "mha": 2 * TRAIN_LAYERS * TRAIN_QUANT_STEPS,
+                  "mha_bwd": TRAIN_LAYERS * TRAIN_QUANT_STEPS}
+    _, qmodel, _, _ = launch_train.build(
+        TRAIN_ARCH, quantize_dense=True, lut_activations=True, **full)
+    _, q_grads = value_and_grad(qmodel, params,
+                                corpus.batch(TRAIN_BATCH, TRAIN_SEQ))
+    gates = [n for n in q_grads if n.endswith(".gate")]
+    live_gates = [n for n in gates if torch.any(q_grads[n])]
+    dead_ups = [n for n in q_grads if n.endswith(".up")
+                and not torch.any(q_grads[n])]
+    say(f"train: quantize_dense + lut_activations, {TRAIN_QUANT_STEPS} "
+        f"steps: losses {q_losses}, launch counts {q_counts} (expected "
+        f"{q_expected}: 3 int_matmul per layer in the forward and again in "
+        f"its recompute); {len(gates)} gate gradients, {len(live_gates)} "
+        f"nonzero (expected 0); up gradients all nonzero: {not dead_ups}")
+    if q_counts != q_expected:
+        fail(f"train: quantized launch counts {q_counts} != {q_expected}")
+    if not np.all(np.isfinite(q_losses)) or live_gates or dead_ups:
+        fail("train: quantized losses not finite, a gate gradient not 0 or "
+             "an up gradient 0")
+    res["quant_counts"] = q_counts
+    del params, q_grads
+
+    # (g): a reduced resume on the card retraces the uninterrupted run
+    red = dict(steps=4, batch=2, seq=64, seed=SEED, ckpt_every=2,
+               log_every=100, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        a, la, _ = launch_train.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/a", **red)
+        launch_train.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/b",
+                           **dict(red, steps=2))
+        b, lb, _ = launch_train.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", **red)
+    same_params = all(torch.equal(x, y) for x, y in
+                      zip(a.parameters(), b.parameters()))
+    say(f"train: reduced {TRAIN_ARCH} resumed at step 2 on the card: steps "
+        f"3-4 losses {lb} against the uninterrupted {la[2:]}, params equal:"
+        f" {same_params}")
+    if lb != la[2:] or not same_params:
+        fail("train: the resumed run differs from the uninterrupted one")
+    say(f"train: phase 10 in {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return res
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -2747,6 +3110,10 @@ def main() -> int:
         {"lin": (X, y), "log": (Xc, yc), "kme": kme_ds.X}, smi)
     say(f"service: phase 9 in {time.perf_counter() - t0:.1f} s on {smi}")
 
+    # -- 10. LM training at full width ---------------------------------------
+    lm_train = lm_train_on_card(torch, dispatch, smi)
+    bt = lm_train["bwd"]
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -2794,6 +3161,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/int_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:43",
          "launches": lm["counts"]["int_matmul"], "max_abs_err": err_mm,
+         "train_launches": lm_train["quant_counts"]["int_matmul"],
+         "train": lm_train["int_matmul"],
          "shape": [lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
          **lt["int_matmul", lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
          "decode": {f"{k}x{n}": lt["int_matmul", 1, k, n]
@@ -2807,7 +3176,23 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
          "launches": lm["counts"]["mha"], "max_abs_err": err_fa,
+         "train_launches": lm_train["counts"]["mha"],
          "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": None,
+         "note": "no Pallas backward exists: the reference differentiates "
+                 "its XLA attention (src/repro/models/attention.py:151-186)"
+                 " with jax.grad",
+         "launches": lm_train["counts"]["mha_bwd"],
+         "max_abs_err": lm_train["bwd_abs_err"],
+         "max_rel_err": lm_train["bwd_err"],
+         "shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128], "kv_heads": 16,
+         "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+         "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+         "library_ms": bt["library_ms"],
+         "library": "F.scaled_dot_product_attention forward + backward",
+         "fwd_bwd_ms": bt["fwd_bwd_ms"]},
     ]
     for k in kernels:
         op = "gini_split" if k["name"] == "gini_counts" else k["name"]
@@ -2820,6 +3205,9 @@ def main() -> int:
         name: {k: lm[name][k] for k in ("tokens_per_s", "ttft_ms",
                                         "prefill_ms", "decode_ms", "wall_s")}
         for name in ("on", "off")}))
+    say("train: " + json.dumps({k: lm_train[k] for k in (
+        "losses", "step_ms", "fwd_bwd_ms", "update_ms", "tokens_per_s",
+        "peak_bytes")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,16 @@ kernel stages it in shared memory or reads it from global memory
 (:mod:`repro_torch.kernels.lut_activation`).  This module keeps the
 functional core: the table builder (numpy, as in the reference), the
 plain fixed-point lookup, and the Taylor-series sigmoid of LOG-INT32.
+
+It also holds the LM stack's activation LUTs (:class:`ActivationLut`,
+``silu_lut``, ``gelu_lut``): the paper's Recommendation #5 applied to
+SiLU and GELU under ``lut_activations``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -89,3 +94,61 @@ def taylor_sigmoid_fixed(x_q: torch.Tensor, frac_bits: int,
     pos = torch.div(torch.full_like(e, 1 << (2 * frac_bits)),
                     torch.clamp(one + e, min=1), rounding_mode="floor")
     return torch.where(x_q < 0, one - pos, pos)
+
+
+# ---------------------------------------------------------------------------
+# Generic activation LUT for the LM stack (beyond-paper application).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ActivationLut:
+    """Uniform-grid LUT for an activation over [x_min, x_max] (port of the
+    reference's ``ActivationLut``).
+
+    The table is built in float64 numpy and stored float32; a lookup takes
+    entry ``round((x - x_min) / (x_max - x_min) * (n - 1))``, clipped to
+    the table, and returns it in x's dtype.  The index is an integer, so
+    no gradient reaches x (``jax.grad`` gives exactly 0 there).
+    """
+
+    table: np.ndarray  # float32 [n_entries]
+    x_min: float
+    x_max: float
+
+    def __post_init__(self):
+        self._on: dict = {}   # the table as a tensor, per device
+
+    @classmethod
+    def from_fn(cls, fn: Callable, x_min: float = -8.0, x_max: float = 8.0,
+                n_entries: int = 4096) -> "ActivationLut":
+        xs = np.linspace(x_min, x_max, n_entries, dtype=np.float64)
+        table = np.asarray(fn(xs), dtype=np.float32)
+        return cls(table, float(x_min), float(x_max))
+
+    def table_on(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = torch.from_numpy(self.table).to(device)
+        return t
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        table = self.table_on(x.device)
+        n = table.shape[0]
+        with torch.no_grad():
+            t = (x.to(torch.float32) - self.x_min) / (self.x_max - self.x_min)
+            idx = torch.clamp(torch.round(t * (n - 1)), 0, n - 1).long()
+        return table[idx].to(x.dtype)
+
+
+def silu_lut(n_entries: int = 4096) -> ActivationLut:
+    return ActivationLut.from_fn(lambda x: x / (1.0 + np.exp(-x)),
+                                 x_min=-12.0, x_max=12.0, n_entries=n_entries)
+
+
+def gelu_lut(n_entries: int = 4096) -> ActivationLut:
+    # tanh-form GELU, as the reference
+    c = np.sqrt(2.0 / np.pi)
+    return ActivationLut.from_fn(
+        lambda x: 0.5 * x * (1 + np.tanh(c * (x + 0.044715 * x ** 3))),
+        x_min=-12.0, x_max=12.0, n_entries=n_entries)

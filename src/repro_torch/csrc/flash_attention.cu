@@ -65,6 +65,9 @@
 // D / 32 columns of the 8 accumulators, taking p from the key's lane by
 // shuffle.  Equal to ref.py::attention_ref within float32 rounding.
 //
+// Both kernels can also write each row's log-sum-exp (the backward's
+// input; see the entry points below).
+//
 // ptxas -v (sm_90a, nvcc 12.9): flash_attention_bf16 138 registers (D
 // padded to 128) / 107 (64), no spills, 132,152 / 66,616 bytes of dynamic
 // shared memory; flash_attention_kernel (float32) 80-128 registers, 8
@@ -110,9 +113,10 @@ template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int hq, int group, int sq, int skv, int d,
-                           Strides qs, Strides ks, Strides vs, float scale,
-                           int causal, int q_offset, int window) {
+                           float* __restrict__ lse, int hq, int group,
+                           int sq, int skv, int d, Strides qs, Strides ks,
+                           Strides vs, float scale, int causal, int q_offset,
+                           int window) {
   constexpr int kCols = DP / 32;   // accumulator columns per lane
   constexpr int kKStride = DP + 4; // padded key rows
   extern __shared__ float4 smem4[];
@@ -220,6 +224,8 @@ __global__ void __launch_bounds__(kThreads)
     const int r = q0 + row0 + i;
     if (r >= sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<long long>(bh) * sq + r] = m[i] + logf(li);
     T* o = out + (static_cast<long long>(bh) * sq + r) * d;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -231,7 +237,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP, typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int batch, int hq, int group, int sq, int skv, int d,
+                 float* lse, int batch, int hq, int group, int sq, int skv,
+                 int d,
                  Strides qs, Strides ks, Strides vs, float scale, int causal,
                  int q_offset, int window, cudaStream_t s) {
   constexpr size_t kSmem =
@@ -244,27 +251,31 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * hq);
   kernel<<<grid, kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, group, sq, skv, d,
-      qs, ks, vs, scale, causal, q_offset, window);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hq, group, sq,
+      skv, d, qs, ks, vs, scale, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int hq, int group, int sq, int skv, int d, Strides qs, Strides ks,
-           Strides vs, float scale, int causal, int q_offset, int window,
-           cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int hq, int group, int sq, int skv, int d, Strides qs,
+           Strides ks, Strides vs, float scale, int causal, int q_offset,
+           int window, cudaStream_t s) {
   if (d <= 32)
-    return launch_typed<32, T>(q, k, v, out, batch, hq, group, sq, skv, d, qs,
-                               ks, vs, scale, causal, q_offset, window, s);
+    return launch_typed<32, T>(q, k, v, out, lse, batch, hq, group, sq, skv,
+                               d, qs, ks, vs, scale, causal, q_offset, window,
+                               s);
   if (d <= 64)
-    return launch_typed<64, T>(q, k, v, out, batch, hq, group, sq, skv, d, qs,
-                               ks, vs, scale, causal, q_offset, window, s);
+    return launch_typed<64, T>(q, k, v, out, lse, batch, hq, group, sq, skv,
+                               d, qs, ks, vs, scale, causal, q_offset, window,
+                               s);
   if (d <= 96)
-    return launch_typed<96, T>(q, k, v, out, batch, hq, group, sq, skv, d, qs,
-                               ks, vs, scale, causal, q_offset, window, s);
-  return launch_typed<128, T>(q, k, v, out, batch, hq, group, sq, skv, d, qs,
-                              ks, vs, scale, causal, q_offset, window, s);
+    return launch_typed<96, T>(q, k, v, out, lse, batch, hq, group, sq, skv,
+                               d, qs, ks, vs, scale, causal, q_offset, window,
+                               s);
+  return launch_typed<128, T>(q, k, v, out, lse, batch, hq, group, sq, skv,
+                              d, qs, ks, vs, scale, causal, q_offset, window,
+                              s);
 }
 
 // ---- bf16: the tensor cores ------------------------------------------------
@@ -274,6 +285,7 @@ constexpr int kFaBN = 64;       // keys per K / V tile
 constexpr int kFaStages = 3;    // K / V ring
 constexpr int kFaThreads = 288; // two consumer warpgroups + the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInfL2 = kNegInf * kLog2e;  // NEG_INF in exp2's domain
 
 // which of a view's 4-D tensor-map dims (1-3) hold S, H and B
@@ -347,7 +359,8 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
-                         __nv_bfloat16* __restrict__ out, int hq, int group,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int hq, int group,
                          int sq, int skv, int d, MapDims qd, MapDims kd,
                          MapDims vd, float scale_log2, int causal,
                          int q_offset, int window) {
@@ -516,12 +529,19 @@ __global__ void __launch_bounds__(kFaThreads, 1)
   }
   if (!has_rows) return;
 
-  const float inv[2] = {1.f / fmaxf(quad_sum(l_a), 1e-30f),
-                        1.f / fmaxf(quad_sum(l_b), 1e-30f)};
+  const float l_row[2] = {fmaxf(quad_sum(l_a), 1e-30f),
+                          fmaxf(quad_sum(l_b), 1e-30f)};
+  const float inv[2] = {1.f / l_row[0], 1.f / l_row[1]};
+  const float m_row[2] = {m_a, m_b};
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = row_a + 8 * hf;
     if (row >= sq) continue;
+    // the log-sum-exp in natural-log units: m is in log2 units of the
+    // scaled scores
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<long long>(bh) * sq + row] =
+          m_row[hf] * kLn2 + logf(l_row[hf]);
     __nv_bfloat16* o_row = out + (static_cast<long long>(bh) * sq + row) * d;
 #pragma unroll
     for (int j = 0; j < kOut / 4; ++j) {
@@ -578,9 +598,10 @@ int map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int batch,
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int batch, int hq, int hkv, int sq, int skv, int d, int d_out,
-                Strides qs, Strides ks, Strides vs, float scale, int causal,
-                int q_offset, int window, cudaStream_t s) {
+                float* lse, int batch, int hq, int hkv, int sq, int skv,
+                int d, int d_out, Strides qs, Strides ks, Strides vs,
+                float scale, int causal, int q_offset, int window,
+                cudaStream_t s) {
   constexpr int kSmem = kFaBM * DP * 2 + 2 * kFaStages * kFaBN * DP * 2 +
                         (1 + 2 * kFaStages) * 8 + 1024;
   CUtensorMap tq, tk, tv;
@@ -597,8 +618,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((sq + kFaBM - 1) / kFaBM, batch * hq);
   kernel<<<grid, kFaThreads, kSmem, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, skv,
-      d_out, qd, kd, vd, scale * kLog2e, causal, q_offset, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, hq, hq / hkv, sq,
+      skv, d_out, qd, kd, vd, scale * kLog2e, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,7 +630,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // sm90::kErrEncode (-1 / -2) when a TMA tensor map cannot be made.  The
 // caller checks types, shapes, that D is contiguous, 1 <= D <= 128,
 // Hq % Hkv == 0, B * Hq <= 65535, q_offset >= 0 and window >= 0.  Strides
-// are in elements, in the order b, h, s.
+// are in elements, in the order b, h, s.  lse, when not null, receives the
+// float32 log-sum-exp [B, Hq, Sq] of each row's scaled scores in natural-log
+// units (ln sum_j exp(s_ij)), which the backward (flash_attention_bwd.cu)
+// reads; with a null lse the kernels do exactly what they did without it.
 
 // float32 q, k, v on the CUDA cores
 extern "C" int flash_attention_f32_launch(
@@ -617,12 +641,12 @@ extern "C" int flash_attention_f32_launch(
     int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
-    int q_offset, int window, void* stream) {
+    int q_offset, int window, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss};
-  return launch<float>(q, k, v, out, batch, hq, hq / hkv, sq, skv, d, qs, ks,
-                       vs, scale, causal, q_offset, window, s);
+  return launch<float>(q, k, v, out, lse, batch, hq, hq / hkv, sq, skv, d, qs,
+                       ks, vs, scale, causal, q_offset, window, s);
 }
 
 // bf16 q, k, v on the tensor cores: 16-byte aligned, every stride of a dim
@@ -634,13 +658,15 @@ extern "C" int flash_attention_bf16_launch(
     int hkv, int sq, int skv, int d, int d_out, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
-    int q_offset, int window, void* stream) {
+    int q_offset, int window, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss};
   if (d <= 64)
-    return launch_bf16<64>(q, k, v, out, batch, hq, hkv, sq, skv, d, d_out,
-                           qs, ks, vs, scale, causal, q_offset, window, s);
-  return launch_bf16<128>(q, k, v, out, batch, hq, hkv, sq, skv, d, d_out, qs,
-                          ks, vs, scale, causal, q_offset, window, s);
+    return launch_bf16<64>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,
+                           d_out, qs, ks, vs, scale, causal, q_offset, window,
+                           s);
+  return launch_bf16<128>(q, k, v, out, lse, batch, hq, hkv, sq, skv, d,
+                          d_out, qs, ks, vs, scale, causal, q_offset, window,
+                          s);
 }

@@ -11,5 +11,6 @@
   gini_split      ``gini_split`` (split-evaluate counts of DTR)
   sparse_gather   ``emb_gather`` and ``emb_scatter_add`` (the sharded
                   embedding row lookup and update of EMB)
-  flash_attention ``mha`` (GQA attention forward of LM prefill)
+  flash_attention ``mha`` (GQA attention forward of LM prefill and
+                  training) and ``mha_bwd`` (its gradient, for training)
 """

@@ -1,11 +1,13 @@
 """Model facade of the LM stack (port of ``repro.models.api``, dense family).
 
-``Model(cfg, device)`` exposes init / forward / prefill / decode_step /
-init_cache.  Parameters are a :class:`~repro_torch.models.layers.Params`
-tree whose names are the reference's dict keys, one group per layer under
-``layers``.  :func:`params_from_jax` builds that tree from the reference's
-parameters (as numpy arrays), so both packages can compute the same
-function from the same weights.
+``Model(cfg, device)`` exposes init / loss / forward / prefill /
+decode_step / init_cache.  Parameters are a
+:class:`~repro_torch.models.layers.Params` tree whose names are the
+reference's dict keys, one group per layer under ``layers``.
+:func:`params_from_jax` builds that tree from the reference's parameters
+(as numpy arrays), so both packages can compute the same function from the
+same weights; given the reference's gradient tree (``jax.grad``'s output,
+the same structure) it returns the gradients under the port's names.
 
 Init draws from a ``torch.Generator`` on the target device: the
 reference's threefry stream cannot be reproduced, and LM parity goes
@@ -52,7 +54,14 @@ class Model:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device)
 
-    # -- training-style forward -------------------------------------------------
+    # -- training -----------------------------------------------------------------
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["targets"]`` (float32 scalar)."""
+        return transformer.lm_loss(self.cfg, params,
+                                   self._tokens(batch["tokens"]),
+                                   self._tokens(batch["targets"]))
+
     def forward(self, params: Params, batch: dict) -> torch.Tensor:
         logits, _ = transformer.lm_forward(self.cfg, params,
                                            self._tokens(batch["tokens"]))
@@ -97,7 +106,9 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
     """The reference's parameter tree (``init_lm``'s dict, leaves as numpy
     arrays) as the port's: the scanned ``unit`` axis ``[reps, ...]`` is
     unstacked into one group per layer, layer ``r * len(unit) + u`` from
-    rep ``r`` of unit slot ``u``."""
+    rep ``r`` of unit slot ``u``.  A gradient tree of the same structure
+    converts the same way (``named_parameters()`` then pairs each
+    gradient with the port's leaf of that name)."""
     transformer.check_ported(cfg)
     dev = resolve_device(device)
     unit, reps = transformer.unit_pattern(cfg)

@@ -6,9 +6,12 @@ Conventions, as in the reference:
   - matmuls run in the config dtype (bf16 by default) with float32
     normalization statistics;
   - ``quantize_dense`` routes every MLP linear through the int8 path
-    (``models/quantized.py``), the paper's LIN-HYB analogue.  The LUT
-    activations (``lut_activations``, the LOG-LUT analogue) are not
-    ported yet and raise.
+    (``models/quantized.py``), the paper's LIN-HYB analogue, and
+    ``lut_activations`` runs SiLU/GELU as table lookups (``core/lut.py``),
+    the LOG-LUT analogue.
+
+:class:`Params` leaves never require a gradient until a trainer asks for
+them with :meth:`Params.trainable_`, so serving builds no graph.
 """
 from __future__ import annotations
 
@@ -20,9 +23,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-#: ROADMAP item that ports the LUT activations of the LM stack
-LUT_TODO = ("lut_activations (silu/gelu LUTs) are not ported yet: ROADMAP "
-            "queue 1 item 12")
+from ..core.lut import ActivationLut, gelu_lut, silu_lut
+
+# Module-level LUTs, built once (16 KB each), as the reference's.
+_ACT_LUTS: dict[str, ActivationLut] = {}
+
+
+def _get_act_lut(name: str) -> ActivationLut:
+    if name not in _ACT_LUTS:
+        _ACT_LUTS[name] = {"silu": silu_lut, "gelu": gelu_lut}[name]()
+    return _ACT_LUTS[name]
 
 
 class Params(nn.Module):
@@ -44,11 +54,19 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def trainable_(self) -> "Params":
+        """Let every floating-point leaf require a gradient, in place;
+        returns self."""
+        for p in self.parameters():
+            if p.is_floating_point():
+                p.requires_grad_(True)
+        return self
+
 
 def activation(x: torch.Tensor, name: str, lut: bool = False
                ) -> torch.Tensor:
     if lut:
-        raise NotImplementedError(LUT_TODO)
+        return _get_act_lut(name)(x)
     if name == "silu":
         return F.silu(x)
     if name == "gelu":

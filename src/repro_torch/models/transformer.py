@@ -3,25 +3,28 @@
 
 The reference scans a stacked repeating unit with ``lax.scan``; the port
 keeps one parameter group per layer (``params["layers"][i]``) and loops
-over them in Python.  Modes: the training-style forward, prefill (writes
-the KV caches) and single-token decode.
+over them in Python.  Modes: the training forward and ``lm_loss``,
+prefill (writes the KV caches) and single-token decode.  With
+``cfg.remat == "full"`` the training forward checkpoints each layer (the
+reference checkpoints each scanned unit): its activations are recomputed
+in the backward.
 
 Only the dense family is ported: any other block type (moe, mlstm, slstm,
-hymba, cross) raises ``NotImplementedError``, as do ``lut_activations``.
+hymba, cross) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
 from .attention import (AttnSpec, KVCache, _project_qkv, _sdpa, attention,
                         attention_decode, init_attention, init_kv_cache,
                         plan_heads, quantize_kv)
-from .layers import (LUT_TODO, Params, dense_init, embed_init, init_mlp, mlp,
-                     rms_norm)
+from .layers import Params, dense_init, embed_init, init_mlp, mlp, rms_norm
 
 FULL_WINDOW = 1 << 30
 #: ROADMAP item that ports the other block types
@@ -34,8 +37,6 @@ def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
     if cfg.family != "dense":
         raise NotImplementedError(BLOCKS_TODO.format(bt=cfg.family))
-    if cfg.lut_activations:
-        raise NotImplementedError(LUT_TODO)
 
 
 def attn_spec(cfg: ArchConfig, tp: int = 16) -> AttnSpec:
@@ -158,13 +159,37 @@ def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = 0.0
     for p, bt, win in zip(params["layers"], cfg.layer_pattern(),
                           _layer_windows(cfg)):
-        x, a = apply_block_train(p, cfg, bt, x, positions, win)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                apply_block_train, p, cfg, bt, x, positions, win,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = apply_block_train(p, cfg, bt, x, positions, win)
         aux += a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(x.dtype), aux
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
+            targets: torch.Tensor, aux_weight: float = 0.01
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over the real vocab (the
+    padded columns at -1e30), plus ``aux_weight`` times the blocks' aux
+    loss."""
+    logits, aux = lm_forward(cfg, params, tokens)
+    logits = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll + aux_weight * aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,

@@ -1,3 +1,4 @@
-"""Training infrastructure shared by the job runtime: atomic checkpoints
-(:mod:`~repro_torch.train.checkpoint`) and the straggler monitor
-(:mod:`~repro_torch.train.fault_tolerance`)."""
+"""Training infrastructure: atomic checkpoints
+(:mod:`~repro_torch.train.checkpoint`), straggler detection and recovery
+(:mod:`~repro_torch.train.fault_tolerance`) and the LM training steps
+(:mod:`~repro_torch.train.loop`)."""

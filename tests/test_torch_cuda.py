@@ -1349,3 +1349,210 @@ def test_serve_captures_on_its_thread_while_the_caller_uses_the_card(cuda):
         wl = get_workload(workload)
         want = wl.fit(system.put(X, y), wl.spec(version, **params))
         assert smoke.same_fit(h.result, want), name
+
+
+# -- LM training: the forward's lse, the attention backward, a train step ----
+
+#: mha_bwd against mha_bwd_plain, as max abs error over max |reference|:
+#: float32 in other summation orders (~1e-6 of the size; 1e-4 leaves room
+#: for dS = P (dP - delta) cancelling); bf16 outputs round to bf16 (2**-8
+#: of a value) after float32 arithmetic in both
+BWD_F32_RTOL, BWD_BF16_RTOL = 1e-4, 1e-2
+#: the forward's lse against the plain logsumexp (|lse| <= ~10): float32
+#: in other orders; the bf16 kernel takes exp2 on the special-function
+#: unit (ex2.approx, ~2**-22 relative)
+LSE_F32_ATOL, LSE_BF16_ATOL = 2e-5, 1e-4
+#: MhaFunction's gradients against autograd of the plain version: as
+#: BWD_F32_RTOL in float32; in bf16 the forward kernel also rounds P to
+#: bf16 for P V (MHA_BF16_ATOL on out), which moves delta = rowsum(dO out)
+MHA_GRAD_F32_RTOL, MHA_GRAD_BF16_RTOL = 1e-4, 3e-2
+
+
+def _np_qkv(seed, b, hq, hkv, sq, skv, d, dtype, dev):
+    """q, k, v drawn with numpy, as _project_qkv's transposed views."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.normal(0, 1, (b, s, h, d))
+                             .astype(np.float32)).to(dev, dtype)
+            .transpose(1, 2)
+            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=2, hq=8, hkv=2, sq=77, skv=77, d=64),
+    dict(b=1, hq=4, hkv=4, sq=300, skv=300, d=128, causal=False),
+    dict(b=1, hq=4, hkv=2, sq=5, skv=260, d=80, q_offset=255, window=64),
+    dict(b=1, hq=32, hkv=16, sq=1024, skv=1024, d=128),
+])
+def test_flash_attention_lse_matches_plain(cuda, dtype, case):
+    """With lse kept the kernel returns the same out as without it, and
+    lse the plain version's log-sum-exp."""
+    case = dict(case)
+    shape = [case.pop(n) for n in ("b", "hq", "hkv", "sq", "skv", "d")]
+    q, k, v = _np_qkv(sum(shape), *shape, dtype, cuda)
+    out = mha_cuda(q, k, v, **case)
+    out2, lse = mha_cuda(q, k, v, with_lse=True, **case)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    _, ref = mha_plain(q, k, v, with_lse=True, **case)
+    assert lse.dtype == torch.float32 and lse.shape == ref.shape
+    tol = LSE_BF16_ATOL if dtype == torch.bfloat16 else LSE_F32_ATOL
+    assert float((lse - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=2, hq=4, hkv=4, sq=77, skv=77, d=32),
+    dict(b=2, hq=4, hkv=2, sq=77, skv=77, d=64, causal=False),
+    dict(b=1, hq=8, hkv=2, sq=77, skv=77, d=80, window=20),
+    dict(b=1, hq=4, hkv=1, sq=77, skv=77, d=128),
+    dict(b=1, hq=4, hkv=2, sq=1024, skv=1024, d=128),
+    dict(b=1, hq=2, hkv=2, sq=1024, skv=1024, d=64, window=300),
+    dict(b=1, hq=4, hkv=2, sq=1024, skv=1024, d=32, causal=False),
+    dict(b=1, hq=4, hkv=4, sq=77, skv=1024, d=80, q_offset=947),
+    dict(b=2, hq=8, hkv=4, sq=5, skv=260, d=64, q_offset=255, window=64),
+    dict(b=1, hq=4, hkv=2, sq=1, skv=300, d=128, q_offset=299),
+])
+def test_mha_bwd_kernel_matches_plain(cuda, dtype, case):
+    """dq, dk, dv of the backward kernels against the explicit formula on
+    ragged lengths (77 and 1024), D = 32/64/80/128, GQA groups 1, 2 and
+    4, causal, windowed and not, Sq != Skv with q_offset; dout a strided
+    view as the model hands it over."""
+    case = dict(case)
+    shape = [case.pop(n) for n in ("b", "hq", "hkv", "sq", "skv", "d")]
+    q, k, v = _np_qkv(sum(shape) + 1, *shape, dtype, cuda)
+    out, lse = mha_plain(q, k, v, with_lse=True, **case)
+    b, hq, sq, d = q.shape
+    dout = torch.from_numpy(np.random.RandomState(7).normal(
+        0, 1, (b, sq, hq, d)).astype(np.float32)).to(
+            cuda, dtype).transpose(1, 2)
+    from repro_torch.kernels.flash_attention import (mha_bwd_cuda,
+                                                     mha_bwd_plain)
+    dispatch.reset_launch_counts()
+    got = mha_bwd_cuda(q, k, v, out, dout, lse, **case)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {"mha_bwd": 1}
+    want = mha_bwd_plain(q, k, v, out, dout, lse, **case)
+    tol = BWD_BF16_RTOL if dtype == torch.bfloat16 else BWD_F32_RTOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+    again = mha_bwd_cuda(q, k, v, out, dout, lse, **case)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=2, hq=8, hkv=4, sq=200, skv=200, d=128),
+    dict(b=1, hq=4, hkv=2, sq=77, skv=77, d=80, causal=False),
+])
+def test_mha_function_gradients_match_plain_autograd(cuda, dtype, case):
+    """mha() on CUDA tensors that need a gradient goes through
+    MhaFunction (one forward and one backward kernel launch) and its
+    gradients match autograd of the plain version on the card."""
+    from repro_torch.kernels.flash_attention import mha
+    case = dict(case)
+    shape = [case.pop(n) for n in ("b", "hq", "hkv", "sq", "skv", "d")]
+    grads = {}
+    for route in ("kernel", "plain"):
+        q, k, v = (t.detach().requires_grad_()
+                   for t in _np_qkv(3, *shape, dtype, cuda))
+        w = torch.from_numpy(np.random.RandomState(4).normal(
+            0, 1, q.shape).astype(np.float32)).to(cuda)
+        dispatch.reset_launch_counts()
+        fn = mha if route == "kernel" else mha_plain
+        loss = (fn(q, k, v, **case).float() * w).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[route] = (q.grad, k.grad, v.grad)
+        if route == "kernel":
+            assert dispatch.launch_counts == {"mha": 1, "mha_bwd": 1}
+    tol = MHA_GRAD_BF16_RTOL if dtype == torch.bfloat16 else \
+        MHA_GRAD_F32_RTOL
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        assert _rel_err(g, w) <= tol
+
+
+def test_mha_without_grad_keeps_the_serve_path(cuda):
+    """Without a gradient mha() launches the forward alone, no lse, no
+    autograd node."""
+    from repro_torch.kernels.flash_attention import mha
+    q, k, v = _np_qkv(1, 1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    dispatch.reset_launch_counts()
+    out = mha(q, k, v)
+    assert out.grad_fn is None
+    assert dispatch.launch_counts == {"mha": 1}
+
+
+#: a reduced float32 train step, card against CPU: loss and each gradient
+#: leaf in float32 in other orders (relative to the leaf's norm)
+STEP_LOSS_ATOL, STEP_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _lm_batch(vocab, b, s, seed=0):
+    from repro_torch.data.tokens import MarkovCorpus
+    return MarkovCorpus(vocab, seed=seed).batch(b, s)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step step of reduced granite-3-8b in float32 with
+    remat on (SGD, so the params move by the gradient): loss, every
+    gradient leaf and the updated params on the card against the CPU;
+    launches 2 mha (forward and recompute) and 1 mha_bwd per layer."""
+    from repro_torch.optim.adam import SGD
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    cfg = get_config("granite-3-8b").reduced(remat="full")
+    weights = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = _lm_batch(cfg.vocab_size, 2, 64)
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = copy.deepcopy(weights).to(device).trainable_()
+        loss, grads = value_and_grad(model, params, batch)
+        opt = SGD(lr=0.1)
+        dispatch.reset_launch_counts()
+        params, _, metrics = make_train_step(model, opt)(
+            params, opt.init(params), batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == {"mha": 2 * cfg.n_layers,
+                                              "mha_bwd": cfg.n_layers}
+        got[device] = (float(loss), {n: g.cpu() for n, g in grads.items()},
+                       {n: p.detach().cpu()
+                        for n, p in params.named_parameters()},
+                       float(metrics["loss"]))
+    (lg, gg, pg, mg), (lc, gc, pc, mc) = got["cuda"], got["cpu"]
+    assert abs(lg - lc) <= STEP_LOSS_ATOL and abs(mg - mc) <= STEP_LOSS_ATOL
+    for name in gc:
+        err = float((gg[name] - gc[name]).norm() / gc[name].norm())
+        assert err <= STEP_GRAD_RTOL, (name, err)
+        assert float((pg[name] - pc[name]).abs().max()) <= 0.1 * float(
+            (gg[name] - gc[name]).abs().max()) + 1e-6, name
+
+
+def test_attention_weights_get_gradients_on_the_card(cuda):
+    """A bf16 reduced step through the kernels: every wq, wk, wv, wo and
+    norm gradient is nonzero and finite (a constant attention would leave
+    wq, wk, wv and the norms under them at 0)."""
+    from repro_torch.train.loop import value_and_grad
+    cfg = get_config("qwen3-8b").reduced(dtype="bfloat16", remat="full")
+    model = Model(cfg, device="cuda")
+    params = Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).to(cuda).trainable_()
+    dispatch.reset_launch_counts()
+    loss, grads = value_and_grad(model, params,
+                                 _lm_batch(cfg.vocab_size, 2, 128))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {"mha": 2 * cfg.n_layers,
+                                      "mha_bwd": cfg.n_layers}
+    assert np.isfinite(float(loss))
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g.float()).all()), name
+        if name.split(".")[-1] in ("wq", "wk", "wv", "wo", "q_norm",
+                                   "k_norm", "norm1"):
+            assert float(g.float().abs().max()) > 0, name

@@ -114,9 +114,6 @@ def test_what_is_not_ported_raises():
         cfg = ArchConfig(**dataclasses.asdict(jget_config(arch).reduced()))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config("qwen3-8b").reduced(lut_activations=True),
-              device="cpu")
 
 
 # -- quantization -----------------------------------------------------------

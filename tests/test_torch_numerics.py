@@ -334,13 +334,14 @@ def test_dispatch_rejects_unknown_ops_and_placements():
     assert set(dispatch._OPS) == {"fx_matvec", "lut_sigmoid",
                                   "kmeans_assign", "gini_split",
                                   "emb_gather", "emb_scatter_add",
-                                  "int_matmul", "quant_matmul", "mha"}
+                                  "int_matmul", "quant_matmul", "mha",
+                                  "mha_bwd"}
 
 
 @pytest.mark.parametrize("op", ["fx_matvec", "lut_sigmoid", "kmeans_assign",
                                 "gini_split", "emb_gather",
                                 "emb_scatter_add", "int_matmul",
-                                "quant_matmul", "mha"])
+                                "quant_matmul", "mha", "mha_bwd"])
 def test_cuda_wrappers_refuse_cpu_tensors(op):
     """A CUDA wrapper launches or raises; it never computes on the CPU."""
     x = torch.zeros((4, 16), dtype=torch.int32)
@@ -363,6 +364,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(op):
         elif op == "mha":
             q = torch.zeros((1, 2, 4, 8))
             dispatch.get_op(op).cuda(q, q, q)
+        elif op == "mha_bwd":
+            q = torch.zeros((1, 2, 4, 8))
+            dispatch.get_op(op).cuda(q, q, q, q, q, torch.zeros((1, 2, 4)))
         else:
             gini_split_cuda(torch.zeros((2, 4, 16)), x[:2], x[:2],
                             torch.zeros((8, 16)), 2)
