@@ -125,7 +125,8 @@ Phases, in order; any failure exits non-zero:
               through repro_torch.launch.train.train:
               (a) flash_attention_bwd against its plain version at
                   [8, 32, 1024, 128] over 16 and 8 KV heads, a window, and
-                  float32 (TRAIN_BWD_*_RTOL of max |plain|); (b) the
+                  float32 (TRAIN_BWD_*_RTOL of max |plain|), two calls
+                  at the first shape bitwise equal; (b) the
                   forward with lse kept returns the same out, lse within
                   TRAIN_LSE_ATOL of the plain logsumexp; (c) step 1's loss
                   and every gradient leaf against the same step with plain
@@ -139,9 +140,12 @@ Phases, in order; any failure exits non-zero:
                   resumed at step 2 on the card: steps 3-4 and the params
                   equal the uninterrupted run's.  Printed: ms a step,
                   forward + backward against AdamW, tokens/s, peak memory,
-                  a profiled step's busy share and top kernels,
-                  flash_attention_bwd's ms, bound and SDPA's forward +
-                  backward, int_matmul at M = 8192
+                  a profiled step's busy share, top kernels and the
+                  backward kernels' share; flash_attention_bwd's ms
+                  (route wgmma bf16), bound, share of it, TFLOP/s, plain
+                  ms and SDPA's forward + backward; flash_attention's
+                  forward with lse at that shape beside SDPA's forward;
+                  int_matmul at M = 8192
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -1206,12 +1210,14 @@ def log_fit_z(dispatch, make_estimator, ds) -> dict:
     return {"first": seen[0], "last": seen[-1]}
 
 
-def device_profile(torch, fn, top: int = 6, host: bool = True) -> str:
+def device_profile(torch, fn, top: int = 6, host: bool = True,
+                   watch: str = "") -> str:
     """Run ``fn`` under torch.profiler: the device's busy share of the
     wall time ``fn`` took inside the profiler (its start-up and the trace's
     processing at exit excluded) and the kernels with the most device
     time.  ``host=False`` traces the device only, which leaves the
-    host's timings of ``fn`` nearly as they are."""
+    host's timings of ``fn`` nearly as they are.  ``watch``: also the
+    device time of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
@@ -1228,10 +1234,16 @@ def device_profile(torch, fn, top: int = 6, host: bool = True) -> str:
     busy_ms = sum(t for t, _, _ in kernels)
     if not kernels:
         return f"{wall_ms:.1f} ms wall, no device time traced"
+    watched = ""
+    if watch:
+        hits = [(t, n) for t, k, n in kernels if watch in k]
+        watched = (f"; kernels named *{watch}*: "
+                   f"{sum(t for t, _ in hits):.1f} ms in "
+                   f"{sum(n for _, n in hits)} launches")
     return (f"{wall_ms:.1f} ms wall under the profiler, device busy "
-            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); top: "
-            + "; ".join(f"{t:.1f} ms x{n} {k[:60]}"
-                        for t, k, n in kernels[:top]))
+            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%){watched}; "
+            f"top: " + "; ".join(f"{t:.1f} ms x{n} {k[:60]}"
+                                 for t, k, n in kernels[:top]))
 
 
 # -- the LM serving path (qwen3-8b) -------------------------------------------
@@ -2325,7 +2337,8 @@ def check_mha_bwd(torch, dev, gen) -> tuple[float, float, tuple]:
     """Checks (a) and (b): the forward with lse against itself without
     lse (equal out) and against the plain logsumexp; mha_bwd against
     mha_bwd_plain at the full-width shapes (the model's 16 padded KV heads
-    and granite's own 8), in float32 and with a window.  Returns the max
+    and granite's own 8), in float32 and with a window, and two calls at
+    the main shape bitwise equal.  Returns the max
     of the max abs errors, the max of the errors over max |reference|
     and the inputs of the main path's shape, for timing."""
     from repro_torch.kernels.flash_attention import (mha_bwd_cuda,
@@ -2361,6 +2374,12 @@ def check_mha_bwd(torch, dev, gen) -> tuple[float, float, tuple]:
             fail(f"flash_attention: {name}: lse off the plain logsumexp by "
                  f"{e_lse} > {TRAIN_LSE_ATOL}")
         got = mha_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        if main is None:    # no atomics: a second call is bitwise equal
+            again = mha_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                fail(f"flash_attention_bwd: {name}: two calls differ")
+            del again
         want = mha_bwd_plain(q, k, v, out, dout, lse, **kw)
         tol = TRAIN_BWD_BF16_RTOL if shape[-1] == bf16 else TRAIN_BWD_F32_RTOL
         errs = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -2373,6 +2392,7 @@ def check_mha_bwd(torch, dev, gen) -> tuple[float, float, tuple]:
                                        for g, w in zip(got, want)))
         say(f"kernels: flash_attention_bwd ~ plain, {name}: dq {errs[0]:.3g}"
             f", dk {errs[1]:.3g}, dv {errs[2]:.3g} of max |plain| (<= {tol})"
+            f"{'; two calls bitwise equal' if main is None else ''}"
             f"; forward out with lse == without, lse within {e_lse:.3g}")
         if main is None:
             main = (q, k, v, out, dout, lse)
@@ -2384,11 +2404,14 @@ def mha_bwd_times(torch, flush, main) -> dict:
     """mha_bwd at the main path's shape: kernel, plain, bound from its
     declared cost; beside them this port's forward + backward through
     MhaFunction and F.scaled_dot_product_attention's (autograd, the
-    library yardstick), each with dout given."""
+    library yardstick), each with dout given; and the forward kernel with
+    lse kept at that shape (``fwd``: kernel, plain, bound, SDPA's
+    forward)."""
     import torch.nn.functional as F
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import (mha, mha_bwd_cuda,
-                                                     mha_bwd_plain)
+                                                     mha_bwd_plain, mha_cuda,
+                                                     mha_plain)
     q, k, v, out, dout, lse = main
     t = dict(ms=cuda_ms(torch, lambda: mha_bwd_cuda(q, k, v, out, dout, lse),
                         flush),
@@ -2409,6 +2432,20 @@ def mha_bwd_times(torch, flush, main) -> dict:
             qg, kg, vg, is_causal=True, enable_gqa=True), (qg, kg, vg), dout)
     t["fwd_bwd_ms"] = cuda_ms(torch, ours, flush)
     t["library_ms"] = cuda_ms(torch, library, flush)
+
+    def sdpa_forward():
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+    fwd = dict(ms=cuda_ms(torch, lambda: mha_cuda(q, k, v, with_lse=True),
+                          flush),
+               plain_ms=cuda_ms(torch, lambda: mha_plain(q, k, v,
+                                                         with_lse=True),
+                                flush),
+               library_ms=cuda_ms(torch, sdpa_forward, flush))
+    cost = dispatch.declared_cost("mha", q, k, v, with_lse=True)
+    fwd["bound_ms"], fwd["bound_by"] = bound(cost.bytes, cost.ops,
+                                             PEAK_OPS_PER_S[cost.rate])
+    t["fwd"] = fwd
     return t
 
 
@@ -2466,15 +2503,20 @@ def lm_train_on_card(torch, dispatch, smi: str) -> dict:
     del main
     res["int_matmul"] = int_matmul_train_times(torch, flush)
     del flush
-    bt = res["bwd"]
-    say(f"timing: flash_attention_bwd bf16 [{TRAIN_BATCH}, 32, {TRAIN_SEQ}, "
-        f"128] over 16 KV heads, causal: kernel {bt['ms']:.3f} ms "
-        f"({bt['tflops']:.1f} TFLOP/s of the 5 products; bound "
-        f"{bt['bound_ms']:.4f} ms by {bt['bound_by']}, "
-        f"{100 * bt['bound_share']:.1f}%), plain {bt['plain_ms']:.3f} ms; "
-        f"forward + backward: this port's {bt['fwd_bwd_ms']:.3f} ms, "
-        f"F.scaled_dot_product_attention's {bt['library_ms']:.3f} ms "
+    bt, ft = res["bwd"], res["bwd"]["fwd"]
+    shape = f"[{TRAIN_BATCH}, 32, {TRAIN_SEQ}, 128] over 16 KV heads, causal"
+    say(f"timing: flash_attention_bwd (route: wgmma bf16) {shape}: kernel "
+        f"{bt['ms']:.4f} ms ({bt['tflops']:.1f} TFLOP/s of the 5 products; "
+        f"bound {bt['bound_ms']:.4f} ms by {bt['bound_by']}, "
+        f"{100 * bt['bound_share']:.1f}% of it), plain {bt['plain_ms']:.3f} "
+        f"ms; forward + backward: this port's {bt['fwd_bwd_ms']:.4f} ms, "
+        f"F.scaled_dot_product_attention's {bt['library_ms']:.4f} ms "
         f"(on {smi})")
+    say(f"timing: flash_attention (route: wgmma bf16) with lse, {shape}: "
+        f"kernel {ft['ms']:.4f} ms ({100 * ft['bound_ms'] / ft['ms']:.1f}% of "
+        f"the bound {ft['bound_ms']:.4f} ms by {ft['bound_by']}), plain "
+        f"{ft['plain_ms']:.3f} ms, F.scaled_dot_product_attention forward "
+        f"{ft['library_ms']:.4f} ms (on {smi})")
     for shape, t in res["int_matmul"].items():
         say(f"timing: int_matmul {shape}: kernel {t['ms']:.4f} ms "
             f"({t['tops']:.0f} TOP/s, {100 * t['bound_share']:.1f}% of the "
@@ -2565,7 +2607,8 @@ def lm_train_on_card(torch, dispatch, smi: str) -> dict:
                update_ms=statistics.median(up) * 1e3,
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3))
     res["profile"] = device_profile(
-        torch, lambda: step_fn(params, opt_state, batch), top=8)
+        torch, lambda: step_fn(params, opt_state, batch), top=8,
+        watch="mha_bwd")
     say(f"train: {step_ms:.1f} ms a step (step_fn, median of "
         f"{TRAIN_TIMED_STEPS}, host clock, synchronised), "
         f"{res['tokens_per_s']:.0f} tokens/s; timed apart: forward + "
@@ -3177,7 +3220,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
          "launches": lm["counts"]["mha"], "max_abs_err": err_fa,
          "train_launches": lm_train["counts"]["mha"],
-         "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",]},
+         "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",],
+         "train": {"shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128],
+                   "kv_heads": 16, "with_lse": True, **bt["fwd"]}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": None,
@@ -3188,6 +3233,7 @@ def main() -> int:
          "max_abs_err": lm_train["bwd_abs_err"],
          "max_rel_err": lm_train["bwd_err"],
          "shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128], "kv_heads": 16,
+         "design": "bf16 wgmma, TMA rings",
          "ms": bt["ms"], "plain_ms": bt["plain_ms"],
          "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
          "library_ms": bt["library_ms"],

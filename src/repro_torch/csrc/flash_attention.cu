@@ -33,9 +33,10 @@
 // whose first lane loads the q tile once and keeps K and V tiles of 64
 // keys in flight in a ring of three stages, by TMA (4-D tensor maps over
 // the strided views, 128-byte swizzle, out-of-range rows and D columns
-// zero-filled; a stage completes on one mbarrier and is released on
-// another once both consumers are done with it), and two consumer
-// warpgroups of 64 query rows each.  A consumer computes S = Q K^T with
+// zero-filled: attention.cuh, shared with the backward; a stage completes
+// on one mbarrier and is released on another once both consumers are done
+// with it), and two consumer warpgroups of 64 query rows each.  A
+// consumer computes S = Q K^T with
 // wgmma.m64n64k16.f32.bf16.bf16 from shared memory (q and k are both
 // D-contiguous: K-major), scales and masks the float32 accumulator
 // fragments in registers (masks by selects, only on tiles that cross the
@@ -72,9 +73,7 @@
 // padded to 128) / 107 (64), no spills, 132,152 / 66,616 bytes of dynamic
 // shared memory; flash_attention_kernel (float32) 80-128 registers, 8
 // bytes of spill at D <= 32.
-#include <cuda_bf16.h>
-
-#include "sm90.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -288,32 +287,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInfL2 = kNegInf * kLog2e;  // NEG_INF in exp2's domain
 
-// which of a view's 4-D tensor-map dims (1-3) hold S, H and B
-struct MapDims {
-  int s, h, b;
-};
-
-__device__ __forceinline__ void tma_bhsd(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, MapDims md, int col,
-                                         int row, int head, int batch) {
-  const int c1 = md.s == 1 ? row : md.h == 1 ? head : batch;
-  const int c2 = md.s == 2 ? row : md.h == 2 ? head : batch;
-  const int c3 = md.s == 3 ? row : md.h == 3 ? head : batch;
-  sm90::tma_load_4d(dst, map, bar, col, c1, c2, c3);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (exp2f adds a denormal path)
-__device__ __forceinline__ float fexp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -325,8 +298,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // O *= corr (per row), then O += P V for one tile: P (bf16, registers) as
-// wgmma's A, V [keys, D] from shared memory as its B, MN-major (transpose
-// bit), 64-column chunks kKVChunk apart.  Issued and committed, not waited.
+// wgmma's A, V [keys, D] from shared memory as its B (issue_ab).  Issued
+// and committed, not waited.
 template <int DP>
 __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
                                          const uint32_t (&pa)[kFaBN / 16][4],
@@ -342,14 +315,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
   }
   fence_operand(o);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kFaBN / 16; ++kk) {
-    const uint64_t dv = sw128_desc(v_t + kk * 16 * 128, kFaBN * 128, 1024);
-    if constexpr (DP == 128)
-      wgmma_m64n128k16_bf16_rs_tb(o, pa[kk], dv, 1);
-    else
-      wgmma_m64n64k16_bf16_rs_tb(o, pa[kk], dv, 1);
-  }
+  issue_ab<DP>(o, pa, v_t);
   wgmma_commit();
 }
 
@@ -361,8 +327,9 @@ __global__ void __launch_bounds__(kFaThreads, 1)
                          const __grid_constant__ CUtensorMap tv,
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int hq, int group,
-                         int sq, int skv, int d, MapDims qd, MapDims kd,
-                         MapDims vd, float scale_log2, int causal,
+                         int sq, int skv, int d, sm90::MapDims qd,
+                         sm90::MapDims kd, sm90::MapDims vd,
+                         float scale_log2, int causal,
                          int q_offset, int window) {
   using namespace sm90;
   constexpr int kChunks = DP / 64;
@@ -512,14 +479,8 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       }
       l_a = l_a * corr_a + sum_a;  // this thread's part of the row sum
       l_b = l_b * corr_b + sum_b;
-      // P as wgmma's A operand: keys 16 kk .. 16 kk + 15 are S's 8-column
-      // blocks 2 kk and 2 kk + 1
-      uint32_t pa[kFaBN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kFaBN / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      uint32_t pa[kFaBN / 16][4];  // P as wgmma's A operand
+      pack_a(pa, sc);
       issue_pv<DP>(o, pa, v_s + s * kKVTile, corr_a, corr_b);
       wgmma_wait<0>();
       fence_operand(o);
@@ -546,54 +507,10 @@ __global__ void __launch_bounds__(kFaThreads, 1)
 #pragma unroll
     for (int j = 0; j < kOut / 4; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
-      const float v0 = o[4 * j + 2 * hf] * inv[hf];
-      const float v1 = o[4 * j + 2 * hf + 1] * inv[hf];
-      if (col + 1 < d && (d & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
-            __floats2bfloat162_rn(v0, v1);
-      } else {
-        if (col < d) o_row[col] = __float2bfloat16_rn(v0);
-        if (col + 1 < d) o_row[col + 1] = __float2bfloat16_rn(v1);
-      }
+      store_pair(o_row, col, d, o[4 * j + 2 * hf] * inv[hf],
+                 o[4 * j + 2 * hf + 1] * inv[hf]);
     }
   }
-}
-
-// the 4-D tensor map of a bf16 [B, H, S, D] view with D contiguous: D
-// innermost, then S, H and B by increasing stride (a dim of size 1 last,
-// with any valid stride); a box of 64 columns x box_rows rows
-int map_bhsd(CUtensorMap* map, MapDims* md, const void* ptr, int batch,
-             int heads, int seq, int d, long long sb, long long sh,
-             long long ss, int box_rows) {
-  struct Dim {
-    long long size, stride;
-    int which;  // 0 S, 1 H, 2 B
-  } dims[3] = {{seq, ss, 0}, {heads, sh, 1}, {batch, sb, 2}};
-  auto later = [](const Dim& x, const Dim& y) {  // x after y
-    if ((x.size == 1) != (y.size == 1)) return x.size == 1;
-    return x.size != 1 && x.stride > y.stride;
-  };
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && later(dims[j - 1], dims[j]); --j) {
-      const Dim t = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = t;
-    }
-  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  int* slot[3] = {&md->s, &md->h, &md->b};
-  unsigned long long extent = 2ull * d;  // bytes spanned by the dims so far
-  for (int i = 0; i < 3; ++i) {
-    gdim[i + 1] = static_cast<cuuint64_t>(dims[i].size);
-    gstride[i] = dims[i].size == 1 ? (extent + 15) / 16 * 16
-                                   : 2ull * dims[i].stride;
-    extent = gstride[i] * gdim[i + 1];
-    *slot[dims[i].which] = i + 1;
-    if (dims[i].which == 0) box[i + 1] = static_cast<cuuint32_t>(box_rows);
-  }
-  return sm90::encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr,
-                            gdim, gstride, box);
 }
 
 template <int DP>
@@ -605,12 +522,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   constexpr int kSmem = kFaBM * DP * 2 + 2 * kFaStages * kFaBN * DP * 2 +
                         (1 + 2 * kFaStages) * 8 + 1024;
   CUtensorMap tq, tk, tv;
-  MapDims qd{}, kd{}, vd{};
-  int err = map_bhsd(&tq, &qd, q, batch, hq, sq, d, qs.b, qs.h, qs.s, kFaBM);
+  sm90::MapDims qd{}, kd{}, vd{};
+  int err = sm90::map_bhsd(&tq, &qd, q, batch, hq, sq, d, qs.b, qs.h, qs.s,
+                           kFaBM);
   if (!err)
-    err = map_bhsd(&tk, &kd, k, batch, hkv, skv, d, ks.b, ks.h, ks.s, kFaBN);
+    err = sm90::map_bhsd(&tk, &kd, k, batch, hkv, skv, d, ks.b, ks.h, ks.s,
+                         kFaBN);
   if (!err)
-    err = map_bhsd(&tv, &vd, v, batch, hkv, skv, d, vs.b, vs.h, vs.s, kFaBN);
+    err = sm90::map_bhsd(&tv, &vd, v, batch, hkv, skv, d, vs.b, vs.h, vs.s,
+                         kFaBN);
   if (err) return err;
   auto kernel = flash_attention_bf16<DP>;
   const cudaError_t attr = cudaFuncSetAttribute(

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/repro_torch/``
 at the repository root; ``csrc/sm90.cuh`` holds the Hopper helpers (TMA,
-mbarrier, wgmma) that two of them include.  The file name carries a hash
-of the source, the headers and the flags, so a stale library is never
-loaded.  No library links ``-lcuda``: the TMA tensor maps' encoder comes
+mbarrier, wgmma) that several of them include, ``csrc/attention.cuh``
+what the attention forward and backward share.  The file name carries a
+hash of the source, every header of ``csrc/`` and the flags, so a stale
+library is never loaded.  No library links ``-lcuda``: the TMA tensor maps' encoder comes
 from the driver through the runtime's entry-point query.  :func:`build`
 starts one ``nvcc`` per missing library, all at once, and waits for
 every one.

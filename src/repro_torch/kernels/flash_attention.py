@@ -26,7 +26,9 @@ summed over each kv head's query heads.  No Pallas kernel computes it: the
 reference differentiates its XLA attention path with ``jax.grad``.
 
   :func:`mha_bwd_cuda`   the hand-written kernels
-                         (``csrc/flash_attention_bwd.cu``), deterministic
+                         (``csrc/flash_attention_bwd.cu``), deterministic:
+                         bf16 on the tensor cores, float32 on the CUDA
+                         cores
   :func:`mha_bwd_plain`  the explicit formula in float32
 
 :func:`mha` is the differentiable entry point: on a CUDA tensor that needs
@@ -223,18 +225,20 @@ def tma_ready(t: torch.Tensor) -> bool:
                     if size > 1))
 
 
-def tma_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v as the bf16 kernel reads them: each view as it lies when
-    :func:`tma_ready`, otherwise a contiguous copy, with D zero-padded to
-    a multiple of 8 when a copy's rows would not be 16-byte multiples
-    (zero columns add nothing to q . k, and out keeps D columns)."""
-    d = q.shape[3]
-    ready = [tma_ready(t) for t in (q, k, v)]
+def tma_views(*ts: torch.Tensor):
+    """[B, H, S, D] views (q, k, v; the backward adds out and dout) as the
+    bf16 kernels read them: each view as it lies when :func:`tma_ready`,
+    otherwise a contiguous copy, with D of every view zero-padded to a
+    multiple of 8 when a copy's rows would not be 16-byte multiples (zero
+    columns add nothing to q . k or to dout . out, and the kernels keep D
+    columns of their outputs, or the wrapper cuts them back)."""
+    d = ts[0].shape[3]
+    ready = [tma_ready(t) for t in ts]
     dt = d if all(ready) or d % 8 == 0 else -(-d // 8) * 8
     return tuple(t if ok and dt == d else
                  F.pad(t, (0, dt - d)) if dt != d else
                  t.clone(memory_format=torch.contiguous_format)
-                 for t, ok in zip((q, k, v), ready))
+                 for t, ok in zip(ts, ready))
 
 
 @functools.cache
@@ -348,10 +352,13 @@ def mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  *, causal: bool = True, q_offset: int = 0,
                  window: int = 0):
     """Launch the backward kernels (``csrc/flash_attention_bwd.cu``) on the
-    current stream: ``(dq, dk, dv)``, contiguous, in q's dtype.  Inputs
-    are read through their strides (a view whose last dim is not
-    contiguous is copied first); raises on anything the kernels do not
-    take and on a launch error."""
+    current stream: ``(dq, dk, dv)``, contiguous, in q's dtype.  bf16 runs
+    on the tensor cores, its inputs staged by :func:`tma_views` (D padded
+    with zeros when a copy's rows would not be 16-byte multiples, the
+    gradients cut back to D); float32 on the CUDA cores.  Inputs are read
+    through their strides (a view whose last dim is not contiguous is
+    copied first); raises on anything the kernels do not take and on a
+    launch error."""
     _check_qkv("mha_bwd_cuda", q, k, v, q_offset, window)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -365,27 +372,35 @@ def mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mha_bwd_cuda: lse must be contiguous float32 "
                          f"{(b, hq, sq)} on {q.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    q, k, v, out, dout = _d_contiguous(q, k, v, out, dout)
-    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
     if sq == 0 or skv == 0:             # nothing attends: zero gradients
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return (q.new_zeros((b, hq, sq, d)), k.new_zeros((b, hkv, skv, d)),
+                k.new_zeros((b, hkv, skv, d)))
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v, out, dout = _d_contiguous(q, k, v, out, dout)
+    if bf16:
+        q, k, v, out, dout = tma_views(q, k, v, out, dout)
+    dt = q.shape[3]                     # D, or D padded by tma_views
+    dq = torch.empty((b, hq, sq, dt), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, skv, dt), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     fn = _bind_bwd()
     with torch.cuda.device(q.device):
-        err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
+        err = fn(int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, hq, hkv, sq, skv, dt,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], *dout.stride()[:3], 1.0 / (d ** 0.5),
                  int(causal), q_offset, window,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"CUDA error {err}")
+                           f"error {err} (CUDA error, or -1/-2: no TMA "
+                           f"tensor map)")
     dispatch.count_launch("mha_bwd")
+    if dt != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -1417,12 +1417,26 @@ def test_flash_attention_lse_matches_plain(cuda, dtype, case):
     dict(b=1, hq=4, hkv=4, sq=77, skv=1024, d=80, q_offset=947),
     dict(b=2, hq=8, hkv=4, sq=5, skv=260, d=64, q_offset=255, window=64),
     dict(b=1, hq=4, hkv=2, sq=1, skv=300, d=128, q_offset=299),
+    # the bf16 route's tiles: Sq under one 64-row tile and not a multiple
+    # of a CTA's 128, D = 96, GQA groups 1 and 8, causal=False with Skv !=
+    # Sq, windows across tiles with and without causal, the training
+    # path's shape
+    dict(b=2, hq=4, hkv=2, sq=40, skv=40, d=128),
+    dict(b=1, hq=4, hkv=2, sq=200, skv=200, d=128),
+    dict(b=1, hq=4, hkv=2, sq=333, skv=333, d=96),
+    dict(b=1, hq=4, hkv=4, sq=256, skv=256, d=128),
+    dict(b=1, hq=16, hkv=2, sq=300, skv=300, d=64),
+    dict(b=1, hq=4, hkv=2, sq=100, skv=300, d=128, causal=False),
+    dict(b=1, hq=4, hkv=2, sq=300, skv=77, d=64, causal=False),
+    dict(b=1, hq=8, hkv=2, sq=513, skv=513, d=128, window=130),
+    dict(b=1, hq=4, hkv=2, sq=130, skv=130, d=32, causal=False, window=50),
+    dict(b=8, hq=32, hkv=16, sq=1024, skv=1024, d=128),
 ])
 def test_mha_bwd_kernel_matches_plain(cuda, dtype, case):
     """dq, dk, dv of the backward kernels against the explicit formula on
-    ragged lengths (77 and 1024), D = 32/64/80/128, GQA groups 1, 2 and
-    4, causal, windowed and not, Sq != Skv with q_offset; dout a strided
-    view as the model hands it over."""
+    ragged lengths (40 to 1024), D = 32/64/80/96/128, GQA groups 1, 2, 4
+    and 8, causal, windowed and not, Sq != Skv with and without q_offset;
+    dout a strided view as the model hands it over."""
     case = dict(case)
     shape = [case.pop(n) for n in ("b", "hq", "hkv", "sq", "skv", "d")]
     q, k, v = _np_qkv(sum(shape) + 1, *shape, dtype, cuda)
@@ -1444,6 +1458,64 @@ def test_mha_bwd_kernel_matches_plain(cuda, dtype, case):
         assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
     again = mha_bwd_cuda(q, k, v, out, dout, lse, **case)
     assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
+
+
+def _bwd_inputs(seed, b, hq, hkv, sq, skv, d, dev, dtype=torch.bfloat16,
+                **case):
+    """q, k, v as _project_qkv's views, the plain forward's out and lse,
+    and dout as the model hands it back (a transposed view)."""
+    q, k, v = _np_qkv(seed, b, hq, hkv, sq, skv, d, dtype, dev)
+    out, lse = mha_plain(q, k, v, with_lse=True, **case)
+    dout = torch.from_numpy(np.random.RandomState(seed + 1).normal(
+        0, 1, (b, sq, hq, d)).astype(np.float32)).to(
+            dev, dtype).transpose(1, 2)
+    return q, k, v, out, dout, lse
+
+
+def _bwd_errors(q, k, v, out, dout, lse, **case):
+    """mha_bwd_cuda against mha_bwd_plain: {name: max abs error over max
+    |plain|}, after checking dtypes and shapes."""
+    from repro_torch.kernels.flash_attention import (mha_bwd_cuda,
+                                                     mha_bwd_plain)
+    got = mha_bwd_cuda(q, k, v, out, dout, lse, **case)
+    torch.cuda.synchronize()
+    want = mha_bwd_plain(q, k, v, out, dout, lse, **case)
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        assert g.is_contiguous(), name
+        errs[name] = _rel_err(g, w)
+    return errs
+
+
+def test_mha_bwd_bf16_copies_views_tma_cannot_read(cuda):
+    """q a view 2 bytes past an alignment (tma_views copies it), and D = 36
+    (rows of 72 bytes: every operand padded to 40, the gradients cut back
+    to 36 columns)."""
+    q, k, v, out, dout, lse = _bwd_inputs(5, 1, 4, 2, 150, 150, 64, cuda)
+    flat = torch.empty(1 + q.numel(), dtype=torch.bfloat16, device=cuda)
+    q_odd = flat[1:].view(1, 150, 4, 64).transpose(1, 2)
+    q_odd.copy_(q)
+    assert q_odd.data_ptr() % 16 and torch.equal(q_odd, q)
+    errs = _bwd_errors(q_odd, k, v, out, dout, lse)
+    assert max(errs.values()) <= BWD_BF16_RTOL, errs
+    errs = _bwd_errors(*_bwd_inputs(6, 1, 4, 2, 150, 150, 36, cuda))
+    assert max(errs.values()) <= BWD_BF16_RTOL, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_bwd_is_bitwise_equal_across_streams(cuda, dtype):
+    """No atomics, one writer an element, sums in a fixed order: calls on
+    two streams give bitwise-equal dq, dk, dv."""
+    from repro_torch.kernels.flash_attention import mha_bwd_cuda
+    args = _bwd_inputs(9, 2, 8, 2, 700, 700, 128, cuda, dtype)
+    torch.cuda.synchronize()
+    got = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            got.append(mha_bwd_cuda(*args))
+        stream.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*got))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

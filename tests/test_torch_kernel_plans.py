@@ -26,8 +26,8 @@ from repro_torch.kernels.lut_activation import (BLOCKS_PER_SM,
                                                 MAX_SHARED_TABLE, THREADS,
                                                 UNROLL, VEC, aligned_like,
                                                 lut_sigmoid_plan)
-from repro_torch.kernels.flash_attention import (mha_plain, tma_ready,
-                                                 tma_views)
+from repro_torch.kernels.flash_attention import (mha_bwd_plain, mha_plain,
+                                                 tma_ready, tma_views)
 from repro_torch.kernels.quant_matmul import (H100_SMS, STREAM_MAX_KSPLIT,
                                               STREAM_MAX_M, TC_BK,
                                               int_matmul_plain,
@@ -153,6 +153,29 @@ def test_tma_views_keep_the_plain_result():
     ref = mha_plain(q.to(torch.bfloat16).float(), k.to(torch.bfloat16).float(),
                     v.to(torch.bfloat16).float())
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_tma_views_stage_the_backwards_five_operands():
+    """The backward stages q, k, v, out and dout together: D = 20 pads all
+    five to 24; the gradient over the padded operands, cut back to D, is
+    the gradient over the originals (the scale is the original D's; the
+    zero columns add nothing to delta = rowsum(dout * out))."""
+    rng = np.random.RandomState(4)
+    q, k, v, dout = (torch.from_numpy(rng.randn(1, 4, 30, 20)
+                                      .astype(np.float32))
+                     .to(torch.bfloat16).float() for _ in range(4))
+    k, v = k[:, :2], v[:, :2]
+    out, lse = mha_plain(q, k, v, with_lse=True)
+    staged = tma_views(*(t.to(torch.bfloat16) for t in (q, k, v, out, dout)))
+    assert [t.shape[-1] for t in staged] == [24] * 5
+    assert all(tma_ready(t) for t in staged)
+    qp, kp, vp, outp, doutp = (t.float() for t in staged)
+    c = (24 / 20) ** 0.5               # mha_bwd_plain scales by the padded D
+    dq, dk, dv = mha_bwd_plain(qp * c, kp, vp, outp, doutp, lse)
+    want = mha_bwd_plain(q, k, v, out.to(torch.bfloat16).float(), dout, lse)
+    assert not dk[..., 20:].any() and not dv[..., 20:].any()
+    for got, ref in zip((dq[..., :20] * c, dk[..., :20], dv[..., :20]), want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 # -- kmeans_assign: the byte-split products and the row split ---------------
