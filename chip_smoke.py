@@ -146,6 +146,36 @@ Phases, in order; any failure exits non-zero:
                   ms and SDPA's forward + backward; flash_attention's
                   forward with lse at that shape beside SDPA's forward;
                   int_matmul at M = 8192
+ 11. families the decoder-only LM families at full width, bf16, seeded
+              random weights, through Model and ServeEngine, each with the
+              launch counts zeroed just before and checked exactly after.
+              First int_matmul (exact) and flash_attention (bf16 and
+              float32, windowed and not) against their plain versions at
+              the shapes this phase gives them;
+              (a) qwen2-moe-a2.7b (24 layers, 60 experts padded to 64,
+                  top-4, a 5632-wide shared expert): LM_REQUESTS requests
+                  over LM_SLOTS slots, FAM_NEW new tokens each, with
+                  quantize_dense on (3 int_matmul
+                  per layer per forward call, the shared expert's; 1 mha
+                  per layer per prefill), then off; tokens/s, time to first
+                  token, peak memory, a decode profile's busy share;
+              (b) hymba-1.5b (32 layers, 29 of them sliding a 1024-token
+                  window, 128 meta tokens) the same way, every layer's
+                  prefill attention in flash_attention; then prefill +
+                  decode against the forward in float32;
+              (c) xlstm-350m on prompts of 64-token multiples (the
+                  reference's chunk contract), no kernel launched; prefill
+                  + 64 decode steps against the forward in float32;
+              (d) dbrx-132b at full width, FAM_DBRX_LAYERS of 40 layers:
+                  a 512-token prompt over its 16 routing groups, 8 decode
+                  steps, logits finite, counts exact;
+              (e) each family reduced to float32, card against CPU: forward
+                  logits, greedy tokens, one value_and_grad and one AdamW
+                  step (FAM_LOSS_ATOL, FAM_GRAD_RTOL), hymba's windowed
+                  layer through mha and mha_bwd;
+              (f) qwen2-moe-a2.7b in float32 at full width with dropless
+                  capacity, as deep as float32 fits: prefill + decode
+                  against the forward
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -290,6 +320,35 @@ LM_F32_PROPERTY_TOL, LM_BF16_TOL = 1e-3, 0.25
 #: rounding step of one activation moves a logit by up to 0.145 there, so
 #: two such steps (QUANT_LOGIT_ATOL)
 LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
+
+#: phase 11, the decoder-only families at full width, bf16, seeded random
+#: weights: qwen2-moe-a2.7b and hymba-1.5b served as qwen3-8b is (LM_REQUESTS
+#: over LM_SLOTS, prompts drawn from LM_PROMPT_MIN-MAX, FAM_NEW new tokens:
+#: half of LM_NEW, to keep the phase near 150 s),
+#: xlstm-350m on prompts of 64-token multiples (its mLSTM's chunk contract:
+#: a prompt longer than 64 tokens must be a multiple of 64), dbrx-132b cut
+#: to FAM_DBRX_LAYERS of 40 layers (40 would be 264 GB of bf16) on one
+#: prompt whose length splits into its 16 routing groups
+FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_DBRX = ("qwen2-moe-a2.7b", "hymba-1.5b",
+                                           "xlstm-350m", "dbrx-132b")
+FAM_DBRX_LAYERS, FAM_DBRX_PROMPT, FAM_DBRX_NEW = 4, 512, 8
+FAM_XLSTM_CHUNK = 64
+FAM_NEW = 16
+#: (e), card against CPU on each family reduced to float32: hymba with 4
+#: layers (layer 1 slides its 32-token window; both layers of the default
+#: 2 are global), batches of 2 x 64 tokens so the window bites.  One
+#: value_and_grad and one AdamW step: losses within FAM_LOSS_ATOL, each
+#: gradient leaf within FAM_GRAD_RTOL of its norm (float32 in other orders,
+#: tests/test_torch_cuda.py's step tolerances); forward logits within
+#: LM_F32_ATOL, greedy tokens equal
+FAM_REDUCED = {FAM_MOE: {}, FAM_DBRX: {}, FAM_XLSTM: {},
+               FAM_HYMBA: {"n_layers": 4}}
+FAM_LOSS_ATOL, FAM_GRAD_RTOL = 1e-5, 1e-4
+#: (f), the MoE property in float32 at full width: capacity factor
+#: experts / top_k makes every expert's buffer hold all its group's tokens
+#: (dropless), so prefill + decode gives the forward's last position; the
+#: prompt's length
+FAM_PROPERTY_PROMPT = 512
 
 LIN_VERSIONS = ("int32", "hyb", "fp32")
 LOG_VERSIONS = ("int32_lut_wram", "int32_lut_mram")
@@ -1256,6 +1315,35 @@ def lm_requests(vocab: int) -> list:
     return [rng.randint(0, vocab, n).astype(np.int32) for n in lens]
 
 
+def int8_operand(torch, gen, shape):
+    """Full-range int8 on the card, -128 in its first three elements."""
+    t = torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    t.view(-1)[:3] = -128
+    return t
+
+
+def check_mha_cases(torch, cases, prefix: str) -> float:
+    """mha_cuda against mha_plain for each ``(name, (q, k, v), kwargs)``,
+    within MHA_BF16_ATOL (bf16) or MHA_F32_ATOL (float32); fails outside.
+    Returns the max abs error."""
+    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+    err = 0.0
+    for name, (q, k, v), kw in cases:
+        out, ref = mha_cuda(q, k, v, **kw), mha_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            fail(f"flash_attention: {name}: dtype or shape differs")
+        e = float((out.float() - ref.float()).abs().max())
+        tol = MHA_BF16_ATOL if q.dtype == torch.bfloat16 else MHA_F32_ATOL
+        if not e <= tol:
+            fail(f"flash_attention: {name}: max abs err {e} > {tol}")
+        err = max(err, e)
+        say(f"{prefix}flash_attention ~ plain, {name} (max abs err {e:.3g}"
+            f" <= {tol})")
+    return err
+
+
 def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
     """int_matmul (exact on full-range int8, -128 included) at the MLP
     shapes of qwen3-8b for M = 1, 7, 16 and 17 (the streaming and
@@ -1266,16 +1354,12 @@ def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
     length S, causal and not, one-token decode with q_offset, a window,
     D = 64 and 80, GQA groups 1 and 4, and float32.  Returns the max abs
     errors."""
-    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
     from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
                                                   int_matmul_plain,
                                                   int_matmul_plan)
 
     def int8(shape):
-        t = torch.randint(-128, 128, shape, generator=gen, device=dev,
-                          dtype=torch.int32).to(torch.int8)
-        t.view(-1)[:3] = -128
-        return t
+        return int8_operand(torch, gen, shape)
     err_mm = 0
     shapes = [(m, k, n) for m in (1, 7, 16, 17, 513, min(prompt_lens),
                                   max(prompt_lens))
@@ -1319,20 +1403,7 @@ def check_lm_kernels(torch, dev, gen, prompt_lens) -> tuple[int, float]:
         ("f32 [1, 4, 5, 80], q_offset 255 of 260 keys, window 64",
          qkv(1, 4, 4, 5, 260, 80, f32), {"q_offset": 255, "window": 64}),
     ]
-    err_fa = 0.0
-    for name, (q, k, v), kw in cases:
-        out, ref = mha_cuda(q, k, v, **kw), mha_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        if out.dtype != ref.dtype or out.shape != ref.shape:
-            fail(f"flash_attention: {name}: dtype or shape differs")
-        e = float((out.float() - ref.float()).abs().max())
-        tol = MHA_BF16_ATOL if q.dtype == bf16 else MHA_F32_ATOL
-        if not e <= tol:
-            fail(f"flash_attention: {name}: max abs err {e} > {tol}")
-        err_fa = max(err_fa, e)
-        say(f"kernels: flash_attention ~ plain, {name} (max abs err {e:.3g}"
-            f" <= {tol})")
-    return err_mm, err_fa
+    return err_mm, check_mha_cases(torch, cases, "kernels: ")
 
 
 class TimedModel:
@@ -1361,11 +1432,12 @@ class TimedModel:
 
 
 def serve_timed(torch, Model, Request, ServeEngine, cfg, params,
-                prompts) -> dict:
-    """Serve ``prompts`` through ServeEngine on the card: the outputs and
-    time to first token, ms per decode call and tokens/s."""
+                prompts, new: int = LM_NEW) -> dict:
+    """Serve ``prompts`` (``new`` tokens each) through ServeEngine on the
+    card: the outputs and time to first token, ms per decode call and
+    tokens/s."""
     timed = TimedModel(torch, Model(cfg, device="cuda"))
-    reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
+    reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts]
     engine = ServeEngine(timed, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1380,9 +1452,10 @@ def serve_timed(torch, Model, Request, ServeEngine, cfg, params,
             "decode_calls": len(timed.decode_s)}
 
 
-def serve_line(name: str, r: dict, prompts, smi: str) -> str:
+def serve_line(name: str, r: dict, prompts, smi: str,
+               new: int = LM_NEW) -> str:
     return (f"serve: {name}: {len(prompts)} requests over {LM_SLOTS} slots, "
-            f"prompts {[len(p) for p in prompts]}, {LM_NEW} new tokens each:"
+            f"prompts {[len(p) for p in prompts]}, {new} new tokens each:"
             f" {r['tokens']} tokens in {r['wall_s']:.2f} s, "
             f"{r['tokens_per_s']:.2f} tokens/s; time to first token "
             f"{', '.join(f'{t:.0f}' for t in r['ttft_ms'])} ms (prefill "
@@ -2668,6 +2741,453 @@ def lm_train_on_card(torch, dispatch, smi: str) -> dict:
     return res
 
 
+# -- phase 11: the decoder-only families at full width ------------------------
+
+def family_counts(cfg, prompts: int, calls: int) -> dict:
+    """The launches a serve run of ``cfg`` makes: one mha per attention
+    layer (moe, hymba) a prefill, the windowed ones included; with
+    quantize_dense, 3 int_matmul per MLP (hymba's, the MoE's shared expert;
+    the routed experts are not quantized, as in the reference) per layer
+    per forward call.  xLSTM's blocks launch none."""
+    pattern = cfg.layer_pattern()
+    attn = sum(bt in ("attn", "moe", "hymba") for bt in pattern)
+    mlps = sum(bt in ("attn", "hymba")
+               or (bt == "moe" and bool(cfg.shared_expert_d_ff))
+               for bt in pattern)
+    out = {"mha": attn * prompts} if attn else {}
+    if cfg.quantize_dense and mlps:
+        out["int_matmul"] = 3 * mlps * calls
+    return out
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def serve_family(torch, dispatch, name: str, cfg, params, prompts,
+                 total: dict, smi: str) -> dict:
+    """Serve ``prompts`` (FAM_NEW tokens each, LM_SLOTS slots) with the
+    counts zeroed just before and checked exactly just after; prints the
+    load's line and peak memory."""
+    from repro_torch.models.api import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+    calls = len(prompts) * FAM_NEW
+    expected = family_counts(cfg, len(prompts), calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    r = serve_timed(torch, Model, Request, ServeEngine, cfg, params, prompts,
+                    FAM_NEW)
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    say(f"families: {name}: launch counts {counts} (expected {expected}: "
+        f"{len(prompts)} prefills + {calls - len(prompts)} decode calls)")
+    if counts != expected:
+        fail(f"{name}: launch counts {counts} != {expected}")
+    if any(len(o) != FAM_NEW or not all(0 <= t < cfg.vocab_size for t in o)
+           for o in r["outputs"]):
+        fail(f"{name}: an output has the wrong length or an id outside the "
+             f"vocabulary")
+    r["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say(serve_line(name, r, prompts, smi, FAM_NEW) + f"; peak device memory "
+        f"{r['peak_bytes'] / 2 ** 30:.1f} GiB")
+    add_counts(total, counts)
+    r["counts"] = counts
+    return r
+
+
+def family_profile(torch, model, params, prompt) -> str:
+    """The card's busy share over LM_PROFILE_STEPS batch-1 decode steps
+    after a prefill of ``prompt``, the device traced alone (a host trace
+    of ~25,000 eager ops takes seconds to process)."""
+    _, cache = model.prefill(params, {"tokens": prompt[None]}, LM_MAX_SEQ)
+    tok = np.zeros((1, 1), np.int32)
+
+    def steps():
+        c = cache
+        for _ in range(LM_PROFILE_STEPS):
+            _, c = model.decode_step(params, tok, c)
+    return device_profile(torch, steps, host=False)
+
+
+def property_check(torch, name: str, model, params, toks, prefix: int,
+                   atol: float, rtol: float) -> float:
+    """Prefill ``toks[:, :prefix]``, then decode the rest one token at a
+    time: every step's logits (and the prefill's last) against the
+    forward's over all of ``toks``; fails outside ``atol + rtol * |logit|``.
+    Returns the max |dlogit|."""
+    full = model.forward(params, {"tokens": toks}).float()
+    if not bool(torch.isfinite(full).all()):
+        fail(f"{name}: non-finite forward logits")
+    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix]},
+                                  LM_MAX_SEQ)
+    steps = [logits[:, 0].float()]
+    for i in range(prefix, toks.shape[1]):
+        logits, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+        steps.append(logits[:, 0].float())
+    got = torch.stack(steps, dim=1)
+    want = full[:, prefix - 1:]
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    say(f"  {name}: prefill({prefix}) + {toks.shape[1] - prefix} decode "
+        f"steps == the forward at positions {prefix - 1}-"
+        f"{toks.shape[1] - 1}, float32: {ok} (max |dlogit| "
+        f"{float(diff.max()):.4g}, max |logit| {float(want.abs().max()):.4g};"
+        f" atol {atol}, rtol {rtol})")
+    if not ok:
+        fail(f"{name}: prefill + decode disagrees with the forward")
+    return float(diff.max())
+
+
+def families_card_equals_cpu(torch, dispatch, total: dict) -> dict:
+    """(e): each family reduced to float32, the same weights on the card
+    and the CPU: forward logits, greedy tokens, and one value_and_grad and
+    one AdamW step (loss and every gradient leaf); the card's launches of
+    the grad (mha with lse and mha_bwd, hymba's windowed layer among them)
+    counted."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    out = {}
+    for arch, overrides in FAM_REDUCED.items():
+        cfg = get_config(arch).reduced(**overrides)
+        weights = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        batch = MarkovCorpus(cfg.vocab_size, seed=SEED).batch(2, 64)
+        rng = np.random.RandomState(SEED)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (40, 9, 64, 23)]
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = Model(cfg, device=device)
+            params = copy.deepcopy(weights).to(device)
+            reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+            ServeEngine(model, params, n_slots=2, max_seq=128).run(reqs)
+            logits = model.forward(params, {"tokens": batch["tokens"]})
+            params.trainable_()
+            dispatch.reset_launch_counts()
+            loss, grads = value_and_grad(model, params, batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                grad_counts = dict(dispatch.launch_counts)
+            opt = AdamW(lr=1e-3)
+            _, _, metrics = make_train_step(model, opt)(
+                params, opt.init(params), batch)
+            res[device] = ([r.output for r in reqs], logits.cpu(),
+                           float(loss), {n: g.cpu() for n, g in grads.items()},
+                           float(metrics["loss"]))
+        (tg, lg, sg, gg, mg), (tc, lc, sc, gc, mc) = res["cuda"], res["cpu"]
+        err = float((lg - lc).abs().max())
+        worst = max(((n, _leaf_rel(gg[n], gc[n])) for n in gc),
+                    key=lambda kv: kv[1])
+        attn = sum(bt in ("moe", "hymba") for bt in cfg.layer_pattern())
+        want = {"mha": attn, "mha_bwd": attn} if attn else {}
+        say(f"  {arch} reduced f32 {overrides or ''}: card vs CPU forward "
+            f"max |dlogit| {err:.3g} (<= {LM_F32_ATOL}); greedy tokens equal:"
+            f" {tg == tc}; loss {sg:.6f} / {sc:.6f}, AdamW step's loss "
+            f"{mg:.6f} / {mc:.6f} (<= {FAM_LOSS_ATOL}); worst gradient leaf "
+            f"{worst[0]} at {worst[1]:.3g} (<= {FAM_GRAD_RTOL}); the grad's "
+            f"launches {grad_counts} (expected {want})")
+        if not (err <= LM_F32_ATOL and tg == tc
+                and abs(sg - sc) <= FAM_LOSS_ATOL
+                and abs(mg - mc) <= FAM_LOSS_ATOL
+                and worst[1] <= FAM_GRAD_RTOL and grad_counts == want):
+            fail(f"{arch} reduced: the card and the CPU disagree")
+        add_counts(total, grad_counts)
+        out[arch] = {"logit_err": err, "grad_err": worst[1],
+                     "loss_err": abs(sg - sc)}
+    return out
+
+
+def check_family_kernels(torch, prompt_lens: list) -> tuple[int, float]:
+    """The kernels at the shapes phase 11 gives them, against their plain
+    versions: int_matmul (exact, full-range int8) at qwen2-moe's shared
+    expert and hymba's MLP for M = 1 (a decode token) and the shortest and
+    longest prefill (hymba's with its meta tokens); flash_attention (within
+    MHA_BF16_ATOL / MHA_F32_ATOL) on each family's padded head plan at its
+    prefill lengths in bf16, hymba's with the window its layers pass and
+    without (FULL_WINDOW), and at the float32 property checks' shapes of
+    (b) and (f).  Returns the max abs errors."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+    from repro_torch.models.transformer import attn_spec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    moe, hy, db = (get_config(a) for a in (FAM_MOE, FAM_HYMBA, FAM_DBRX))
+    lo, hi = min(prompt_lens), max(prompt_lens)
+    err_mm, shapes = 0, []
+    for cfg, d_ff in ((moe, moe.shared_expert_d_ff), (hy, hy.d_ff)):
+        shapes += [(m, k, n) for m in (1, lo + cfg.meta_tokens,
+                                       hi + cfg.meta_tokens)
+                   for k, n in ((cfg.d_model, d_ff), (d_ff, cfg.d_model))]
+    for m, k, n in shapes:
+        a, b = int8_operand(torch, gen, (m, k)), int8_operand(torch, gen,
+                                                              (k, n))
+        err_mm = max(err_mm, same(torch, [int_matmul_cuda(a, b)],
+                                  [int_matmul_plain(a, b)]))
+    say(f"families: kernels: int_matmul == plain at (M, K, N) {shapes}")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    w = hy.sliding_window
+    shapes = [(cfg, s, bf16, 0) for cfg, ss in (
+        (moe, (lo, hi)), (db, (FAM_DBRX_PROMPT,))) for s in ss]
+    shapes += [(hy, s + hy.meta_tokens, bf16, win) for s in (lo, hi)
+               for win in (w, 0)]
+    p0 = prompt_lens[0] + hy.meta_tokens     # (b)'s forward, its prefill
+    shapes += [(hy, s, f32, w) for s in (p0, p0 - 1)]
+    shapes += [(moe, s, f32, 0) for s in (FAM_PROPERTY_PROMPT + 1,
+                                          FAM_PROPERTY_PROMPT)]
+    cases = []
+    for cfg, s, dtype, win in dict.fromkeys(  # windows as _sdpa passes them
+            (c, s, t, win if win < s else 0) for c, s, t, win in shapes):
+        plan, d = attn_spec(cfg).plan, cfg.resolved_head_dim
+        q, k, v = (torch.randn((1, s, h, d), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2)
+                   for h in (plan.n_q, plan.n_kv, plan.n_kv))
+        cases.append((f"{cfg.name} {str(dtype)[6:]} {list(q.shape)} over "
+                      f"{plan.n_kv} KV heads, causal, window "
+                      f"{win or 'none'}", (q, k, v), {"window": win}))
+    return err_mm, check_mha_cases(torch, cases, "families: kernels: ")
+
+
+def lm_families_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 11: qwen2-moe-a2.7b, hymba-1.5b and xlstm-350m at full width
+    and depth, dbrx-132b at full width and FAM_DBRX_LAYERS layers, bf16,
+    seeded random weights, through Model and ServeEngine; checks (a)-(f) of
+    the module docstring.  Returns the phase's launch counts and each
+    family's serve numbers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.models.transformer import attn_spec, moe_spec
+    t_phase = time.perf_counter()
+    total, res = {}, {"seconds": {}}
+    torch.cuda.empty_cache()
+    marks = [t_phase]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        res["seconds"][part] = now - marks[-1]
+        say(f"families: ({part}) took {now - marks[-1]:.1f} s")
+        marks.append(now)
+
+    prompt_lens = [len(p) for p in lm_requests(
+        get_config(FAM_MOE).vocab_size)]
+    res["err_mm"], res["err_fa"] = check_family_kernels(torch, prompt_lens)
+    lap("kernels")
+
+    def draw(cfg):
+        t0 = time.perf_counter()
+        params = Model(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        n = Model.param_count(params)
+        plan = attn_spec(cfg).plan
+        say(f"families: {cfg.name} at full width: {cfg.n_layers} layers "
+            f"{sorted(set(cfg.layer_pattern()))}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads (padded to "
+            f"{plan.n_q} / {plan.n_kv}), vocab {cfg.vocab_size}, {cfg.dtype}, "
+            f"{n:,} parameters drawn in {time.perf_counter() - t0:.1f} s; "
+            f"device memory {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB")
+        return params, n
+
+    # (a) qwen2-moe-a2.7b, quantize_dense on then off
+    base = get_config(FAM_MOE)
+    spec = moe_spec(base)
+    cfg_q = dataclasses.replace(base, quantize_dense=True)
+    params, n_params = draw(cfg_q)
+    expert_bytes = 3 * spec.n_experts * spec.d_model * spec.d_ff * 2
+    say(f"families: {FAM_MOE}: {spec.n_experts_real} experts padded to "
+        f"{spec.n_experts}, top-{spec.top_k}, shared expert "
+        f"{base.shared_expert_d_ff} wide; a decode token's capacity is 1 "
+        f"in every expert, so each decode step computes all "
+        f"{spec.n_experts} experts' buffers and reads their weights: "
+        f"{base.n_layers * expert_bytes / 1e9:.2f} GB a token, "
+        f"{base.n_layers * expert_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
+    prompts = lm_requests(base.vocab_size)
+    moe = {"params": n_params}
+    moe["on"] = serve_family(torch, dispatch, f"{FAM_MOE} quantize_dense on",
+                             cfg_q, params, prompts, total, smi)
+    cfg_f = dataclasses.replace(base, quantize_dense=False)
+    moe["off"] = serve_family(torch, dispatch,
+                              f"{FAM_MOE} quantize_dense off (same weights)",
+                              cfg_f, params, prompts, total, smi)
+    moe["profile"] = family_profile(torch, Model(cfg_q, device="cuda"),
+                                    params, prompts[0])
+    say(f"profile: {LM_PROFILE_STEPS} decode steps, {FAM_MOE} quantize_dense"
+        f" on: {moe['profile']}")
+    res[FAM_MOE] = moe
+    del params
+    torch.cuda.empty_cache()
+    lap("a")
+
+    # (b) hymba-1.5b, quantize_dense on then off; float32 property
+    base = get_config(FAM_HYMBA)
+    cfg_q = dataclasses.replace(base, quantize_dense=True)
+    params, n_params = draw(cfg_q)
+    prompts = lm_requests(base.vocab_size)
+    hy = {"params": n_params}
+    hy["on"] = serve_family(torch, dispatch,
+                            f"{FAM_HYMBA} quantize_dense on", cfg_q, params,
+                            prompts, total, smi)
+    hy["off"] = serve_family(torch, dispatch,
+                             f"{FAM_HYMBA} quantize_dense off (same weights)",
+                             dataclasses.replace(base, quantize_dense=False),
+                             params, prompts, total, smi)
+    hy["profile"] = family_profile(torch, Model(cfg_q, device="cuda"), params,
+                                   prompts[0])
+    say(f"profile: {LM_PROFILE_STEPS} decode steps, {FAM_HYMBA} "
+        f"quantize_dense on: {hy['profile']}")
+    params.float()                            # in place: frees the bf16
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    dispatch.reset_launch_counts()
+    hy["property_err"] = property_check(
+        torch, FAM_HYMBA, Model(cfg32, device="cuda"), params,
+        prompts[0][None], len(prompts[0]) - 1, LM_F32_PROPERTY_TOL,
+        LM_F32_PROPERTY_TOL)
+    add_counts(total, dispatch.launch_counts)
+    res[FAM_HYMBA] = hy
+    del params
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) xlstm-350m on prompts of 64-token multiples; float32 property
+    base = get_config(FAM_XLSTM)
+    params, n_params = draw(base)
+    rng = np.random.RandomState(SEED)
+    x_prompts = [rng.randint(0, base.vocab_size, FAM_XLSTM_CHUNK * n)
+                 .astype(np.int32)
+                 for n in rng.randint(LM_PROMPT_MIN // FAM_XLSTM_CHUNK,
+                                      LM_PROMPT_MAX // FAM_XLSTM_CHUNK + 1,
+                                      LM_REQUESTS)]
+    say(f"families: {FAM_XLSTM}: prompts of {FAM_XLSTM_CHUNK}-token "
+        f"multiples, the reference's chunk contract (mlstm_chunkwise "
+        f"asserts S % 64 == 0 past 64 tokens); its blocks launch no kernel "
+        f"(no attention, no MLP: the mLSTM's x2 up-projection replaces it)")
+    xl = {"params": n_params}
+    xl["serve"] = serve_family(torch, dispatch, FAM_XLSTM, base, params,
+                               x_prompts, total, smi)
+    xl["profile"] = family_profile(torch, Model(base, device="cuda"), params,
+                                   x_prompts[0])
+    say(f"profile: {LM_PROFILE_STEPS} decode steps, {FAM_XLSTM}: "
+        f"{xl['profile']}")
+    params.float()
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    p0 = len(x_prompts[0])
+    toks = np.concatenate([x_prompts[0], rng.randint(
+        0, base.vocab_size, FAM_XLSTM_CHUNK).astype(np.int32)])[None]
+    dispatch.reset_launch_counts()
+    xl["property_err"] = property_check(
+        torch, FAM_XLSTM, Model(cfg32, device="cuda"), params, toks, p0,
+        LM_F32_PROPERTY_TOL, LM_F32_PROPERTY_TOL)
+    if dispatch.launch_counts:
+        fail(f"{FAM_XLSTM}: launched {dispatch.launch_counts}")
+    res[FAM_XLSTM] = xl
+    del params
+    torch.cuda.empty_cache()
+    lap("c")
+
+    # (d) dbrx-132b, FAM_DBRX_LAYERS layers: one prompt in 16 groups
+    base = get_config(FAM_DBRX)
+    cfg = dataclasses.replace(base, n_layers=FAM_DBRX_LAYERS)
+    params, n_params = draw(cfg)
+    emb = 2 * base.padded_vocab * base.d_model
+    whole = emb + (n_params - emb) * base.n_layers / FAM_DBRX_LAYERS
+    say(f"families: {FAM_DBRX}: {FAM_DBRX_LAYERS} of {base.n_layers} layers "
+        f"({n_params * 2 / 1e9:.1f} GB of bf16; all {base.n_layers} would be "
+        f"{whole * 2 / 1e9:.0f} GB), {moe_spec(base).groups} routing groups")
+    model = Model(cfg, device="cuda")
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, FAM_DBRX_PROMPT).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt[None]},
+                                  LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    out, dec = [], []
+    for _ in range(FAM_DBRX_NEW):
+        tok = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        out.append(tok)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, np.array([[tok]],
+                                                           np.int32), cache)
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(logits).all())
+    counts = dict(dispatch.launch_counts)
+    expected = family_counts(cfg, 1, 1 + FAM_DBRX_NEW)
+    db = {"params": n_params, "ttft_ms": ttft * 1e3,
+          "decode_ms": statistics.median(dec) * 1e3, "counts": counts,
+          "peak_bytes": torch.cuda.max_memory_allocated()}
+    say(f"families: {FAM_DBRX} ({FAM_DBRX_LAYERS} layers): prefill of "
+        f"{FAM_DBRX_PROMPT} tokens {db['ttft_ms']:.1f} ms, {FAM_DBRX_NEW} "
+        f"decode steps {db['decode_ms']:.2f} ms each (median), greedy "
+        f"{out}; logits finite: {finite}; launch counts {counts} (expected "
+        f"{expected}); peak device memory "
+        f"{db['peak_bytes'] / 2 ** 30:.1f} GiB on {smi}")
+    if not finite or counts != expected:
+        fail(f"{FAM_DBRX}: non-finite logits or counts {counts} != "
+             f"{expected}")
+    add_counts(total, counts)
+    res[FAM_DBRX] = db
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    lap("d")
+
+    # (e) each family reduced, card against CPU
+    res["card_vs_cpu"] = families_card_equals_cpu(torch, dispatch, total)
+    lap("e")
+
+    # (f) the MoE property at full width in float32, dropless capacity
+    base = get_config(FAM_MOE)
+    spec = moe_spec(base)
+    free, _ = torch.cuda.mem_get_info()
+    per_layer = sum(int(np.prod(s)) for s in (
+        (3, spec.n_experts, spec.d_model, spec.d_ff),
+        (3, base.d_model, base.shared_expert_d_ff),
+        (4, base.d_model, base.d_model))) * 4
+    layers = next(n for n in (base.n_layers, base.n_layers // 2,
+                              base.n_layers // 4, 1)
+                  if n * per_layer <= 0.6 * free)
+    cfg = dataclasses.replace(base, dtype="float32", n_layers=layers,
+                              moe_capacity_factor=spec.n_experts / spec.top_k)
+    say(f"families: {FAM_MOE} in float32 with capacity factor "
+        f"{cfg.moe_capacity_factor} (dropless): {layers} of {base.n_layers} "
+        f"layers, the most (halving) whose float32 weights "
+        f"({per_layer / 2 ** 30:.2f} GiB a layer) take at most 60% of the "
+        f"{free / 2 ** 30:.1f} GiB free, leaving room for the embeddings "
+        f"and the dropless buffers")
+    params, _ = draw(cfg)
+    toks = np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (1, FAM_PROPERTY_PROMPT + 1)).astype(np.int32)
+    dispatch.reset_launch_counts()
+    res["moe_property_err"] = property_check(
+        torch, f"{FAM_MOE} dropless", Model(cfg, device="cuda"), params, toks,
+        FAM_PROPERTY_PROMPT, LM_F32_PROPERTY_TOL, LM_F32_PROPERTY_TOL)
+    counts = dict(dispatch.launch_counts)
+    if counts != {"mha": 2 * layers}:          # the forward and the prefill
+        fail(f"{FAM_MOE} property: launch counts {counts}")
+    add_counts(total, counts)
+    res["moe_property_layers"] = layers
+    del params
+    torch.cuda.empty_cache()
+    lap("f")
+
+    res["counts"] = total
+    say(f"families: phase 11's launches {total} in "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return res
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -3157,6 +3677,9 @@ def main() -> int:
     lm_train = lm_train_on_card(torch, dispatch, smi)
     bt = lm_train["bwd"]
 
+    # -- 11. the decoder-only families at full width -------------------------
+    fam = lm_families_on_card(torch, dispatch, smi)
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -3203,8 +3726,11 @@ def main() -> int:
         {"name": "int_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/int_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:43",
-         "launches": lm["counts"]["int_matmul"], "max_abs_err": err_mm,
+         "launches": lm["counts"]["int_matmul"],
+         "max_abs_err": max(err_mm, fam["err_mm"]),
          "train_launches": lm_train["quant_counts"]["int_matmul"],
+         "families_launches": fam["counts"].get("int_matmul", 0),
+         "families_max_abs_err": fam["err_mm"],
          "train": lm_train["int_matmul"],
          "shape": [lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
          **lt["int_matmul", lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
@@ -3218,8 +3744,11 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-         "launches": lm["counts"]["mha"], "max_abs_err": err_fa,
+         "launches": lm["counts"]["mha"],
+         "max_abs_err": max(err_fa, fam["err_fa"]),
          "train_launches": lm_train["counts"]["mha"],
+         "families_launches": fam["counts"]["mha"],
+         "families_max_abs_err": fam["err_fa"],
          "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",],
          "train": {"shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128],
                    "kv_heads": 16, "with_lse": True, **bt["fwd"]}},
@@ -3230,6 +3759,7 @@ def main() -> int:
                  "its XLA attention (src/repro/models/attention.py:151-186)"
                  " with jax.grad",
          "launches": lm_train["counts"]["mha_bwd"],
+         "families_launches": fam["counts"]["mha_bwd"],
          "max_abs_err": lm_train["bwd_abs_err"],
          "max_rel_err": lm_train["bwd_err"],
          "shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128], "kv_heads": 16,
@@ -3254,6 +3784,14 @@ def main() -> int:
     say("train: " + json.dumps({k: lm_train[k] for k in (
         "losses", "step_ms", "fwd_bwd_ms", "update_ms", "tokens_per_s",
         "peak_bytes")}))
+    say("families: " + json.dumps({
+        f"{arch} {mode}": {k: fam[arch][mode][k] for k in (
+            "tokens_per_s", "ttft_ms", "decode_ms", "wall_s", "peak_bytes")}
+        for arch, modes in ((FAM_MOE, ("on", "off")),
+                            (FAM_HYMBA, ("on", "off")),
+                            (FAM_XLSTM, ("serve",)))
+        for mode in modes} | {FAM_DBRX: {k: fam[FAM_DBRX][k] for k in (
+            "ttft_ms", "decode_ms", "peak_bytes")}}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

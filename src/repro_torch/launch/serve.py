@@ -1,12 +1,14 @@
 """Serving launcher: batched generation with the slot engine (port of
 ``repro.launch.serve``).  It serves ``get_config(arch).reduced()`` from
-random weights drawn with seed 0 on the device.
+random weights drawn with seed 0 on the device; ``--arch`` takes every
+decoder-only config (dense, moe, ssm, hybrid).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-On ``--device cuda`` (the default) prefill attention runs the
-``flash_attention`` kernel; on ``--device cpu`` its plain version.
+On ``--device cuda`` (the default) prefill attention, sliding windows
+included, runs the ``flash_attention`` kernel; on ``--device cpu`` its
+plain version.
 """
 from __future__ import annotations
 

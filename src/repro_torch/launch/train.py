@@ -5,8 +5,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 8 \\
       --batch 8 --seq 1024 --steps 5
 
-``--device cuda`` (the default) trains on the card, attention forward and
-backward in the ``flash_attention`` kernels, and raises without a GPU;
+``--arch`` takes every decoder-only config (dense, moe, ssm, hybrid; the
+VLM and audio ids raise in ``get_config``).  ``--device cuda`` (the
+default) trains on the card, attention forward and backward (windows
+included) in the ``flash_attention`` kernels, and raises without a GPU;
 ``--device cpu`` runs their plain versions.  Weights are random, drawn from
 ``train``'s ``seed`` on the device; batches come from
 ``MarkovCorpus(vocab, seed)``.  A run resumed from ``--ckpt-dir`` restores
@@ -34,10 +36,6 @@ from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.fault_tolerance import StragglerMonitor
 from repro_torch.train.loop import make_train_step
 
-#: ROADMAP item that ports the families whose batches carry more inputs
-FAMILY_TODO = ("training the {family} family (vision / audio inputs) is not "
-               "ported yet: ROADMAP queue 1 item 12")
-
 
 def build(arch: str, *, reduced: bool, lr: float = 3e-4,
           microbatches: int = 1, quantize_dense: bool = False,
@@ -51,8 +49,6 @@ def build(arch: str, *, reduced: bool, lr: float = 3e-4,
     if quantize_dense or lut_activations:
         cfg = dataclasses.replace(cfg, quantize_dense=quantize_dense,
                                   lut_activations=lut_activations)
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(FAMILY_TODO.format(family=cfg.family))
     model = Model(cfg, device=device)
     opt = AdamW(lr=lr)
     step_fn = make_train_step(model, opt, microbatches=microbatches)

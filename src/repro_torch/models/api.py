@@ -1,9 +1,12 @@
-"""Model facade of the LM stack (port of ``repro.models.api``, dense family).
+"""Model facade of the LM stack (port of ``repro.models.api``, the
+decoder-only families: dense, moe, ssm, hybrid).
 
 ``Model(cfg, device)`` exposes init / loss / forward / prefill /
 decode_step / init_cache.  Parameters are a
 :class:`~repro_torch.models.layers.Params` tree whose names are the
-reference's dict keys, one group per layer under ``layers``.
+reference's dict keys (nested ``moe``/``mlstm``/``slstm``/``ssm`` groups
+included), one group per layer under ``layers``, and hymba's ``meta``
+tokens at the top.
 :func:`params_from_jax` builds that tree from the reference's parameters
 (as numpy arrays), so both packages can compute the same function from the
 same weights; given the reference's gradient tree (``jax.grad``'s output,
@@ -28,8 +31,9 @@ from .layers import Params
 
 
 class Model:
-    """The dense decoder LM of ``cfg`` on ``device`` (``"cuda"`` unless
-    the caller asks for ``"cpu"``; ``"cuda"`` without a GPU raises)."""
+    """The decoder LM of ``cfg`` on ``device`` (``"cuda"`` unless the
+    caller asks for ``"cpu"``; ``"cuda"`` without a GPU raises).  The VLM
+    and audio families raise ``NotImplementedError``."""
 
     def __init__(self, cfg: ArchConfig,
                  device: Union[str, torch.device] = "cuda"):
@@ -57,7 +61,8 @@ class Model:
     # -- training -----------------------------------------------------------------
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["targets"]`` (float32 scalar)."""
+        ``batch["targets"]`` plus 0.01 times the MoE aux loss (float32
+        scalar)."""
         return transformer.lm_loss(self.cfg, params,
                                    self._tokens(batch["tokens"]),
                                    self._tokens(batch["targets"]))
@@ -106,7 +111,8 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
     """The reference's parameter tree (``init_lm``'s dict, leaves as numpy
     arrays) as the port's: the scanned ``unit`` axis ``[reps, ...]`` is
     unstacked into one group per layer, layer ``r * len(unit) + u`` from
-    rep ``r`` of unit slot ``u``.  A gradient tree of the same structure
+    rep ``r`` of unit slot ``u`` (xLSTM's unit is 7 mLSTM blocks and an
+    sLSTM one).  A gradient tree of the same structure
     converts the same way (``named_parameters()`` then pairs each
     gradient with the port's leaf of that name)."""
     transformer.check_ported(cfg)
@@ -114,7 +120,7 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
     unit, reps = transformer.unit_pattern(cfg)
     layers = [_params(tree["unit"][u], r, dev)
               for r in range(reps) for u in range(len(unit))]
-    return Params(tok_emb=_tensor(tree["tok_emb"], dev),
-                  final_norm=_tensor(tree["final_norm"], dev),
-                  lm_head=_tensor(tree["lm_head"], dev),
-                  layers=nn.ModuleList(layers))
+    top = {name: _tensor(tree[name], dev)
+           for name in ("tok_emb", "final_norm", "lm_head", "meta")
+           if name in tree}
+    return Params(**top, layers=nn.ModuleList(layers))

@@ -5,11 +5,11 @@
 model-parallel degree (16), so the parameter shapes equal the reference's
 (qwen3-8b's 8 KV heads become 16, each drawn at init).
 
-``_sdpa`` sends unmasked-length attention (no ``window``, no ``kv_len``) to
-the ``mha`` op, the ``flash_attention`` kernel on a CUDA tensor: that is
-prefill and the training-style forward.  Decode attends over the static
-cache with a ``kv_len`` mask and keeps the plain masked path, as the
-reference does.
+``_sdpa`` sends attention without a ``kv_len`` to the ``mha`` op, the
+``flash_attention`` kernel on a CUDA tensor, sliding windows included:
+that is prefill and the training-style forward.  Decode attends over the
+static cache with a ``kv_len`` mask and keeps the plain masked path, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -147,13 +147,19 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
     """Scaled dot-product attention with GQA, an optional sliding window
     and valid-kv-length masking (for static-shape caches).
 
-    Without a window and a kv length it is the ``mha`` op (the kernel on
-    the card).  The masked path is the reference's: float32 scores of the
-    (upcast) operands, ``-1e30`` where masked, softmax, ``p`` cast to v's
-    dtype before the float32 ``p @ v``, the result in q's dtype.
+    Without a kv length it is the ``mha`` op (the kernel on the card),
+    with its window; a window no query can reach past (``FULL_WINDOW``
+    among them) is no window.  The masked path is the reference's: float32
+    scores of the (upcast) operands, ``-1e30`` where masked, softmax,
+    ``p`` cast to v's dtype before the float32 ``p @ v``, the result in
+    q's dtype.
     """
-    if window is None and kv_len is None:
-        return mha(q, k, v, causal=causal, q_offset=q_offset)
+    if kv_len is None:
+        # query row i sits at q_offset + i, keys at 0..: no key is ever
+        # window or more behind a query when window >= q_offset + Sq
+        reach = q_offset + q.shape[2]
+        w = 0 if window is None or window >= reach else window
+        return mha(q, k, v, causal=causal, q_offset=q_offset, window=w)
     d = q.shape[-1]
     sq, skv = q.shape[2], k.shape[2]
     k, v = gqa_repeat(q, k, v)

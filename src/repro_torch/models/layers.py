@@ -86,9 +86,16 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+    return normal_init(gen, (vocab, d), 0.02, dtype)
+
+
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale^2) of ``shape`` in float32, cast to ``dtype``, on
+    ``gen``'s device."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return w.mul_(0.02).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 # -- norms -------------------------------------------------------------------

@@ -1,16 +1,19 @@
-"""Decoder LM of the dense family (port of ``repro.models.transformer``,
-``"attn"`` blocks only).
+"""Decoder LM of the decoder-only families (port of
+``repro.models.transformer``): ``attn`` (dense), ``moe``, ``mlstm`` and
+``slstm`` (xLSTM) and ``hymba`` blocks.
 
 The reference scans a stacked repeating unit with ``lax.scan``; the port
 keeps one parameter group per layer (``params["layers"][i]``) and loops
-over them in Python.  Modes: the training forward and ``lm_loss``,
-prefill (writes the KV caches) and single-token decode.  With
+over them in Python.  Modes: the training forward and ``lm_loss`` (the
+blocks' aux loss, MoE load balancing, summed in), prefill (writes each
+block's cache: KV, SSM or xLSTM state) and single-token decode.  With
 ``cfg.remat == "full"`` the training forward checkpoints each layer (the
 reference checkpoints each scanned unit): its activations are recomputed
-in the backward.
+in the backward.  Hymba's meta tokens are prepended to the prompt (and
+its cache holds them), then stripped after the stack.
 
-Only the dense family is ported: any other block type (moe, mlstm, slstm,
-hymba, cross) raises ``NotImplementedError``.
+The blocks that need inputs beside the tokens (``cross``: the VLM's
+vision states, the audio family's encoder) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,23 +24,30 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .attention import (AttnSpec, KVCache, _project_qkv, _sdpa, attention,
+from . import ssm as ssm_mod
+from .attention import (AttnSpec, _project_qkv, _sdpa, attention,
                         attention_decode, init_attention, init_kv_cache,
                         plan_heads, quantize_kv)
-from .layers import Params, dense_init, embed_init, init_mlp, mlp, rms_norm
+from .layers import (Params, dense_init, embed_init, init_mlp, mlp,
+                     normal_init, rms_norm)
+from .moe import MoeSpec, init_moe, moe_apply, pad_experts
 
 FULL_WINDOW = 1 << 30
-#: ROADMAP item that ports the other block types
-BLOCKS_TODO = ("only the dense family's 'attn' blocks are ported; {bt!r} "
-               "blocks (moe, ssm, vlm, hybrid, audio) wait for ROADMAP "
-               "queue 1 item 12")
+#: ROADMAP item that ports the families whose batches carry more inputs
+BLOCKS_TODO = ("{bt!r} (the VLM's cross-attention over vision states and "
+               "the audio family's encoder-decoder) is not ported yet: "
+               "ROADMAP queue 1 item 12")
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if cfg.family != "dense":
+    if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(BLOCKS_TODO.format(bt=cfg.family))
 
+
+# ---------------------------------------------------------------------------
+# Specs derived from the config.
+# ---------------------------------------------------------------------------
 
 def attn_spec(cfg: ArchConfig, tp: int = 16) -> AttnSpec:
     return AttnSpec(
@@ -49,13 +59,35 @@ def attn_spec(cfg: ArchConfig, tp: int = 16) -> AttnSpec:
         norm_eps=cfg.norm_eps)
 
 
+def moe_spec(cfg: ArchConfig, ep: int = 16) -> MoeSpec:
+    return MoeSpec(
+        d_model=cfg.d_model,
+        n_experts=pad_experts(cfg.n_experts, ep),
+        n_experts_real=cfg.n_experts,
+        top_k=cfg.n_experts_per_tok, d_ff=cfg.moe_d_ff,
+        capacity_factor=cfg.moe_capacity_factor,
+        activation=cfg.activation, dispatch=cfg.moe_dispatch,
+        groups=cfg.moe_groups)
+
+
+def mlstm_spec(cfg: ArchConfig) -> ssm_mod.MlstmSpec:
+    return ssm_mod.MlstmSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                             proj_factor=cfg.ssm_proj_factor)
+
+
+def slstm_spec(cfg: ArchConfig) -> ssm_mod.SlstmSpec:
+    return ssm_mod.SlstmSpec(d_model=cfg.d_model, n_heads=cfg.n_heads)
+
+
+def ssm_spec(cfg: ArchConfig) -> ssm_mod.SsmSpec:
+    return ssm_mod.SsmSpec(
+        d_model=cfg.d_model,
+        d_inner=int(cfg.d_model * cfg.ssm_proj_factor),
+        d_state=cfg.ssm_state or 16)
+
+
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _require_attn(bt: str) -> None:
-    if bt != "attn":
-        raise NotImplementedError(BLOCKS_TODO.format(bt=bt))
 
 
 # ---------------------------------------------------------------------------
@@ -63,48 +95,107 @@ def _require_attn(bt: str) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, bt: str) -> Params:
-    _require_attn(bt)
     dt, d = _dtype(cfg), cfg.d_model
-    return Params(
-        norm1=torch.ones((d,), dtype=dt, device=gen.device),
-        attn=init_attention(gen, attn_spec(cfg), dt),
-        norm2=torch.ones((d,), dtype=dt, device=gen.device),
-        mlp=init_mlp(gen, d, cfg.d_ff, dt))
+
+    def norm():
+        return torch.ones((d,), dtype=dt, device=gen.device)
+    if bt == "mlstm":
+        return Params(norm1=norm(),
+                      mlstm=ssm_mod.init_mlstm(gen, mlstm_spec(cfg), dt))
+    if bt == "slstm":
+        return Params(norm1=norm(),
+                      slstm=ssm_mod.init_slstm(gen, slstm_spec(cfg), dt))
+    p = {"norm1": norm(), "attn": init_attention(gen, attn_spec(cfg), dt)}
+    if bt == "hymba":
+        p.update(ssm=ssm_mod.init_ssm(gen, ssm_spec(cfg), dt),
+                 attn_norm=norm(), ssm_norm=norm())
+    p["norm2"] = norm()
+    if bt == "moe":
+        p["moe"] = init_moe(gen, moe_spec(cfg), dt)
+        if cfg.shared_expert_d_ff:
+            p["shared"] = init_mlp(gen, d, cfg.shared_expert_d_ff, dt)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt)
+    return Params(**p)
+
+
+def _ffn(p, cfg: ArchConfig, bt: str, x: torch.Tensor):
+    """The block's second half on the residual stream: ``(x, aux)``, the
+    MLP, or the routed experts beside the shared one (aux their
+    load-balancing loss)."""
+    y = rms_norm(x, p["norm2"])
+    lut, q = cfg.lut_activations, cfg.quantize_dense
+    if bt != "moe":
+        return x + mlp(p["mlp"], y, cfg.activation, lut, q), 0.0
+    mo, aux = moe_apply(p["moe"], moe_spec(cfg), y, lut)
+    if "shared" in p:
+        mo = mo + mlp(p["shared"], y, cfg.activation, lut, q)
+    return x + mo, aux
+
+
+def _hymba_mix(p, ha: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    """Hymba's parallel heads: the mean of the normed attention and SSM
+    outputs."""
+    return 0.5 * (rms_norm(ha, p["attn_norm"]) + rms_norm(hs, p["ssm_norm"]))
 
 
 def apply_block_train(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
-                      positions: torch.Tensor, window: Optional[int]
-                      ) -> tuple[torch.Tensor, float]:
+                      positions: torch.Tensor, window: Optional[int]):
     """-> (x, aux_loss)."""
-    _require_attn(bt)
-    x = x + attention(p["attn"], attn_spec(cfg), rms_norm(x, p["norm1"]),
-                      positions, window=window)
-    x = x + mlp(p["mlp"], rms_norm(x, p["norm2"]), cfg.activation,
-                cfg.lut_activations, cfg.quantize_dense)
-    return x, 0.0
+    if bt == "mlstm":
+        return x + ssm_mod.mlstm_chunkwise(
+            p["mlstm"], mlstm_spec(cfg), rms_norm(x, p["norm1"])), 0.0
+    if bt == "slstm":
+        return x + ssm_mod.slstm_apply(
+            p["slstm"], slstm_spec(cfg), rms_norm(x, p["norm1"])), 0.0
+    y = rms_norm(x, p["norm1"])
+    h = attention(p["attn"], attn_spec(cfg), y, positions, window=window)
+    if bt == "hymba":
+        h = _hymba_mix(p, h, ssm_mod.ssm_apply(p["ssm"], ssm_spec(cfg), y))
+    return _ffn(p, cfg, bt, x + h)
 
 
 def init_block_cache(cfg: ArchConfig, bt: str, batch: int, max_seq: int,
                      device="cuda") -> dict:
-    _require_attn(bt)
+    dt = _dtype(cfg)
+    if bt == "mlstm":
+        return {"mlstm": ssm_mod.mlstm_state_init(batch, mlstm_spec(cfg), dt,
+                                                  device)}
+    if bt == "slstm":
+        return {"slstm": ssm_mod.slstm_state_init(batch, slstm_spec(cfg),
+                                                  device)}
     spec = attn_spec(cfg)
-    return {"kv": init_kv_cache(batch, spec.plan, spec.head_dim, max_seq,
-                                _dtype(cfg), bits=cfg.kv_cache_bits,
-                                device=device)}
+    c = {"kv": init_kv_cache(batch, spec.plan, spec.head_dim, max_seq, dt,
+                             bits=cfg.kv_cache_bits, device=device)}
+    if bt == "hymba":
+        c["ssm"] = ssm_mod.ssm_state_init(batch, ssm_spec(cfg), dt, device)
+    return c
 
 
 def apply_block_decode(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                        cache: dict, window: Optional[int]
                        ) -> tuple[torch.Tensor, dict]:
     """Single-token step.  -> (x, new_cache)."""
-    _require_attn(bt)
-    h, kv = attention_decode(p["attn"], attn_spec(cfg),
-                             rms_norm(x, p["norm1"]), cache["kv"],
+    if bt == "mlstm":
+        h, st = ssm_mod.mlstm_decode_step(
+            p["mlstm"], mlstm_spec(cfg), rms_norm(x, p["norm1"]),
+            cache["mlstm"])
+        return x + h, {"mlstm": st}
+    if bt == "slstm":
+        h, st = ssm_mod.slstm_decode_step(
+            p["slstm"], slstm_spec(cfg), rms_norm(x, p["norm1"]),
+            cache["slstm"])
+        return x + h, {"slstm": st}
+    y = rms_norm(x, p["norm1"])
+    h, kv = attention_decode(p["attn"], attn_spec(cfg), y, cache["kv"],
                              window=window)
-    x = x + h
-    x = x + mlp(p["mlp"], rms_norm(x, p["norm2"]), cfg.activation,
-                cfg.lut_activations, cfg.quantize_dense)
-    return x, {"kv": kv}
+    new = {"kv": kv}
+    if bt == "hymba":
+        hs, new["ssm"] = ssm_mod.ssm_decode_step(p["ssm"], ssm_spec(cfg), y,
+                                                 cache["ssm"])
+        h = _hymba_mix(p, h, hs)
+    x, _ = _ffn(p, cfg, bt, x + h)
+    return x, new
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +216,15 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random weights drawn from ``gen`` on its device."""
     check_ported(cfg)
     dt = _dtype(cfg)
-    return Params(
-        tok_emb=embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
-        final_norm=torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
-        lm_head=dense_init(gen, cfg.d_model, cfg.padded_vocab, dt),
-        layers=nn.ModuleList(init_block(gen, cfg, bt)
-                             for bt in cfg.layer_pattern()))
+    p = {"tok_emb": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
+         "final_norm": torch.ones((cfg.d_model,), dtype=dt,
+                                  device=gen.device),
+         "lm_head": dense_init(gen, cfg.d_model, cfg.padded_vocab, dt)}
+    if cfg.meta_tokens:
+        p["meta"] = normal_init(gen, (cfg.meta_tokens, cfg.d_model), 0.02,
+                                dt)
+    return Params(**p, layers=nn.ModuleList(init_block(gen, cfg, bt)
+                                            for bt in cfg.layer_pattern()))
 
 
 def _windows_stacked(cfg: ArchConfig, unit_len: int,
@@ -149,13 +243,25 @@ def _layer_windows(cfg: ArchConfig) -> list[Optional[int]]:
 
 
 def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok_emb"][tokens.long()]
+    """Token embeddings ``[B, S, d]``, after the meta tokens where the
+    config has them (``[B, meta + S, d]``)."""
+    x = params["tok_emb"][tokens.long()]
+    if cfg.meta_tokens:
+        meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([meta, x], dim=1)
+    return x
 
 
-def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor
-               ) -> tuple[torch.Tensor, float]:
+def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Logits of the stack's output."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor):
     """Training-style forward: tokens [B, S] -> (logits [B, S, Vpad],
-    aux)."""
+    aux), aux the blocks' summed aux loss (0.0 without MoE blocks, else a
+    float32 0-d tensor)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
@@ -169,9 +275,8 @@ def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor
                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = apply_block_train(p, cfg, bt, x, positions, win)
-        aux += a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), aux
+        aux = aux + a
+    return _unembed(cfg, params, x[:, cfg.meta_tokens:]), aux
 
 
 def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
@@ -194,7 +299,8 @@ def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device="cuda") -> list[dict]:
-    """One cache per layer."""
+    """One cache per layer, room for the meta tokens added."""
+    max_seq += cfg.meta_tokens
     return [init_block_cache(cfg, bt, batch, max_seq, device)
             for bt in cfg.layer_pattern()]
 
@@ -209,17 +315,24 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_seq: int
     caches = []
     for p, bt, win in zip(params["layers"], cfg.layer_pattern(),
                           _layer_windows(cfg)):
-        x, c = _prefill_block(p, cfg, bt, x, positions, win, max_seq)
+        x, c = _prefill_block(p, cfg, bt, x, positions, win,
+                              max_seq + cfg.meta_tokens)
         caches.append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1:] @ params["lm_head"].to(x.dtype), caches
+    return _unembed(cfg, params, x[:, -1:]), caches
 
 
 def _prefill_block(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
                    cache_max: int) -> tuple[torch.Tensor, dict]:
     """Forward one block while materializing its decode cache."""
-    _require_attn(bt)
+    if bt == "mlstm":
+        h, st = ssm_mod._mlstm_forward(p["mlstm"], mlstm_spec(cfg),
+                                       rms_norm(x, p["norm1"]))
+        return x + h, {"mlstm": st}
+    if bt == "slstm":
+        h, st = ssm_mod._slstm_forward(p["slstm"], slstm_spec(cfg),
+                                       rms_norm(x, p["norm1"]))
+        return x + h, {"slstm": st}
     b, s_total, _ = x.shape
     spec = attn_spec(cfg)
     y = rms_norm(x, p["norm1"])
@@ -238,21 +351,24 @@ def _prefill_block(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
         kv.v[:, :, :s_total] = vh
     att = _sdpa(qh, kh, vh, causal=True, window=window)
     att = att.transpose(1, 2).reshape(b, s_total, -1)
-    x = x + att @ p["attn"]["wo"].to(x.dtype)
-    x = x + mlp(p["mlp"], rms_norm(x, p["norm2"]), cfg.activation,
-                cfg.lut_activations, cfg.quantize_dense)
-    return x, {"kv": kv._replace(length=s_total)}
+    h = att @ p["attn"]["wo"].to(x.dtype)
+    cache = {"kv": kv._replace(length=s_total)}
+    if bt == "hymba":
+        hs, cache["ssm"] = ssm_mod._ssm_forward(p["ssm"], ssm_spec(cfg), y)
+        h = _hymba_mix(p, h, hs)
+    x, _ = _ffn(p, cfg, bt, x + h)
+    return x, cache
 
 
 def lm_decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
                    caches: list[dict]) -> tuple[torch.Tensor, list[dict]]:
     """tokens [B, 1] -> (logits [B, 1, Vpad], new caches).  The caches'
-    tensors are written in place (``attention_decode``)."""
-    x = _embed(cfg, params, tokens)
+    tensors are written in place (``attention_decode``); the recurrent
+    states are new tensors.  No meta tokens: the cache holds them."""
+    x = params["tok_emb"][tokens.long()]
     new_caches = []
     for p, bt, c, win in zip(params["layers"], cfg.layer_pattern(), caches,
                              _layer_windows(cfg)):
         x, c = apply_block_decode(p, cfg, bt, x, c, win)
         new_caches.append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), new_caches
+    return _unembed(cfg, params, x), new_caches

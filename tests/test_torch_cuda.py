@@ -1628,3 +1628,75 @@ def test_attention_weights_get_gradients_on_the_card(cuda):
         if name.split(".")[-1] in ("wq", "wk", "wv", "wo", "q_norm",
                                    "k_norm", "norm1"):
             assert float(g.float().abs().max()) > 0, name
+
+
+# -- the decoder-only families (MoE, xLSTM, Hymba) -----------------------------
+
+def test_windowed_attention_at_hymbas_shape(cuda):
+    """bf16 [1, 32, 1152, 64] over 16 KV heads with window 1024, hymba's
+    prefill of 1024 tokens after its 128 meta tokens: the kernel within
+    MHA_BF16_ATOL of the plain version; ``_sdpa`` with that window and with
+    FULL_WINDOW (no window) launches the kernel, once each."""
+    from repro_torch.models.attention import _sdpa
+    from repro_torch.models.transformer import FULL_WINDOW
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _qkv(gen, 1, 32, 16, 1152, 1152, 64, torch.bfloat16, cuda)
+    assert _attention_error(q, k, v, window=1024) <= MHA_BF16_ATOL
+    dispatch.reset_launch_counts()
+    out = _sdpa(q, k, v, causal=True, window=1024)
+    full = _sdpa(q, k, v, causal=True, window=FULL_WINDOW)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {"mha": 2}
+    assert torch.equal(out, mha_cuda(q, k, v, window=1024))
+    assert torch.equal(full, mha_cuda(q, k, v))
+
+
+#: each family reduced to float32; hymba with 4 layers, so that layer 1
+#: slides its 32-token window (both layers of the default 2 are global)
+FAMILIES = {"qwen2-moe-a2.7b": {}, "dbrx-132b": {}, "xlstm-350m": {},
+            "hymba-1.5b": {"n_layers": 4}}
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_family_on_the_card_matches_the_cpu(cuda, arch):
+    """The same weights on the card and the CPU: forward logits within
+    1e-4 (float32 in other orders), the same greedy tokens, one mha launch
+    per attention layer per prefill; value_and_grad's loss and every
+    gradient leaf within the step tolerances, with one mha and one mha_bwd
+    per attention layer (hymba's windowed one among them; xLSTM launches
+    nothing)."""
+    from repro_torch.train.loop import value_and_grad
+    cfg = get_config(arch).reduced(**FAMILIES[arch])
+    weights = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = _lm_batch(cfg.vocab_size, 2, 64)
+    prompts = [np.random.RandomState(i).randint(0, 512, n).astype(np.int32)
+               for i, n in enumerate((40, 9, 64))]
+    attn = sum(bt in ("moe", "hymba") for bt in cfg.layer_pattern())
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = copy.deepcopy(weights).to(device)
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        dispatch.reset_launch_counts()
+        ServeEngine(model, params, n_slots=2, max_seq=128).run(reqs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == (
+                {"mha": attn * len(prompts)} if attn else {})
+        logits = model.forward(params, {"tokens": batch["tokens"]}).cpu()
+        dispatch.reset_launch_counts()
+        loss, grads = value_and_grad(model, params.trainable_(), batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == (
+                {"mha": attn, "mha_bwd": attn} if attn else {})
+        got[device] = ([r.output for r in reqs], logits, float(loss),
+                       {n: g.cpu() for n, g in grads.items()})
+    (tg, lg, sg, gg), (tc, lc, sc, gc) = got["cuda"], got["cpu"]
+    assert tg == tc
+    assert float((lg - lc).abs().max()) <= 1e-4
+    assert abs(sg - sc) <= STEP_LOSS_ATOL
+    for name in gc:        # padding experts' leaves have zero gradients
+        err = float((gg[name] - gc[name]).norm()
+                    / max(float(gc[name].norm()), 1e-30))
+        assert err <= STEP_GRAD_RTOL, (name, err)

@@ -108,9 +108,8 @@ def test_plan_heads_matches_the_reference(n_q, n_kv, tp):
 
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("dbrx-132b")
-    for arch in ("qwen2-moe-a2.7b", "xlstm-350m", "llama-3.2-vision-11b",
-                 "hymba-1.5b", "whisper-tiny"):
+        get_config("llama-3.2-vision-11b")
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg = ArchConfig(**dataclasses.asdict(jget_config(arch).reduced()))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg, device="cpu")

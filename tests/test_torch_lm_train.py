@@ -333,8 +333,7 @@ def test_eval_step_matches_the_reference():
 def test_what_training_does_not_port_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.make_dp_train_step(None, tadam.AdamW(), None)
-    for arch in ("qwen2-moe-a2.7b", "xlstm-350m", "llama-3.2-vision-11b",
-                 "hymba-1.5b", "whisper-tiny"):
+    for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlaunch.build(arch, reduced=True, device="cpu")
         cfg = ArchConfig(**dataclasses.asdict(jget_config(arch).reduced()))
