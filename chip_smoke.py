@@ -176,6 +176,38 @@ Phases, in order; any failure exits non-zero:
               (f) qwen2-moe-a2.7b in float32 at full width with dropless
                   capacity, as deep as float32 fits: prefill + decode
                   against the forward
+ 12. vlm/audio the VLM and audio families at full width, bf16, seeded
+              random weights, served as the reference's API runs them
+              (Model.prefill with the request's vision states or frames,
+              then batch-1 Model.decode_step calls; ServeEngine prefills
+              tokens alone), each run with the launch counts zeroed just
+              before and checked exactly after.  First int_matmul (exact)
+              at whisper's and the VLM's MLP shapes, flash_attention
+              non-causal against 1601 and 1500 keys (Sq 1, 64, 300; D 128
+              and 64; bf16 and float32; bf16 v drawn around X_V_MEAN so
+              that a wrong normaliser shows; the lse within
+              TRAIN_LSE_ATOL) and at the phase's other shapes,
+              and flash_attention_bwd at whisper's training shapes,
+              against their plain versions; flash_attention timed at the
+              cross-attention shapes beside its bound and SDPA;
+              (a) llama-3.2-vision-11b (40 layers, 8 gated cross-attention
+                  over 1601 vision states [1, 1601, 4096] a request), every
+                  gate set to X_GATE (init's 0 shuts the vision path; the
+                  logits must move): X_REQUESTS requests of 64-512 tokens,
+                  FAM_NEW new tokens each, quantize_dense off then on;
+                  time to first token, ms a decode token, tokens/s, peak
+                  memory, a decode profile's busy share;
+              (b) whisper-tiny (4 encoder and 4 decoder layers over 1500
+                  frames) the same way, 4-token decoder prompts;
+              (c) both reduced to float32, gates open, card against CPU:
+                  forward logits, prefill + 3 decode steps against the
+                  forward, one value_and_grad (loss and every gradient
+                  leaf, mha and mha_bwd counted) and one launch/train.py
+                  step;
+              (d) whisper-tiny trained at full width through
+                  launch/train.py, B = 4, 448 decoder tokens: step 1
+                  against plain attention under autograd (TRAIN_LOSS_ATOL,
+                  TRAIN_GRAD_RTOL), then 2 steps with the counts exact
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -349,6 +381,38 @@ FAM_LOSS_ATOL, FAM_GRAD_RTOL = 1e-5, 1e-4
 #: (dropless), so prefill + decode gives the forward's last position; the
 #: prompt's length
 FAM_PROPERTY_PROMPT = 512
+
+#: phase 12, the VLM and audio families at full width, bf16, seeded random
+#: weights, served as the reference's API runs them (tests/test_arch_smoke.py:
+#: Model.prefill with the batch's vision states or frames, then batch-1
+#: Model.decode_step calls; ServeEngine prefills tokens alone): X_REQUESTS
+#: requests of FAM_NEW greedy tokens each, llama-3.2-vision-11b's prompts
+#: drawn by SEED from X_PROMPT_MIN-MAX tokens, each with its own vision
+#: states [1, 1601, 4096], whisper-tiny's X_AUDIO_PROMPT-token decoder
+#: prompts over 1500 frames each (bf16, as the reference's input_specs
+#: give them), within whisper's X_TRAIN_SEQ positions.  Every cross block's
+#: gates at X_GATE: init leaves them 0, and tanh(0) shuts the vision path.
+#: Then whisper-tiny trained X_TRAIN_STEPS steps at full width through
+#: launch/train.py, X_TRAIN_BATCH sequences of X_TRAIN_SEQ tokens (its
+#: decoder's context), its frames float32 as the reference's launcher draws
+#: them (the encoder then computes in float32, as the reference's does)
+X_VLM, X_AUDIO = "llama-3.2-vision-11b", "whisper-tiny"
+X_REQUESTS, X_PROMPT_MIN, X_PROMPT_MAX, X_AUDIO_PROMPT = 4, 64, 512, 4
+X_GATE = 1.0
+X_TRAIN_BATCH, X_TRAIN_SEQ, X_TRAIN_STEPS = 4, 448, 2
+#: the reduced families' card-against-CPU batch, and the prompt's length
+#: before its 3 decode steps
+X_REDUCED_BATCH, X_REDUCED_SEQ = 2, 64
+#: phase 12's bf16 flash_attention checks draw v around X_V_MEAN (q and k
+#: zero-mean), so every output lies in [2, 4), where one bf16 ulp is 2**-6:
+#: a right kernel is at most one ulp (0.0156) from plain, within
+#: MHA_BF16_ATOL.  A kernel that let the TMA's zero-filled keys past Skv
+#: (36 past 1500, 63 past 1601 in 64-key tiles) into the softmax would add
+#: exp(0) per key to a sum of ~Skv e**0.5, scale the output by <= 0.9855
+#: and move it by >= 0.043, nearly 3 ulps; its lse would move by >=
+#: log(1.0145) = 0.0144, against TRAIN_LSE_ATOL.  With zero-mean v the same
+#: fault moves the output (|out| ~ 0.16) by ~4e-3, inside MHA_BF16_ATOL
+X_V_MEAN = 3.0
 
 LIN_VERSIONS = ("int32", "hyb", "fp32")
 LOG_VERSIONS = ("int32_lut_wram", "int32_lut_mram")
@@ -2797,11 +2861,13 @@ def serve_family(torch, dispatch, name: str, cfg, params, prompts,
     return r
 
 
-def family_profile(torch, model, params, prompt) -> str:
+def family_profile(torch, model, params, prompt, extras=None) -> str:
     """The card's busy share over LM_PROFILE_STEPS batch-1 decode steps
-    after a prefill of ``prompt``, the device traced alone (a host trace
-    of ~25,000 eager ops takes seconds to process)."""
-    _, cache = model.prefill(params, {"tokens": prompt[None]}, LM_MAX_SEQ)
+    after a prefill of ``prompt`` (and its batch's ``extras``), the device
+    traced alone (a host trace of ~25,000 eager ops takes seconds to
+    process)."""
+    _, cache = model.prefill(params, {"tokens": prompt[None],
+                                      **(extras or {})}, LM_MAX_SEQ)
     tok = np.zeros((1, 1), np.int32)
 
     def steps():
@@ -2812,16 +2878,17 @@ def family_profile(torch, model, params, prompt) -> str:
 
 
 def property_check(torch, name: str, model, params, toks, prefix: int,
-                   atol: float, rtol: float) -> float:
-    """Prefill ``toks[:, :prefix]``, then decode the rest one token at a
-    time: every step's logits (and the prefill's last) against the
-    forward's over all of ``toks``; fails outside ``atol + rtol * |logit|``.
-    Returns the max |dlogit|."""
-    full = model.forward(params, {"tokens": toks}).float()
+                   atol: float, rtol: float, extras=None) -> float:
+    """Prefill ``toks[:, :prefix]`` (with the batch's ``extras``), then
+    decode the rest one token at a time: every step's logits (and the
+    prefill's last) against the forward's over all of ``toks``; fails
+    outside ``atol + rtol * |logit|``.  Returns the max |dlogit|."""
+    extras = extras or {}
+    full = model.forward(params, {"tokens": toks, **extras}).float()
     if not bool(torch.isfinite(full).all()):
         fail(f"{name}: non-finite forward logits")
-    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix]},
-                                  LM_MAX_SEQ)
+    logits, cache = model.prefill(params, {"tokens": toks[:, :prefix],
+                                           **extras}, LM_MAX_SEQ)
     steps = [logits[:, 0].float()]
     for i in range(prefix, toks.shape[1]):
         logits, cache = model.decode_step(params, toks[:, i:i + 1], cache)
@@ -3184,6 +3251,552 @@ def lm_families_on_card(torch, dispatch, smi: str) -> dict:
 
     res["counts"] = total
     say(f"families: phase 11's launches {total} in "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return res
+
+
+# -- phase 12: the VLM and audio families at full width ------------------------
+
+def open_gates(torch, params, value: float) -> int:
+    """Every cross block's gate_attn and gate_mlp at ``value``, in place;
+    returns how many leaves were set."""
+    gates = [p for n, p in params.named_parameters()
+             if n.rsplit(".", 1)[-1] in ("gate_attn", "gate_mlp")]
+    with torch.no_grad():
+        for p in gates:
+            p.fill_(value)
+    return len(gates)
+
+
+def x_counts(cfg, prefills: int, decode_calls: int) -> dict:
+    """The launches a phase-12 serve run of ``cfg`` makes: one mha per
+    attention and per cross-attention layer a prefill (the encoder's
+    self-attention included), one per cross-attention layer a decode step
+    (decode's self-attention keeps the masked plain path); with
+    quantize_dense, an int_matmul per MLP linear (the VLM's gated MLP has
+    3, whisper's 2) per layer per forward call, the encoder's a prefill."""
+    if cfg.family == "audio":
+        dec, enc = cfg.n_layers, cfg.encoder_layers
+        out = {"mha": prefills * (enc + 2 * dec) + decode_calls * dec}
+        mm = 2 * (prefills * (enc + dec) + decode_calls * dec)
+    else:
+        pattern = cfg.layer_pattern()
+        out = {"mha": prefills * len(pattern)
+               + decode_calls * pattern.count("cross")}
+        mm = 3 * len(pattern) * (prefills + decode_calls)
+    if cfg.quantize_dense:
+        out["int_matmul"] = mm
+    return out
+
+
+def x_requests(torch, cfg) -> list:
+    """Phase 12's requests: (prompt, the batch's extras on the card in
+    bf16), drawn by SEED."""
+    rng = np.random.RandomState(SEED)
+    out = []
+    for _ in range(X_REQUESTS):
+        if cfg.family == "vlm":
+            n = int(rng.randint(X_PROMPT_MIN, X_PROMPT_MAX + 1))
+            name, shape = "vision", (1, cfg.vision_tokens, cfg.vision_dim)
+        else:
+            n, name, shape = X_AUDIO_PROMPT, "frames", (1, cfg.encoder_seq,
+                                                        cfg.d_model)
+        prompt = rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+        states = torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        out.append((prompt, {name: states}))
+    return out
+
+
+def serve_extras(torch, dispatch, name: str, cfg, params, reqs,
+                 max_seq: int, total: dict, smi: str) -> dict:
+    """Serve ``reqs`` one at a time as the reference's API runs them:
+    Model.prefill of the prompt with its extras, then FAM_NEW - 1 batch-1
+    Model.decode_step calls, greedy; the counts zeroed just before and
+    checked exactly just after, every logit finite.  Prints the time to
+    first token (the prefill and its argmax), ms per decode token, tokens/s
+    and peak memory."""
+    from repro_torch.models.api import Model
+    model = Model(cfg, device="cuda")
+    decode_calls = len(reqs) * (FAM_NEW - 1)
+    expected = x_counts(cfg, len(reqs), decode_calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    outputs, ttft, dec, finite = [], [], [], True
+    t_start = time.perf_counter()
+    for prompt, extras in reqs:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt[None],
+                                               **extras}, max_seq)
+        tok = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        out = [tok]
+        finite &= bool(torch.isfinite(logits).all())
+        for _ in range(FAM_NEW - 1):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(
+                params, np.array([[tok]], np.int32), cache)
+            tok = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+            dec.append(time.perf_counter() - t0)
+            out.append(tok)
+            finite &= bool(torch.isfinite(logits).all())
+        outputs.append(out)
+    wall = time.perf_counter() - t_start
+    counts = dict(dispatch.launch_counts)
+    n_tok = sum(len(o) for o in outputs)
+    r = {"outputs": outputs, "wall_s": wall, "tokens": n_tok,
+         "tokens_per_s": n_tok / wall, "ttft_ms": ttft,
+         "decode_ms": statistics.median(dec) * 1e3,
+         "decode_calls": len(dec), "counts": counts,
+         "peak_bytes": torch.cuda.max_memory_allocated()}
+    say(f"vlm/audio: {name}: launch counts {counts} (expected {expected}: "
+        f"{len(reqs)} prefills + {decode_calls} decode calls)")
+    if counts != expected or not finite:
+        fail(f"{name}: launch counts {counts} != {expected} or a "
+             f"non-finite logit")
+    say(f"serve: {name}: {len(reqs)} requests one at a time, prompts "
+        f"{[len(p) for p, _ in reqs]}, {FAM_NEW} new tokens each: {n_tok} "
+        f"tokens in {wall:.2f} s, {r['tokens_per_s']:.2f} tokens/s; time to "
+        f"first token {', '.join(f'{t:.1f}' for t in ttft)} ms; "
+        f"{r['decode_ms']:.2f} ms per decode token (median of {len(dec)} "
+        f"batch-1 decode calls); peak device memory "
+        f"{r['peak_bytes'] / 2 ** 30:.1f} GiB on {smi}")
+    add_counts(total, counts)
+    return r
+
+
+def check_x_kernels(torch, prompt_lens: list) -> tuple[int, float, float]:
+    """The kernels at the shapes phase 12 gives them, against their plain
+    versions.  int_matmul exact (full-range int8) at whisper's MLP (384 x
+    1536 and back) for M = 1 (a decode token), 4 (a prompt) and 1500 (the
+    encoder) and at the VLM's (4096 x 14336 and back) for M = 1 and the
+    shortest and longest prompts.  flash_attention non-causal (within
+    MHA_BF16_ATOL / MHA_F32_ATOL, bf16 v around X_V_MEAN; the lse within
+    TRAIN_LSE_ATOL of plain's) against 1601 vision states (32 query
+    over 16 KV heads of 128) and 1500 encoder states (16 over 16 of 64)
+    for Sq = 1, 64 and 300 in bf16 and float32, the decode step's over
+    contiguous cached keys and values; the VLM's prompts' cross-attention;
+    whisper's encoder in bf16 (serving) and float32 (training, B =
+    X_TRAIN_BATCH); its training decoder's attention.  flash_attention_bwd
+    (within TRAIN_BWD_*_RTOL of max |plain|) at whisper's training shapes.
+    Returns the max abs errors (int_matmul, mha, mha_bwd)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (mha_bwd_cuda,
+                                                     mha_bwd_plain, mha_cuda,
+                                                     mha_plain)
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    vlm, au = get_config(X_VLM), get_config(X_AUDIO)
+    lo, hi = min(prompt_lens), max(prompt_lens)
+    shapes = [(m, k, n) for cfg, ms in ((au, (1, X_AUDIO_PROMPT,
+                                              au.encoder_seq)),
+                                        (vlm, (1, lo, hi)))
+              for m in ms for k, n in ((cfg.d_model, cfg.d_ff),
+                                       (cfg.d_ff, cfg.d_model))]
+    err_mm = 0
+    for m, k, n in shapes:
+        a, b = int8_operand(torch, gen, (m, k)), int8_operand(torch, gen,
+                                                              (k, n))
+        err_mm = max(err_mm, same(torch, [int_matmul_cuda(a, b)],
+                                  [int_matmul_plain(a, b)]))
+    say(f"vlm/audio: kernels: int_matmul == plain at (M, K, N) {shapes}")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(b, hq, hkv, sq, skv, d, dtype, cached=False, v_mean=None):
+        """[B, S, H, D] draws seen as [B, H, S, D]; bf16 v around X_V_MEAN
+        unless ``v_mean`` says otherwise (a causal row averages few keys,
+        so its output leaves [2, 4)); a decode step's cached k, v
+        contiguous."""
+        if v_mean is None:
+            v_mean = X_V_MEAN if dtype == bf16 else 0.0
+        q, k, v = ((torch.randn((b, s, h, d), generator=gen, device="cuda")
+                    + m).to(dtype).transpose(1, 2)
+                   for s, h, m in ((sq, hq, 0.0), (skv, hkv, 0.0),
+                                   (skv, hkv, v_mean)))
+        return (q, k.contiguous(), v.contiguous()) if cached else (q, k, v)
+    vis, enc = vlm.vision_tokens, au.encoder_seq
+    nc = {"causal": False}
+    cases = [(f"{str(dt)[6:]} [1, {hq}, {sq}, {d}] against {skv} keys over "
+              f"{hkv} KV heads, not causal"
+              f"{' (cached k, v)' if sq == 1 else ''}",
+              qkv(1, hq, hkv, sq, skv, d, dt, sq == 1), nc)
+             for hq, hkv, d, skv in ((32, 16, 128, vis), (16, 16, 64, enc))
+             for sq in (1, 64, 300) for dt in (bf16, f32)]
+    cases += [(f"bf16 [1, 32, {s}, 128] against {vis} vision states, not "
+               f"causal", qkv(1, 32, 16, s, vis, 128, bf16), nc)
+              for s in (lo, hi)]
+    b, s = X_TRAIN_BATCH, X_TRAIN_SEQ
+    cases.append(
+        (f"bf16 [1, 16, {enc}, 64], whisper's encoder serving, not causal",
+         qkv(1, 16, 16, enc, enc, 64, bf16), nc))
+    train = [           # whisper's training shapes
+        (f"f32 [{b}, 16, {enc}, 64], whisper's encoder training, not causal",
+         (b, 16, 16, enc, enc, 64, f32), nc),
+        (f"bf16 [{b}, 16, {s}, 64] against {enc} encoder states, not causal",
+         (b, 16, 16, s, enc, 64, bf16), nc),
+        (f"bf16 [{b}, 16, {s}, 64], whisper's decoder, causal",
+         (b, 16, 16, s, s, 64, bf16), {})]
+    cases += [(name, qkv(*shape, v_mean=None if kw is nc else 0.0), kw)
+              for name, shape, kw in train]
+    err_fa = check_mha_cases(torch, cases, "vlm/audio: kernels: ")
+    err_lse = 0.0
+    for name, (q, k, v), kw in cases:
+        if kw.get("causal", True):
+            continue
+        out, lse = mha_cuda(q, k, v, with_lse=True, **kw)
+        want, lse_ref = mha_plain(q, k, v, with_lse=True, **kw)
+        e = float((lse - lse_ref).abs().max())
+        if not (torch.equal(out, mha_cuda(q, k, v, **kw))
+                and e <= TRAIN_LSE_ATOL):
+            fail(f"flash_attention: {name}: out with lse != out without, or "
+                 f"lse off the plain logsumexp by {e} > {TRAIN_LSE_ATOL}")
+        err_lse = max(err_lse, e)
+    say(f"vlm/audio: kernels: flash_attention's lse ~ plain logsumexp in "
+        f"every not-causal case above (max abs err {err_lse:.3g} <= "
+        f"{TRAIN_LSE_ATOL}; bf16 v drawn around {X_V_MEAN})")
+
+    err_bwd = 0.0
+    for name, shape, kw in train:       # zero-mean v, as training's
+        q, k, v = qkv(*shape, v_mean=0.0)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        out, lse = mha_cuda(q, k, v, with_lse=True, **kw)
+        got = mha_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        want = mha_bwd_plain(q, k, v, out, dout, lse, **kw)
+        tol = (TRAIN_BWD_BF16_RTOL if q.dtype == bf16
+               else TRAIN_BWD_F32_RTOL)
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        say(f"vlm/audio: kernels: flash_attention_bwd ~ plain, {name}: dq "
+            f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} of max "
+            f"|plain| (<= {tol})")
+        if not max(errs) <= tol:
+            fail(f"flash_attention_bwd: {name}: errors {errs} > {tol}")
+        err_bwd = max(err_bwd, max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want)))
+    return err_mm, err_fa, err_bwd
+
+
+def x_kernel_times(torch, prompt_lens: list) -> dict:
+    """flash_attention at the cross-attention shapes phase 12 serves:
+    kernel, plain, the bound from its declared cost and
+    F.scaled_dot_product_attention (enable_gqa) on the same inputs, the
+    achieved TFLOP/s and the share of the bound."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    vis, enc = (get_config(X_VLM).vision_tokens,
+                get_config(X_AUDIO).encoder_seq)
+    shapes = {"vlm decode cross": (32, 16, 128, 1, vis),
+              "vlm prefill cross": (32, 16, 128, max(prompt_lens), vis),
+              "whisper encoder": (16, 16, 64, enc, enc),
+              "whisper decode cross": (16, 16, 64, 1, enc)}
+    flush = L2Flush(torch)
+    out = {}
+    for name, (hq, hkv, d, sq, skv) in shapes.items():
+        q = (torch.randn((1, sq, hq, d), generator=gen, device="cuda")
+             .to(torch.bfloat16).transpose(1, 2))
+        k, v = (torch.randn((1, skv, hkv, d), generator=gen, device="cuda")
+                .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        if sq == 1:                     # a decode step reads the cache
+            k, v = k.contiguous(), v.contiguous()
+        t = dict(shape=[1, hq, sq, d], keys=skv, kv_heads=hkv,
+                 ms=cuda_ms(torch, lambda: mha_cuda(q, k, v, causal=False),
+                            flush),
+                 plain_ms=cuda_ms(torch, lambda: mha_plain(q, k, v,
+                                                           causal=False),
+                                  flush),
+                 library_ms=cuda_ms(
+                     torch, lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=False, enable_gqa=True), flush))
+        cost = dispatch.declared_cost("mha", q, k, v, causal=False)
+        t["bound_ms"], t["bound_by"] = bound(cost.bytes, cost.ops,
+                                             PEAK_OPS_PER_S[cost.rate])
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["tflops"] = cost.ops / t["ms"] / 1e9
+        out[name] = t
+    del flush
+    return out
+
+
+def x_card_equals_cpu(torch, dispatch, total: dict) -> dict:
+    """Both families reduced to float32, the VLM's gates at X_GATE, the
+    same weights on the card and the CPU: forward logits (within
+    LM_F32_ATOL; with the gates shut the VLM's logits move), prefill + 3
+    decode steps against the forward on the card (LM_F32_PROPERTY_TOL),
+    one value_and_grad (FAM_LOSS_ATOL, each leaf within FAM_GRAD_RTOL of
+    its norm; the card's mha and mha_bwd launches counted) and one
+    launch/train.py step (its build, batch and step function) with the
+    same loss."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import Model
+    from repro_torch.train.loop import value_and_grad
+    out = {}
+    for arch in (X_VLM, X_AUDIO):
+        cfg = get_config(arch).reduced()
+        weights = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        n_gates = open_gates(torch, weights, X_GATE)
+        batch = launch_train.draw_batch(
+            cfg, MarkovCorpus(cfg.vocab_size, seed=SEED), X_REDUCED_BATCH,
+            X_REDUCED_SEQ, 0)
+        extras = {k: v for k, v in batch.items()
+                  if k not in ("tokens", "targets")}
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = Model(cfg, device=device)
+            params = copy.deepcopy(weights).to(device)
+            logits = model.forward(params, batch)
+            if device == "cuda":
+                shut = copy.deepcopy(params)
+                open_gates(torch, shut, 0.0)
+                moved = float((model.forward(shut, batch) - logits).abs()
+                              .max())
+                del shut
+                prop = property_check(
+                    torch, f"{arch} reduced", model, params,
+                    batch["tokens"], X_REDUCED_SEQ - 3, LM_F32_PROPERTY_TOL,
+                    LM_F32_PROPERTY_TOL, extras)
+            params.trainable_()
+            dispatch.reset_launch_counts()
+            loss, grads = value_and_grad(model, params, batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                grad_counts = dict(dispatch.launch_counts)
+            _, _, opt, step_fn = launch_train.build(arch, reduced=True,
+                                                    device=device)
+            _, _, metrics = step_fn(params, opt.init(params), batch)
+            res[device] = (logits.cpu(), float(loss),
+                           {n: g.cpu() for n, g in grads.items()},
+                           float(metrics["loss"]))
+        (lg, sg, gg, mg), (lc, sc, gc, mc) = res["cuda"], res["cpu"]
+        err = float((lg - lc).abs().max())
+        worst = max(((n, _leaf_rel(gg[n], gc[n])) for n in gc),
+                    key=lambda kv: kv[1])
+        attn = (cfg.encoder_layers + 2 * cfg.n_layers
+                if cfg.family == "audio" else cfg.n_layers)
+        want = {"mha": attn, "mha_bwd": attn}
+        say(f"  {arch} reduced f32, {n_gates} gates at {X_GATE}: card vs "
+            f"CPU forward max |dlogit| {err:.3g} (<= {LM_F32_ATOL}); gates "
+            f"shut move the logits by {moved:.3g}; loss {sg:.6f} / "
+            f"{sc:.6f}, launch/train.py step's loss {mg:.6f} / {mc:.6f} (<= "
+            f"{FAM_LOSS_ATOL}); worst gradient leaf {worst[0]} at "
+            f"{worst[1]:.3g} (<= {FAM_GRAD_RTOL}); the grad's launches "
+            f"{grad_counts} (expected {want})")
+        if not (err <= LM_F32_ATOL and abs(sg - sc) <= FAM_LOSS_ATOL
+                and abs(mg - mc) <= FAM_LOSS_ATOL
+                and worst[1] <= FAM_GRAD_RTOL and grad_counts == want
+                and (cfg.family == "audio" or moved > 1e3 * LM_F32_ATOL)):
+            fail(f"{arch} reduced: the card and the CPU disagree, or the "
+                 f"gates do not reach the logits")
+        add_counts(total, grad_counts)
+        out[arch] = {"logit_err": err, "grad_err": worst[1],
+                     "loss_err": abs(sg - sc), "property_err": prop}
+    return out
+
+
+def audio_train_on_card(torch, dispatch, total: dict, smi: str) -> dict:
+    """whisper-tiny at full width trained through launch/train.py: step 1's
+    loss and every gradient leaf against the same step with plain
+    attention under autograd (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL; every
+    cross-attention weight's gradient nonzero), then X_TRAIN_STEPS steps
+    through train(..., reduced=False) with the counts exact: the encoder's
+    4 mha, the decoder's 8 and their remat recompute's 8 a step, and an
+    mha_bwd for each of the 12 attentions; then ms a step and tokens/s
+    (launch.train's step function on one batch, host clock, synchronised,
+    the median of TRAIN_TIMED_STEPS after a warm step)."""
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.kernels.flash_attention import mha_plain
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.train.loop import value_and_grad
+    cfg, model, opt, step_fn = launch_train.build(X_AUDIO, reduced=False,
+                                                  device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params.trainable_()
+    batch = launch_train.draw_batch(cfg, MarkovCorpus(cfg.vocab_size,
+                                                      seed=SEED),
+                                    X_TRAIN_BATCH, X_TRAIN_SEQ, 0)
+    loss_k, grads_k = value_and_grad(model, params, batch)
+    kernel_mha = attention_mod.mha
+    attention_mod.mha = mha_plain           # the check's plain attention
+    try:
+        loss_p, grads_p = value_and_grad(model, params, batch)
+    finally:
+        attention_mod.mha = kernel_mha
+    worst = max(((n, _leaf_rel(grads_k[n], grads_p[n])) for n in grads_k),
+                key=lambda kv: kv[1])
+    dloss = abs(float(loss_k) - float(loss_p))
+    dead = [n for n in grads_k if ".cross.w" in n
+            and not torch.any(grads_k[n])]
+    say(f"vlm/audio: {X_AUDIO} step 1 at full width (B={X_TRAIN_BATCH}, "
+        f"decoder {X_TRAIN_SEQ} tokens over {cfg.encoder_seq} float32 "
+        f"frames), kernels against plain attention under autograd: loss "
+        f"{float(loss_k):.5f} / {float(loss_p):.5f} (|d| {dloss:.3g} <= "
+        f"{TRAIN_LOSS_ATOL}); worst leaf {worst[0]} at {worst[1]:.3g} (<= "
+        f"{TRAIN_GRAD_RTOL} of its norm); cross weights with a zero "
+        f"gradient: {dead}")
+    if not (dloss <= TRAIN_LOSS_ATOL and worst[1] <= TRAIN_GRAD_RTOL
+            and not dead):
+        fail(f"{X_AUDIO}: the kernels' step-1 loss or gradients are off the "
+             f"plain attention's")
+    del params, grads_k, grads_p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses, _ = launch_train.train(
+        X_AUDIO, steps=X_TRAIN_STEPS, batch=X_TRAIN_BATCH, seq=X_TRAIN_SEQ,
+        reduced=False, seed=SEED, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(dispatch.launch_counts)
+    opt_state = opt.init(params)
+    times = []
+    for _ in range(1 + TRAIN_TIMED_STEPS):     # a warm step, then timed
+        t0 = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times[1:]) * 1e3
+    enc, dec = cfg.encoder_layers, cfg.n_layers
+    expected = {"mha": X_TRAIN_STEPS * (enc + 2 * 2 * dec),
+                "mha_bwd": X_TRAIN_STEPS * (enc + 2 * dec)}
+    peak = torch.cuda.max_memory_allocated()
+    say(f"train: {X_AUDIO} at full width, remat {cfg.remat}: "
+        f"{X_TRAIN_STEPS} steps through launch.train in {wall:.2f} s (init "
+        f"included), losses {losses}, peak {peak / 2 ** 30:.2f} GiB; launch "
+        f"counts {counts} (expected {expected}); {step_ms:.1f} ms a step "
+        f"(median of {TRAIN_TIMED_STEPS}), "
+        f"{X_TRAIN_BATCH * X_TRAIN_SEQ / step_ms * 1e3:.0f} decoder tokens/s"
+        f" on {smi}")
+    if counts != expected or not np.all(np.isfinite(losses)):
+        fail(f"{X_AUDIO} train: counts {counts} != {expected} or losses "
+             f"{losses} not finite")
+    add_counts(total, counts)
+    return {"losses": losses, "wall_s": wall, "peak_bytes": peak,
+            "step_ms": step_ms, "step1_loss_err": dloss,
+            "step1_grad_err": worst[1]}
+
+
+def vlm_audio_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 12: llama-3.2-vision-11b (40 layers, 8 of them gated
+    cross-attention over 1601 vision states) and whisper-tiny (4 encoder
+    and 4 decoder layers over 1500 frames) at full width, bf16, seeded
+    random weights, served as the reference's API runs them with
+    quantize_dense off and on; the kernels at their shapes first; both
+    families reduced, card against CPU; whisper-tiny trained at full
+    width.  Returns the phase's launch counts, errors and numbers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.models.transformer import attn_spec
+    t_phase = time.perf_counter()
+    total, res = {}, {"seconds": {}}
+    torch.cuda.empty_cache()
+    marks = [t_phase]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        res["seconds"][part] = now - marks[-1]
+        say(f"vlm/audio: ({part}) took {now - marks[-1]:.1f} s")
+        marks.append(now)
+
+    vlm = get_config(X_VLM)
+    vlm_reqs = x_requests(torch, vlm)
+    prompt_lens = [len(p) for p, _ in vlm_reqs]
+    res["err_mm"], res["err_fa"], res["err_bwd"] = check_x_kernels(
+        torch, prompt_lens)
+    res["times"] = x_kernel_times(torch, prompt_lens)
+    for name, t in res["times"].items():
+        say(f"timing: flash_attention {name} bf16 {t['shape']} against "
+            f"{t['keys']} keys over {t['kv_heads']} KV heads, not causal: "
+            f"kernel {t['ms']:.4f} ms ({t['tflops']:.2f} TFLOP/s, "
+            f"{100 * t['bound_share']:.1f}% of the bound {t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+            f"F.scaled_dot_product_attention {t['library_ms']:.4f} ms (on "
+            f"{smi})")
+    lap("kernels")
+
+    # llama-3.2-vision-11b: quantize_dense off, then on; gates open
+    t0 = time.perf_counter()
+    params = Model(vlm, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = Model.param_count(params)
+    plan = attn_spec(vlm).plan
+    first = {"tokens": vlm_reqs[0][0][None], **vlm_reqs[0][1]}
+    shut, _ = Model(vlm, device="cuda").prefill(params, first, LM_MAX_SEQ)
+    n_gates = open_gates(torch, params, X_GATE)
+    opened, _ = Model(vlm, device="cuda").prefill(params, first, LM_MAX_SEQ)
+    moved = float((opened.float() - shut.float()).abs().max())
+    say(f"vlm/audio: {X_VLM} at full width: {vlm.n_layers} layers "
+        f"({vlm.layer_pattern().count('cross')} gated cross-attention), "
+        f"d_model {vlm.d_model}, {vlm.n_heads} query / {vlm.n_kv_heads} KV "
+        f"heads (padded to {plan.n_q} / {plan.n_kv}), d_ff {vlm.d_ff}, "
+        f"vocab {vlm.vocab_size}, {vlm.vision_tokens} vision states "
+        f"{vlm.vision_dim} wide, bf16, {n_params:,} parameters drawn in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB; all {n_gates} "
+        f"gate leaves set to {X_GATE} (init leaves them 0): the first "
+        f"prompt's logits moved by {moved:.3g}")
+    if not moved > 0.01:
+        fail(f"{X_VLM}: opening the gates did not move the logits")
+    del shut, opened
+    v = {"params": n_params, "gate_moved": moved}
+    for mode, q in (("off", False), ("on", True)):
+        cfg = dataclasses.replace(vlm, quantize_dense=q)
+        v[mode] = serve_extras(torch, dispatch,
+                               f"{X_VLM} quantize_dense {mode}", cfg,
+                               params, vlm_reqs, LM_MAX_SEQ, total, smi)
+        v[mode]["profile"] = family_profile(
+            torch, Model(cfg, device="cuda"), params, *vlm_reqs[0])
+        say(f"profile: {LM_PROFILE_STEPS} decode steps, {X_VLM} "
+            f"quantize_dense {mode}: {v[mode]['profile']}")
+    res[X_VLM] = v
+    del params, vlm_reqs
+    torch.cuda.empty_cache()
+    lap("vlm")
+
+    # whisper-tiny: quantize_dense off, then on
+    au = get_config(X_AUDIO)
+    params = Model(au, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    au_reqs = x_requests(torch, au)
+    a = {"params": Model.param_count(params)}
+    plan = attn_spec(au).plan
+    say(f"vlm/audio: {X_AUDIO} at full width: {au.encoder_layers} encoder "
+        f"and {au.n_layers} decoder layers, d_model {au.d_model}, "
+        f"{au.n_heads} heads of {au.resolved_head_dim} (padded to "
+        f"{plan.n_q} / {plan.n_kv}), d_ff {au.d_ff}, GELU, vocab "
+        f"{au.vocab_size}, {au.encoder_seq} frames, bf16, "
+        f"{a['params']:,} parameters")
+    for mode, q in (("off", False), ("on", True)):
+        cfg = dataclasses.replace(au, quantize_dense=q)
+        a[mode] = serve_extras(torch, dispatch,
+                               f"{X_AUDIO} quantize_dense {mode}", cfg,
+                               params, au_reqs, X_TRAIN_SEQ, total, smi)
+        a[mode]["profile"] = family_profile(
+            torch, Model(cfg, device="cuda"), params, *au_reqs[0])
+        say(f"profile: {LM_PROFILE_STEPS} decode steps, {X_AUDIO} "
+            f"quantize_dense {mode}: {a[mode]['profile']}")
+    res[X_AUDIO] = a
+    del params, au_reqs
+    torch.cuda.empty_cache()
+    lap("audio")
+
+    res["card_vs_cpu"] = x_card_equals_cpu(torch, dispatch, total)
+    lap("card vs cpu")
+    res["train"] = audio_train_on_card(torch, dispatch, total, smi)
+    torch.cuda.empty_cache()
+    lap("train")
+    res["counts"] = total
+    say(f"vlm/audio: phase 12's launches {total} in "
         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
     return res
 
@@ -3680,6 +4293,11 @@ def main() -> int:
     # -- 11. the decoder-only families at full width -------------------------
     fam = lm_families_on_card(torch, dispatch, smi)
 
+    # -- 12. the VLM and audio families at full width ------------------------
+    xfam = vlm_audio_on_card(torch, dispatch, smi)
+    fam_launches = dict(fam["counts"])
+    add_counts(fam_launches, xfam["counts"])
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -3727,10 +4345,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/int_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul/kernel.py:43",
          "launches": lm["counts"]["int_matmul"],
-         "max_abs_err": max(err_mm, fam["err_mm"]),
+         "max_abs_err": max(err_mm, fam["err_mm"], xfam["err_mm"]),
          "train_launches": lm_train["quant_counts"]["int_matmul"],
-         "families_launches": fam["counts"].get("int_matmul", 0),
-         "families_max_abs_err": fam["err_mm"],
+         "families_launches": fam_launches.get("int_matmul", 0),
+         "families_max_abs_err": max(fam["err_mm"], xfam["err_mm"]),
          "train": lm_train["int_matmul"],
          "shape": [lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
          **lt["int_matmul", lm_prompt_lens[-1], *LM_MLP_SHAPES[0]],
@@ -3745,10 +4363,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
          "launches": lm["counts"]["mha"],
-         "max_abs_err": max(err_fa, fam["err_fa"]),
+         "max_abs_err": max(err_fa, fam["err_fa"], xfam["err_fa"]),
          "train_launches": lm_train["counts"]["mha"],
-         "families_launches": fam["counts"]["mha"],
-         "families_max_abs_err": fam["err_fa"],
+         "families_launches": fam_launches["mha"],
+         "families_max_abs_err": max(fam["err_fa"], xfam["err_fa"]),
+         "cross": xfam["times"],
          "shape": [1, 32, lm_prompt_lens[-1], 128], **lt["flash_attention",],
          "train": {"shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128],
                    "kv_heads": 16, "with_lse": True, **bt["fwd"]}},
@@ -3759,8 +4378,8 @@ def main() -> int:
                  "its XLA attention (src/repro/models/attention.py:151-186)"
                  " with jax.grad",
          "launches": lm_train["counts"]["mha_bwd"],
-         "families_launches": fam["counts"]["mha_bwd"],
-         "max_abs_err": lm_train["bwd_abs_err"],
+         "families_launches": fam_launches["mha_bwd"],
+         "max_abs_err": max(lm_train["bwd_abs_err"], xfam["err_bwd"]),
          "max_rel_err": lm_train["bwd_err"],
          "shape": [TRAIN_BATCH, 32, TRAIN_SEQ, 128], "kv_heads": 16,
          "design": "bf16 wgmma, TMA rings",
@@ -3792,6 +4411,12 @@ def main() -> int:
                             (FAM_XLSTM, ("serve",)))
         for mode in modes} | {FAM_DBRX: {k: fam[FAM_DBRX][k] for k in (
             "ttft_ms", "decode_ms", "peak_bytes")}}))
+    say("vlm/audio: " + json.dumps({
+        f"{arch} {mode}": {k: xfam[arch][mode][k] for k in (
+            "tokens_per_s", "ttft_ms", "decode_ms", "wall_s", "peak_bytes")}
+        for arch in (X_VLM, X_AUDIO) for mode in ("off", "on")}
+        | {f"{X_AUDIO} train": {k: xfam["train"][k] for k in (
+            "losses", "step_ms", "wall_s", "peak_bytes")}}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

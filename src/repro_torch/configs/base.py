@@ -1,7 +1,7 @@
 """Architecture config schema + registry (``--arch <id>``).
 
-A copy of ``repro/configs/base.py`` (pure Python); the port carries the
-configs of the decoder-only families (dense, moe, ssm, hybrid).
+A copy of ``repro/configs/base.py`` (pure Python); the port carries every
+config of the reference.
 """
 from __future__ import annotations
 
@@ -15,12 +15,9 @@ ARCH_IDS = (
     "hymba-1.5b", "whisper-tiny",
 )
 
-#: the families whose batches carry more than tokens (vision states, audio
-#: frames), not ported yet
+#: the families whose batches carry more than tokens (the VLM's vision
+#: states, the audio family's frames)
 EXTRAS_ARCH_IDS = ("llama-3.2-vision-11b", "whisper-tiny")
-#: the ids whose config ships with the port (the decoder-only families),
-#: in ARCH_IDS order
-PORTED_ARCH_IDS = tuple(a for a in ARCH_IDS if a not in EXTRAS_ARCH_IDS)
 
 VOCAB_PAD = 128  # vocab padded to a multiple (model-axis sharding)
 
@@ -170,16 +167,9 @@ class ArchConfig:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    """Load ``repro_torch/configs/<id>.py`` (dashes/dots -> underscores).
-
-    The decoder-only families are ported (:data:`PORTED_ARCH_IDS`); the
-    VLM and audio ids raise ``NotImplementedError``."""
+    """Load ``repro_torch/configs/<id>.py`` (dashes/dots -> underscores)."""
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: the port serves "
-            f"{PORTED_ARCH_IDS} (ROADMAP queue 1 item 12)")
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"{__package__}.{mod_name}")
     return mod.CONFIG

@@ -9,9 +9,7 @@ seq_len) — per the assignment, NOT train_step.
 (recurrent state / SWA+SSM), skipped for pure full-attention archs
 (recorded in DESIGN.md §4 and in the dry-run output).
 
-A copy of ``repro.configs.shapes`` over the port's ``configs/base.py``:
-:func:`all_cells` lists the cells of the ported architectures
-(``PORTED_ARCH_IDS``), since ``get_config`` raises for the others.
+A copy of ``repro.configs.shapes`` over the port's ``configs/base.py``.
 """
 from __future__ import annotations
 
@@ -67,11 +65,10 @@ def supports(arch: ArchConfig, shape_name: str) -> tuple[bool, str]:
 
 
 def all_cells():
-    """Every (arch_id, shape_name) cell of the ported architectures, with
-    skip annotations."""
-    from .base import PORTED_ARCH_IDS, get_config
+    """Every (arch_id, shape_name) cell, with skip annotations."""
+    from .base import ARCH_IDS, get_config
     cells = []
-    for a in PORTED_ARCH_IDS:
+    for a in ARCH_IDS:
         cfg = get_config(a)
         for s in SHAPES:
             ok, reason = supports(cfg, s)

@@ -1,7 +1,10 @@
 """Serving launcher: batched generation with the slot engine (port of
 ``repro.launch.serve``).  It serves ``get_config(arch).reduced()`` from
 random weights drawn with seed 0 on the device; ``--arch`` takes every
-decoder-only config (dense, moe, ssm, hybrid).
+config whose batches are tokens only.  The VLM and audio ids are refused:
+``ServeEngine`` prefills with ``{"tokens": prompt}`` alone, as the
+reference's does, so it cannot hand over their vision states or frames
+(serve those through ``Model.prefill`` and ``Model.decode_step``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
@@ -18,14 +21,22 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_config
+from repro_torch.configs.base import ARCH_IDS, EXTRAS_ARCH_IDS, get_config
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import Request, ServeEngine
 
 
+#: the ids ServeEngine can serve: their batches are tokens only
+TOKENS_ONLY_ARCH_IDS = tuple(a for a in ARCH_IDS if a not in EXTRAS_ARCH_IDS)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b", choices=PORTED_ARCH_IDS)
+    ap.add_argument("--arch", default="qwen3-8b", choices=TOKENS_ONLY_ARCH_IDS,
+                    help="a config whose batches are tokens only: ServeEngine"
+                         " prefills with the prompt alone, so the VLM's "
+                         "vision states and the audio family's frames have "
+                         "no way in")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

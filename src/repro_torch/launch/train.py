@@ -5,13 +5,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 8 \\
       --batch 8 --seq 1024 --steps 5
 
-``--arch`` takes every decoder-only config (dense, moe, ssm, hybrid; the
-VLM and audio ids raise in ``get_config``).  ``--device cuda`` (the
-default) trains on the card, attention forward and backward (windows
+``--arch`` takes every config.  ``--device cuda`` (the default) trains on
+the card, attention forward and backward (windows and cross-attention
 included) in the ``flash_attention`` kernels, and raises without a GPU;
 ``--device cpu`` runs their plain versions.  Weights are random, drawn from
 ``train``'s ``seed`` on the device; batches come from
-``MarkovCorpus(vocab, seed)``.  A run resumed from ``--ckpt-dir`` restores
+``MarkovCorpus(vocab, seed)``, the VLM's vision states and the audio
+family's frames beside them as the reference draws them
+(:func:`draw_batch`).  A run resumed from ``--ckpt-dir`` restores
 ``(params, opt_state)`` through ``train/checkpoint.py`` and draws (and
 drops) the batches of the steps it skips, so its later steps see the
 batches an uninterrupted run would.  The reference restarts the corpus
@@ -26,9 +27,10 @@ import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_config
+from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_config
 from repro_torch.data.tokens import MarkovCorpus
 from repro_torch.models.api import Model
 from repro_torch.optim.adam import AdamState, AdamW
@@ -73,6 +75,22 @@ def restore_state(ckpt_dir: str, step: int, params,
     return params, AdamState(step=st, m=m, v=v)
 
 
+def draw_batch(cfg: ArchConfig, corpus: MarkovCorpus, batch: int, seq: int,
+               step: int) -> dict:
+    """Step ``step``'s batch: the corpus's next tokens and targets, and for
+    the VLM ``vision`` [batch, vision_tokens, vision_dim], for the audio
+    family ``frames`` [batch, encoder_seq, d_model]: float32 N(0, 1) drawn
+    from ``RandomState(step)``, as the reference's launcher draws them."""
+    out = corpus.batch(batch, seq)
+    extra = {"vlm": ("vision", (cfg.vision_tokens, cfg.vision_dim)),
+             "audio": ("frames", (cfg.encoder_seq, cfg.d_model))}
+    if cfg.family in extra:
+        name, shape = extra[cfg.family]
+        out[name] = np.random.RandomState(step).normal(
+            0, 1, (batch, *shape)).astype(np.float32)
+    return out
+
+
 def train(arch: str, *, steps: int, batch: int, seq: int,
           reduced: bool = True, ckpt_dir: str = "", ckpt_every: int = 50,
           lr: float = 3e-4, seed: int = 0, microbatches: int = 1,
@@ -103,7 +121,7 @@ def train(arch: str, *, steps: int, batch: int, seq: int,
     losses = []
     t_start = time.perf_counter()
     for step in range(start, steps):
-        batch_np = corpus.batch(batch, seq)
+        batch_np = draw_batch(cfg, corpus, batch, seq, step)
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch_np)
         loss = float(metrics["loss"])          # waits for the step
@@ -128,7 +146,7 @@ def tput_fmt(x: float) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-8b", choices=PORTED_ARCH_IDS)
+    ap.add_argument("--arch", default="granite-3-8b", choices=ARCH_IDS)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -1,12 +1,17 @@
-"""Model facade of the LM stack (port of ``repro.models.api``, the
-decoder-only families: dense, moe, ssm, hybrid).
+"""Model facade of the LM stack (port of ``repro.models.api``): every
+family, the decoder LMs through ``models/transformer.py`` and the audio
+family's encoder-decoder through ``models/encdec.py``.
 
 ``Model(cfg, device)`` exposes init / loss / forward / prefill /
-decode_step / init_cache.  Parameters are a
+decode_step / init_cache.  A batch holds ``tokens`` (and ``targets`` for
+the loss); the VLM's also ``vision`` [B, vision_tokens, vision_dim], the
+audio family's ``frames`` [B, encoder_seq, d_model], numpy arrays or
+tensors, moved to the model's device as they are.  Parameters are a
 :class:`~repro_torch.models.layers.Params` tree whose names are the
-reference's dict keys (nested ``moe``/``mlstm``/``slstm``/``ssm`` groups
-included), one group per layer under ``layers``, and hymba's ``meta``
-tokens at the top.
+reference's dict keys (nested ``moe``/``mlstm``/``slstm``/``ssm``/
+``cross`` groups included), one group per layer under ``layers`` (``enc``
+and ``dec`` for the encoder-decoder), and hymba's ``meta`` tokens at the
+top.
 :func:`params_from_jax` builds that tree from the reference's parameters
 (as numpy arrays), so both packages can compute the same function from the
 same weights; given the reference's gradient tree (``jax.grad``'s output,
@@ -26,20 +31,19 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..systems.base import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .layers import Params
 
 
 class Model:
-    """The decoder LM of ``cfg`` on ``device`` (``"cuda"`` unless the
-    caller asks for ``"cpu"``; ``"cuda"`` without a GPU raises).  The VLM
-    and audio families raise ``NotImplementedError``."""
+    """The LM of ``cfg`` on ``device`` (``"cuda"`` unless the caller asks
+    for ``"cpu"``; ``"cuda"`` without a GPU raises)."""
 
     def __init__(self, cfg: ArchConfig,
                  device: Union[str, torch.device] = "cuda"):
-        transformer.check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.is_encdec = cfg.family == "audio"
 
     # -- init -----------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
@@ -49,39 +53,71 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
+        if self.is_encdec:
+            return encdec.init_encdec(self.cfg, gen)
         return transformer.init_lm(self.cfg, gen)
 
     @staticmethod
     def param_count(params: Params) -> int:
         return sum(p.numel() for p in params.parameters())
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device)
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _extras(self, batch: dict) -> dict:
+        """The decoder's inputs beside the tokens: the VLM's vision states
+        as ``cross_states``."""
+        if self.cfg.family == "vlm":
+            return {"cross_states": self._on_device(batch["vision"])}
+        return {}
 
     # -- training -----------------------------------------------------------------
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` plus 0.01 times the MoE aux loss (float32
         scalar)."""
-        return transformer.lm_loss(self.cfg, params,
-                                   self._tokens(batch["tokens"]),
-                                   self._tokens(batch["targets"]))
+        tokens = self._on_device(batch["tokens"])
+        targets = self._on_device(batch["targets"])
+        if self.is_encdec:
+            return encdec.encdec_loss(self.cfg, params,
+                                      self._on_device(batch["frames"]),
+                                      tokens, targets)
+        return transformer.lm_loss(self.cfg, params, tokens, targets,
+                                   self._extras(batch))
 
     def forward(self, params: Params, batch: dict) -> torch.Tensor:
-        logits, _ = transformer.lm_forward(self.cfg, params,
-                                           self._tokens(batch["tokens"]))
+        tokens = self._on_device(batch["tokens"])
+        if self.is_encdec:
+            enc = encdec.encode(self.cfg, params,
+                                self._on_device(batch["frames"]))
+            return encdec.decoder_forward(self.cfg, params, tokens, enc)
+        logits, _ = transformer.lm_forward(self.cfg, params, tokens,
+                                           self._extras(batch))
         return logits
 
     # -- serving ----------------------------------------------------------------
     def prefill(self, params: Params, batch: dict, max_seq: int):
-        return transformer.lm_prefill(self.cfg, params,
-                                      self._tokens(batch["tokens"]), max_seq)
+        tokens = self._on_device(batch["tokens"])
+        if self.is_encdec:
+            return encdec.encdec_prefill(self.cfg, params,
+                                         self._on_device(batch["frames"]),
+                                         tokens, max_seq)
+        return transformer.lm_prefill(self.cfg, params, tokens, max_seq,
+                                      self._extras(batch))
 
-    def decode_step(self, params: Params, tokens, cache):
-        return transformer.lm_decode_step(self.cfg, params,
-                                          self._tokens(tokens), cache)
+    def decode_step(self, params: Params, tokens, cache, extras=None):
+        """One token a sequence: (logits [B, 1, Vpad], cache).  ``extras``
+        is the reference's argument and is not read: the cross blocks
+        attend to the keys and values their cache holds since prefill."""
+        tokens = self._on_device(tokens)
+        if self.is_encdec:
+            return encdec.encdec_decode_step(self.cfg, params, tokens, cache)
+        return transformer.lm_decode_step(self.cfg, params, tokens, cache)
 
-    def init_cache(self, batch: int, max_seq: int) -> list[dict]:
+    def init_cache(self, batch: int, max_seq: int):
+        if self.is_encdec:
+            return encdec.init_dec_cache(self.cfg, batch, max_seq,
+                                         self.device)
         return transformer.init_cache(self.cfg, batch, max_seq, self.device)
 
 
@@ -108,15 +144,26 @@ def _params(tree: dict, index: Optional[int], device) -> Params:
 
 def params_from_jax(cfg: ArchConfig, tree: dict,
                     device: Union[str, torch.device] = "cuda") -> Params:
-    """The reference's parameter tree (``init_lm``'s dict, leaves as numpy
-    arrays) as the port's: the scanned ``unit`` axis ``[reps, ...]`` is
-    unstacked into one group per layer, layer ``r * len(unit) + u`` from
-    rep ``r`` of unit slot ``u`` (xLSTM's unit is 7 mLSTM blocks and an
-    sLSTM one).  A gradient tree of the same structure
+    """The reference's parameter tree (``init_lm``'s or ``init_encdec``'s
+    dict, leaves as numpy arrays) as the port's.  A decoder LM's scanned
+    ``unit`` axis ``[reps, ...]`` is unstacked into one group per layer,
+    layer ``r * len(unit) + u`` from rep ``r`` of unit slot ``u`` (xLSTM's
+    unit is 7 mLSTM blocks and an sLSTM one, the VLM's 4 attention blocks
+    and a cross one); the encoder-decoder's ``enc`` and ``dec`` stacks
+    into one group per layer each.  A gradient tree of the same structure
     converts the same way (``named_parameters()`` then pairs each
     gradient with the port's leaf of that name)."""
-    transformer.check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        return Params(
+            **{name: _tensor(tree[name], dev)
+               for name in ("tok_emb", "lm_head")},
+            **{name: _params(tree[name], None, dev)
+               for name in ("enc_ln", "dec_ln")},
+            enc=nn.ModuleList(_params(tree["enc"], i, dev)
+                              for i in range(cfg.encoder_layers)),
+            dec=nn.ModuleList(_params(tree["dec"], i, dev)
+                              for i in range(cfg.n_layers)))
     unit, reps = transformer.unit_pattern(cfg)
     layers = [_params(tree["unit"][u], r, dev)
               for r in range(reps) for u in range(len(unit))]

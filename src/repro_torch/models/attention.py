@@ -1,5 +1,5 @@
-"""Attention layers: GQA, KV cache, sliding window (port of
-``repro.models.attention``; cross-attention is not ported yet).
+"""Attention layers: GQA, KV cache, sliding window, cross-attention (port
+of ``repro.models.attention``).
 
 ``plan_heads`` pads the query and KV heads to multiples of the reference's
 model-parallel degree (16), so the parameter shapes equal the reference's
@@ -7,9 +7,10 @@ model-parallel degree (16), so the parameter shapes equal the reference's
 
 ``_sdpa`` sends attention without a ``kv_len`` to the ``mha`` op, the
 ``flash_attention`` kernel on a CUDA tensor, sliding windows included:
-that is prefill and the training-style forward.  Decode attends over the
-static cache with a ``kv_len`` mask and keeps the plain masked path, as
-the reference does.
+that is prefill and the training-style forward, and every
+cross-attention (no mask, ``Skv`` the vision or encoder states).  Decode's
+self-attention attends over the static cache with a ``kv_len`` mask and
+keeps the plain masked path, as the reference does.
 """
 from __future__ import annotations
 
@@ -53,15 +54,19 @@ class AttnSpec:
     rope_fraction: float = 1.0
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
+    kv_dim: int = 0    # cross-attn source dim (0 -> d_model)
 
 
-def init_attention(gen: torch.Generator, spec: AttnSpec,
-                   dtype: torch.dtype) -> Params:
+def init_attention(gen: torch.Generator, spec: AttnSpec, dtype: torch.dtype,
+                   cross: bool = False) -> Params:
+    """Projections of self-attention, or with ``cross`` of cross-attention,
+    whose keys and values project ``spec.kv_dim``-wide states."""
     q_dim = spec.plan.n_q * spec.head_dim
     kv_dim = spec.plan.n_kv * spec.head_dim
+    kv_in = (spec.kv_dim or spec.d_model) if cross else spec.d_model
     p = {"wq": dense_init(gen, spec.d_model, q_dim, dtype),
-         "wk": dense_init(gen, spec.d_model, kv_dim, dtype),
-         "wv": dense_init(gen, spec.d_model, kv_dim, dtype),
+         "wk": dense_init(gen, kv_in, kv_dim, dtype),
+         "wv": dense_init(gen, kv_in, kv_dim, dtype),
          "wo": dense_init(gen, q_dim, spec.d_model, dtype)}
     dev = gen.device
     if spec.qkv_bias:
@@ -117,9 +122,10 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 def _project_qkv(params, spec: AttnSpec, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: Optional[torch.Tensor]):
     """-> q [B, Hq, S, D], k and v [B, Hkv, S, D]: transposed views of the
-    projections (the attention kernel reads them through their strides)."""
+    projections (the attention kernel reads them through their strides).
+    Rotary embeddings apply unless ``positions`` is None."""
     b, s, _ = x.shape
     hd = spec.head_dim
     q = x @ params["wq"].to(x.dtype)
@@ -135,7 +141,7 @@ def _project_qkv(params, spec: AttnSpec, x: torch.Tensor,
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"], spec.norm_eps)
         k = rms_norm(k, params["k_norm"], spec.norm_eps)
-    if spec.rope_fraction > 0:
+    if positions is not None and spec.rope_fraction > 0:
         q = apply_rope(q, positions, spec.rope_fraction, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_fraction, spec.rope_theta)
     return q, k, v
@@ -181,15 +187,21 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
     return out.to(q.dtype)
 
 
+def attend(params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **mask) -> torch.Tensor:
+    """``_sdpa`` of q [B, Hq, S, D] over k and v with ``mask``'s keywords,
+    its heads merged and projected through ``params["wo"]``: [B, S, d]."""
+    out = _sdpa(q, k, v, **mask)
+    b, _, s, _ = q.shape
+    return out.transpose(1, 2).reshape(b, s, -1) @ params["wo"].to(q.dtype)
+
+
 def attention(params, spec: AttnSpec, x: torch.Tensor,
               positions: torch.Tensor, *,
               window: Optional[int] = None) -> torch.Tensor:
     """Training / prefill path (full sequence, causal)."""
     q, k, v = _project_qkv(params, spec, x, positions)
-    out = _sdpa(q, k, v, causal=True, window=window)
-    b, h, s, hd = out.shape
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ params["wo"].to(x.dtype)
+    return attend(params, q, k, v, causal=True, window=window)
 
 
 def attention_decode(params, spec: AttnSpec, x: torch.Tensor,
@@ -200,7 +212,7 @@ def attention_decode(params, spec: AttnSpec, x: torch.Tensor,
     The new key and value are written into ``cache``'s tensors in place
     (the reference returns updated copies); the returned cache shares them
     and has ``length`` advanced."""
-    b, s, _ = x.shape  # s == 1
+    s = x.shape[1]  # 1
     pos = cache.length
     if pos + s > cache.k.shape[2]:
         raise ValueError(f"KV cache full: {pos} + {s} > {cache.k.shape[2]}")
@@ -220,8 +232,49 @@ def attention_decode(params, spec: AttnSpec, x: torch.Tensor,
         cache.k[:, :, pos:pos + s] = k.to(cache.k.dtype)
         cache.v[:, :, pos:pos + s] = v.to(cache.v.dtype)
         k_full, v_full = cache.k, cache.v
-    new_cache = cache._replace(length=pos + s)
-    out = _sdpa(q, k_full, v_full, causal=True, q_offset=pos,
-                window=window, kv_len=pos + s)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ params["wo"].to(x.dtype), new_cache
+    out = attend(params, q, k_full, v_full, causal=True, q_offset=pos,
+                 window=window, kv_len=pos + s)
+    return out, cache._replace(length=pos + s)
+
+
+def cross_queries(params, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
+    """Cross-attention's queries of ``x`` [B, S, d]: [B, Hq, S, D], with
+    the bias and the query norm where the spec has them."""
+    b, s, _ = x.shape
+    q = x @ params["wq"].to(x.dtype)
+    if spec.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(b, s, spec.plan.n_q, spec.head_dim).transpose(1, 2)
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm"], spec.norm_eps)
+    return q
+
+
+def cross_kv(params, spec: AttnSpec, kv_states: torch.Tensor,
+             dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention's keys and values of ``kv_states`` [B, Skv, kv_dim]
+    in ``dtype``: [B, Hkv, Skv, D] each, contiguous, as a decode step's
+    attention reads them from the cache (no key norm: the reference's
+    cache has none)."""
+    b, sk, _ = kv_states.shape
+    kv = kv_states.to(dtype)
+    k = kv @ params["wk"].to(dtype)
+    v = kv @ params["wv"].to(dtype)
+    if spec.qkv_bias:
+        k = k + params["bk"].to(dtype)
+        v = v + params["bv"].to(dtype)
+    shape = (b, sk, spec.plan.n_kv, spec.head_dim)
+    return (k.reshape(shape).transpose(1, 2).contiguous(),
+            v.reshape(shape).transpose(1, 2).contiguous())
+
+
+def cross_attention(params, spec: AttnSpec, x: torch.Tensor,
+                    kv_states: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder / vision cross-attention: queries from ``x``, keys
+    and values from ``kv_states`` [B, Skv, kv_dim] (cast to x's dtype);
+    no mask, no rope."""
+    q = cross_queries(params, spec, x)
+    k, v = cross_kv(params, spec, kv_states, x.dtype)
+    if spec.qk_norm:
+        k = rms_norm(k, params["k_norm"], spec.norm_eps)
+    return attend(params, q, k, v, causal=False)

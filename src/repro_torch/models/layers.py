@@ -39,7 +39,7 @@ class Params(nn.Module):
     """A group of named parameters and sub-groups, read like the reference's
     parameter dicts: ``p["wq"]``, ``"gate" in p``."""
 
-    def __init__(self, **entries):
+    def __init__(self, /, **entries):   # "self" may name an entry
         super().__init__()
         for name, value in entries.items():
             if isinstance(value, nn.Module):
@@ -69,8 +69,8 @@ def activation(x: torch.Tensor, name: str, lut: bool = False
         return _get_act_lut(name)(x)
     if name == "silu":
         return F.silu(x)
-    if name == "gelu":
-        return F.gelu(x)
+    if name == "gelu":                 # jax.nn.gelu's default: the tanh form
+        return F.gelu(x, approximate="tanh")
     raise ValueError(name)
 
 
@@ -108,6 +108,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics (the population variance, as
+    ``jnp.var``)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 # -- rotary embeddings --------------------------------------------------------
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float
@@ -138,6 +150,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
     rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                           dim=-1).reshape(xr.shape)
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Whisper-style sinusoidal position embeddings [n, d], float32: the
+    sines of the d/2 frequencies, then their cosines."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    return np.concatenate([np.sin(angle), np.cos(angle)],
+                          axis=1).astype(np.float32)
 
 
 # -- dense layer with the paper's quantized path -------------------------------

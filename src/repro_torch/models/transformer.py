@@ -1,6 +1,8 @@
-"""Decoder LM of the decoder-only families (port of
+"""Decoder LM of every decoder family (port of
 ``repro.models.transformer``): ``attn`` (dense), ``moe``, ``mlstm`` and
-``slstm`` (xLSTM) and ``hymba`` blocks.
+``slstm`` (xLSTM), ``hymba`` and ``cross`` (the VLM's gated
+cross-attention over vision states) blocks.  The audio family's
+encoder-decoder is ``models/encdec.py``.
 
 The reference scans a stacked repeating unit with ``lax.scan``; the port
 keeps one parameter group per layer (``params["layers"][i]``) and loops
@@ -12,8 +14,11 @@ reference checkpoints each scanned unit): its activations are recomputed
 in the backward.  Hymba's meta tokens are prepended to the prompt (and
 its cache holds them), then stripped after the stack.
 
-The blocks that need inputs beside the tokens (``cross``: the VLM's
-vision states, the audio family's encoder) raise ``NotImplementedError``.
+``extras`` carries the inputs beside the tokens: ``cross_states``, the
+VLM's vision states [B, vision_tokens, vision_dim].  A ``cross`` block's
+cache holds their keys and values, computed once at prefill and stored
+contiguous, so a decode step reads them as the attention kernel takes
+them and needs no extras.
 """
 from __future__ import annotations
 
@@ -25,24 +30,15 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from . import ssm as ssm_mod
-from .attention import (AttnSpec, _project_qkv, _sdpa, attention,
-                        attention_decode, init_attention, init_kv_cache,
+from .attention import (AttnSpec, _project_qkv, attend, attention,
+                        attention_decode, cross_attention, cross_kv,
+                        cross_queries, init_attention, init_kv_cache,
                         plan_heads, quantize_kv)
 from .layers import (Params, dense_init, embed_init, init_mlp, mlp,
                      normal_init, rms_norm)
 from .moe import MoeSpec, init_moe, moe_apply, pad_experts
 
 FULL_WINDOW = 1 << 30
-#: ROADMAP item that ports the families whose batches carry more inputs
-BLOCKS_TODO = ("{bt!r} (the VLM's cross-attention over vision states and "
-               "the audio family's encoder-decoder) is not ported yet: "
-               "ROADMAP queue 1 item 12")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(BLOCKS_TODO.format(bt=cfg.family))
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +52,8 @@ def attn_spec(cfg: ArchConfig, tp: int = 16) -> AttnSpec:
         head_dim=cfg.resolved_head_dim,
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
         rope_fraction=cfg.rope_fraction, rope_theta=cfg.rope_theta,
-        norm_eps=cfg.norm_eps)
+        norm_eps=cfg.norm_eps,
+        kv_dim=cfg.vision_dim or 0)
 
 
 def moe_spec(cfg: ArchConfig, ep: int = 16) -> MoeSpec:
@@ -105,6 +102,13 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, bt: str) -> Params:
     if bt == "slstm":
         return Params(norm1=norm(),
                       slstm=ssm_mod.init_slstm(gen, slstm_spec(cfg), dt))
+    if bt == "cross":        # the gates start at 0: tanh(0) shuts them
+        zero = torch.zeros((), dtype=torch.float32, device=gen.device)
+        return Params(norm1=norm(),
+                      cross=init_attention(gen, attn_spec(cfg), dt,
+                                           cross=True),
+                      norm2=norm(), mlp=init_mlp(gen, d, cfg.d_ff, dt),
+                      gate_attn=zero, gate_mlp=zero.clone())
     p = {"norm1": norm(), "attn": init_attention(gen, attn_spec(cfg), dt)}
     if bt == "hymba":
         p.update(ssm=ssm_mod.init_ssm(gen, ssm_spec(cfg), dt),
@@ -139,9 +143,24 @@ def _hymba_mix(p, ha: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
     return 0.5 * (rms_norm(ha, p["attn_norm"]) + rms_norm(hs, p["ssm_norm"]))
 
 
+def _gated(p, x: torch.Tensor, h: torch.Tensor, cfg: ArchConfig
+           ) -> torch.Tensor:
+    """A ``cross`` block's second half: ``x + tanh(gate_attn) h``, then its
+    MLP through ``tanh(gate_mlp)``."""
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+    h2 = mlp(p["mlp"], rms_norm(x, p["norm2"]), cfg.activation,
+             cfg.lut_activations, cfg.quantize_dense)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * h2
+
+
 def apply_block_train(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
-                      positions: torch.Tensor, window: Optional[int]):
+                      positions: torch.Tensor, window: Optional[int],
+                      extras: dict):
     """-> (x, aux_loss)."""
+    if bt == "cross":
+        h = cross_attention(p["cross"], attn_spec(cfg),
+                            rms_norm(x, p["norm1"]), extras["cross_states"])
+        return _gated(p, x, h, cfg), 0.0
     if bt == "mlstm":
         return x + ssm_mod.mlstm_chunkwise(
             p["mlstm"], mlstm_spec(cfg), rms_norm(x, p["norm1"])), 0.0
@@ -165,6 +184,11 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, max_seq: int,
         return {"slstm": ssm_mod.slstm_state_init(batch, slstm_spec(cfg),
                                                   device)}
     spec = attn_spec(cfg)
+    if bt == "cross":        # filled once at prefill from the states
+        sk = cfg.vision_tokens or cfg.encoder_seq
+        shape = (batch, spec.plan.n_kv, sk, spec.head_dim)
+        return {"ck": torch.zeros(shape, dtype=dt, device=device),
+                "cv": torch.zeros(shape, dtype=dt, device=device)}
     c = {"kv": init_kv_cache(batch, spec.plan, spec.head_dim, max_seq, dt,
                              bits=cfg.kv_cache_bits, device=device)}
     if bt == "hymba":
@@ -176,6 +200,11 @@ def apply_block_decode(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                        cache: dict, window: Optional[int]
                        ) -> tuple[torch.Tensor, dict]:
     """Single-token step.  -> (x, new_cache)."""
+    if bt == "cross":        # attends to the cached keys and values
+        q = cross_queries(p["cross"], attn_spec(cfg),
+                          rms_norm(x, p["norm1"]))
+        h = attend(p["cross"], q, cache["ck"], cache["cv"], causal=False)
+        return _gated(p, x, h, cfg), dict(cache)
     if bt == "mlstm":
         h, st = ssm_mod.mlstm_decode_step(
             p["mlstm"], mlstm_spec(cfg), rms_norm(x, p["norm1"]),
@@ -214,7 +243,6 @@ def unit_pattern(cfg: ArchConfig) -> tuple[tuple[str, ...], int]:
 
 def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random weights drawn from ``gen`` on its device."""
-    check_ported(cfg)
     dt = _dtype(cfg)
     p = {"tok_emb": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
          "final_norm": torch.ones((cfg.d_model,), dtype=dt,
@@ -258,10 +286,12 @@ def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"].to(x.dtype)
 
 
-def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor):
+def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
+               extras: Optional[dict] = None):
     """Training-style forward: tokens [B, S] -> (logits [B, S, Vpad],
     aux), aux the blocks' summed aux loss (0.0 without MoE blocks, else a
     float32 0-d tensor)."""
+    extras = extras or {}
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
@@ -271,21 +301,28 @@ def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor):
                           _layer_windows(cfg)):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                apply_block_train, p, cfg, bt, x, positions, win,
+                apply_block_train, p, cfg, bt, x, positions, win, extras,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = apply_block_train(p, cfg, bt, x, positions, win)
+            x, a = apply_block_train(p, cfg, bt, x, positions, win, extras)
         aux = aux + a
     return _unembed(cfg, params, x[:, cfg.meta_tokens:]), aux
 
 
 def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
-            targets: torch.Tensor, aux_weight: float = 0.01
-            ) -> torch.Tensor:
+            targets: torch.Tensor, extras: Optional[dict] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy in float32 over the real vocab (the
     padded columns at -1e30), plus ``aux_weight`` times the blocks' aux
     loss."""
-    logits, aux = lm_forward(cfg, params, tokens)
+    logits, aux = lm_forward(cfg, params, tokens, extras)
+    return token_nll(cfg, logits, targets) + aux_weight * aux
+
+
+def token_nll(cfg: ArchConfig, logits: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``logits`` [B, S, Vpad] against ``targets`` in
+    float32, the padded vocab columns at -1e30."""
     logits = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
@@ -293,8 +330,7 @@ def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
         logits = logits.masked_fill(pad, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = torch.mean(logz - gold)
-    return nll + aux_weight * aux
+    return torch.mean(logz - gold)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -305,17 +341,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
             for bt in cfg.layer_pattern()]
 
 
-def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_seq: int
+def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_seq: int,
+               extras: Optional[dict] = None
                ) -> tuple[torch.Tensor, list[dict]]:
     """Run the full prompt: (last-token logits [B, 1, Vpad], the filled
     per-layer caches)."""
+    extras = extras or {}
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
     caches = []
     for p, bt, win in zip(params["layers"], cfg.layer_pattern(),
                           _layer_windows(cfg)):
-        x, c = _prefill_block(p, cfg, bt, x, positions, win,
+        x, c = _prefill_block(p, cfg, bt, x, positions, win, extras,
                               max_seq + cfg.meta_tokens)
         caches.append(c)
     return _unembed(cfg, params, x[:, -1:]), caches
@@ -323,8 +361,16 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_seq: int
 
 def _prefill_block(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
-                   cache_max: int) -> tuple[torch.Tensor, dict]:
+                   extras: dict, cache_max: int) -> tuple[torch.Tensor, dict]:
     """Forward one block while materializing its decode cache."""
+    if bt == "cross":        # the cache keeps the keys without their norm
+        spec = attn_spec(cfg)
+        ck, cv = cross_kv(p["cross"], spec, extras["cross_states"], x.dtype)
+        k = (rms_norm(ck, p["cross"]["k_norm"], spec.norm_eps)
+             if spec.qk_norm else ck)
+        q = cross_queries(p["cross"], spec, rms_norm(x, p["norm1"]))
+        h = attend(p["cross"], q, k, cv, causal=False)
+        return _gated(p, x, h, cfg), {"ck": ck, "cv": cv}
     if bt == "mlstm":
         h, st = ssm_mod._mlstm_forward(p["mlstm"], mlstm_spec(cfg),
                                        rms_norm(x, p["norm1"]))
@@ -349,9 +395,7 @@ def _prefill_block(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
     else:
         kv.k[:, :, :s_total] = kh
         kv.v[:, :, :s_total] = vh
-    att = _sdpa(qh, kh, vh, causal=True, window=window)
-    att = att.transpose(1, 2).reshape(b, s_total, -1)
-    h = att @ p["attn"]["wo"].to(x.dtype)
+    h = attend(p["attn"], qh, kh, vh, causal=True, window=window)
     cache = {"kv": kv._replace(length=s_total)}
     if bt == "hymba":
         hs, cache["ssm"] = ssm_mod._ssm_forward(p["ssm"], ssm_spec(cfg), y)

@@ -19,7 +19,7 @@ import torch
 
 #: ROADMAP item that ports the data-parallel trainer
 DP_TODO = ("the data-parallel trainer (make_dp_train_step, gradient "
-           "compression) is not ported yet: ROADMAP queue 1 item 12")
+           "compression) is not ported yet: ROADMAP queue 1 item 12b")
 
 
 def value_and_grad(model, params, batch: dict):

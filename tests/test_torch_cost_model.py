@@ -35,7 +35,7 @@ import repro_torch.configs.pim_ml as tcfg
 import repro_torch.configs.shapes as tshapes
 import repro_torch.core.pim as tcore_pim
 import repro_torch.systems.pim as tpim
-from repro_torch.configs.base import PORTED_ARCH_IDS
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.configs.base import get_config as tget_config
 from repro_torch.core.estimators import (PimDecisionTreeClassifier,
                                          PimKMeans, PimLinearRegression,
@@ -185,14 +185,13 @@ def test_configs_are_the_references():
     assert {k: dataclasses.asdict(v) for k, v in tshapes.SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in jshapes.SHAPES.items()}
     assert tshapes.TRAIN_MICROBATCHES == jshapes.TRAIN_MICROBATCHES
-    for arch in PORTED_ARCH_IDS:
+    for arch in ARCH_IDS:
         for shape in tshapes.SHAPES:
             tc, jc = tget_config(arch), jget_config(arch)
             assert dataclasses.asdict(tshapes.shape_for(tc, shape)) \
                 == dataclasses.asdict(jshapes.shape_for(jc, shape))
             assert tshapes.supports(tc, shape) == jshapes.supports(jc, shape)
-    ported = [c for c in jshapes.all_cells() if c[0] in PORTED_ARCH_IDS]
-    assert tshapes.all_cells() == ported
+    assert tshapes.all_cells() == jshapes.all_cells()
 
 
 def test_roofline_is_the_references_a100():

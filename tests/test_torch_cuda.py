@@ -706,11 +706,12 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
-def _qkv(gen, b, hq, hkv, sq, skv, d, dtype, dev):
+def _qkv(gen, b, hq, hkv, sq, skv, d, dtype, dev, v_mean=0.0):
     # [B, S, H, D] projections seen as [B, H, S, D], as _project_qkv does
-    return [torch.randn((b, s, h, d), generator=gen, device=dev)
+    return [(torch.randn((b, s, h, d), generator=gen, device=dev) + m)
             .to(dtype).transpose(1, 2)
-            for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+            for s, h, m in ((sq, hq, 0.0), (skv, hkv, 0.0),
+                            (skv, hkv, v_mean))]
 
 
 def _attention_error(q, k, v, **kw):
@@ -1700,3 +1701,88 @@ def test_family_on_the_card_matches_the_cpu(cuda, arch):
         err = float((gg[name] - gc[name]).norm()
                     / max(float(gc[name].norm()), 1e-30))
         assert err <= STEP_GRAD_RTOL, (name, err)
+
+
+# -- the VLM and audio families (cross-attention, the encoder-decoder) --------
+
+#: bf16 v drawn around CROSS_V_MEAN puts every cross output in [2, 4), where
+#: one bf16 ulp is 2**-6: a right kernel is at most one ulp from plain
+#: (within MHA_BF16_ATOL), while a softmax that counted the zero-filled keys
+#: past Skv (36 past 1500, 63 past 1601 in 64-key tiles) would scale the
+#: output by <= 0.9855 and move it by >= 0.043.  With zero-mean v (|out| ~
+#: 0.16) that fault moves it by ~4e-3 only.  The lse moves by >= 0.0144
+CROSS_V_MEAN = 3.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1, 300])
+@pytest.mark.parametrize("hq,hkv,d,skv", [(32, 16, 128, 1601),
+                                          (16, 16, 64, 1500)])
+def test_cross_attention_shapes_match_plain(cuda, dtype, sq, hq, hkv, d, skv):
+    """Non-causal attention against llama-3.2-vision-11b's 1601 vision
+    states (32 query heads over 16 KV heads of 128) and whisper-tiny's
+    1500 encoder states (16 over 16 of 64), neither a multiple of a tile:
+    Sq = 1 is a decode step's cross-attention over the cache's contiguous
+    keys and values, Sq = 300 a prompt's over projected views.  bf16 v
+    around CROSS_V_MEAN; the lse against the plain log-sum-exp."""
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q, k, v = _qkv(gen, 1, hq, hkv, sq, skv, d, dtype, cuda,
+                   v_mean=CROSS_V_MEAN if bf16 else 0.0)
+    if sq == 1:
+        k, v = k.contiguous(), v.contiguous()
+    tol = MHA_BF16_ATOL if bf16 else MHA_F32_ATOL
+    assert _attention_error(q, k, v, causal=False) <= tol
+    out, lse = mha_cuda(q, k, v, causal=False, with_lse=True)
+    _, ref = mha_plain(q, k, v, causal=False, with_lse=True)
+    assert torch.equal(out, mha_cuda(q, k, v, causal=False))
+    assert float((lse - ref).abs().max()) <= (LSE_BF16_ATOL if bf16
+                                              else LSE_F32_ATOL)
+
+
+#: each family reduced to float32 with its cross blocks' gates open
+VLM_AUDIO = ("llama-3.2-vision-11b", "whisper-tiny")
+
+
+@pytest.mark.parametrize("arch", VLM_AUDIO)
+def test_vlm_and_audio_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """The same weights (the VLM's gates at 1, where init leaves them 0 and
+    shuts the vision path) on the card and the CPU: prefill and one decode
+    step within 1e-4 (float32 in other orders), with one mha launch per
+    attention and cross-attention a prefill (whisper's encoder included)
+    and per cross-attention a decode step (decode's self-attention keeps
+    the masked plain path)."""
+    from repro_torch.launch.train import draw_batch
+    from repro_torch.data.tokens import MarkovCorpus
+    cfg = get_config(arch).reduced()
+    weights = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in weights.named_parameters():
+            if "gate_" in name:
+                p.fill_(1.0)
+    batch = draw_batch(cfg, MarkovCorpus(cfg.vocab_size, seed=0), 2, 24, 0)
+    prompt = {**batch, "tokens": batch["tokens"][:, :20]}
+    tok = batch["tokens"][:, 20:21]
+    if arch == "whisper-tiny":
+        layers = cfg.encoder_layers + 2 * cfg.n_layers
+        cross = cfg.n_layers
+    else:
+        layers = cfg.n_layers
+        cross = cfg.layer_pattern().count("cross")
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = copy.deepcopy(weights).to(device)
+        dispatch.reset_launch_counts()
+        first, cache = model.prefill(params, prompt, max_seq=32)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == {"mha": layers}
+        dispatch.reset_launch_counts()
+        logits, _ = model.decode_step(params, tok, cache)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == {"mha": cross}
+        got[device] = (first.cpu(), logits.cpu())
+    for g, c in zip(got["cuda"], got["cpu"]):
+        assert float((g - c).abs().max()) <= 1e-4

@@ -51,7 +51,7 @@ from repro.models.api import Model as JModel
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 
-from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.core import quantization as tquant
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import mha, mha_plain
@@ -61,7 +61,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import quantized as tqz
 from repro_torch.models.api import Model, params_from_jax
 from repro_torch.models.attention import KVCache
+from repro_torch.launch import serve as tserve
+from repro_torch.sched import manifest as tmanifest
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train import loop as tloop
 
 DENSE = ("qwen3-8b", "granite-3-8b", "qwen2.5-32b", "stablelm-12b")
 #: float32 attention: the tolerance tests/test_kernels.py holds the
@@ -107,12 +110,20 @@ def test_plan_heads_matches_the_reference(n_q, n_kv, tp):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama-3.2-vision-11b")
+    """The VLM and audio ids load and build a Model; the serve launcher
+    refuses them (ServeEngine prefills tokens alone); the data-parallel
+    trainer and ``backend: shard_map`` still raise (item 12b)."""
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
-        cfg = ArchConfig(**dataclasses.asdict(jget_config(arch).reduced()))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg, device="cpu")
+        cfg = get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jget_config(arch))
+        assert Model(cfg.reduced(), device="cpu").cfg == cfg.reduced()
+        with pytest.raises(SystemExit):
+            tserve.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tloop.make_dp_train_step(None, None)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tmanifest.build_system({"backend": "shard_map"}, device="cpu")
 
 
 # -- quantization -----------------------------------------------------------

@@ -52,17 +52,19 @@ from repro.optim import adam as jadam
 from repro.train import fault_tolerance as jft
 from repro.train import loop as jloop
 
-from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.core import lut as tlut
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.tokens import MarkovCorpus, UniformTokens
 from repro_torch.kernels.flash_attention import (mha, mha_bwd_plain,
                                                  mha_plain)
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import quantized as tqz
 from repro_torch.models.api import Model, params_from_jax
 from repro_torch.optim import adam as tadam
 from repro_torch.train import fault_tolerance as tft
+from repro_torch.sched import manifest as tmanifest
 from repro_torch.train import loop as tloop
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -331,14 +333,20 @@ def test_eval_step_matches_the_reference():
 
 
 def test_what_training_does_not_port_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The trainer builds the VLM and audio ids (their Model included);
+    the serve launcher refuses them; the data-parallel trainer and
+    ``backend: shard_map`` still raise (item 12b)."""
+    with pytest.raises(NotImplementedError, match="item 12b"):
         tloop.make_dp_train_step(None, tadam.AdamW(), None)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        tmanifest.build_system({"backend": "shard_map"}, device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlaunch.build(arch, reduced=True, device="cpu")
-        cfg = ArchConfig(**dataclasses.asdict(jget_config(arch).reduced()))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg, device="cpu")
+        cfg, model, _, _ = tlaunch.build(arch, reduced=True, device="cpu")
+        assert cfg == get_config(arch).reduced() and model.cfg == cfg
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jget_config(arch).reduced())
+        with pytest.raises(SystemExit):
+            tserve.main(["--arch", arch, "--device", "cpu"])
 
 
 def test_value_and_grad_needs_trainable_params():
