@@ -208,6 +208,38 @@ Phases, in order; any failure exits non-zero:
                   launch/train.py, B = 4, 448 decoder tokens: step 1
                   against plain attention under autograd (TRAIN_LOSS_ATOL,
                   TRAIN_GRAD_RTOL), then 2 steps with the counts exact
+ 13. data-parallel  make_dp_train_step over torch.distributed ranks that
+              share the card (gloo: NCCL refuses two ranks on one device;
+              spawn_ranks, a file rendezvous), each rank with its launch
+              counts zeroed just before its run.  It runs right after
+              the build, while this process holds nothing on the card:
+              two replicas and their compressed step fill most of it:
+              (a) two ranks train granite-3-8b at full width, DP_LAYERS of
+                  40 layers, bf16, remat full, on MarkovCorpus batches of
+                  8 x 1024 tokens (4 rows a rank), AdamW lr 3e-4:
+                  DP_STEPS steps with the exact all-reduce, then
+                  DP_STEPS with the int8 error-feedback one.  Step 1 of
+                  the exact run against a one-process make_train_step on
+                  the same global batch (loss within TRAIN_LOSS_ATOL, each
+                  leaf's update within DP_STEP_RTOL of that step's); the
+                  compressed run's last loss below its first and within
+                  DP_EF_LOSS_GAP of the exact run's; both ranks'
+                  parameters bit-identical after every step (checksums of
+                  every leaf's bits); exactly 2 flash_attention and 1
+                  flash_attention_bwd a layer a step on each rank.
+                  Printed: ms a step and tokens/s over both ranks, the
+                  reduction's ms, the payload bytes handed to collectives
+                  and copied through host memory against
+                  compressed_bytes_saved's model, peak memory per rank;
+              (b) four ranks, reduced granite-3-8b in float32: DP_SMALL
+                  steps on a (2, 2) ("pod", "data") mesh (the hierarchical
+                  reduction) within DP_POD_RTOL of the flat (4,) run;
+              (c) the GPipe pipeline over 4 ranks at tests/test_pipeline.py's
+                  size (8 tanh layers of 32, 6 microbatches): the forward
+                  within PIPE_FWD_ATOL and each stage's gradients within
+                  PIPE_GRAD_RTOL of the sequential run on the card;
+              (d) compress_decompress_psum and ef_compress_psum on CUDA
+                  tensors bit-identical to the same ranks on CPU tensors
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -319,6 +351,27 @@ TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 2e-2, 5e-2
 #: forward's lse against the plain logsumexp (|lse| <= ~10; the bf16
 #: kernel's exp2 is ex2.approx, ~2**-22 relative)
 TRAIN_BWD_BF16_RTOL, TRAIN_BWD_F32_RTOL, TRAIN_LSE_ATOL = 1e-2, 1e-4, 1e-4
+
+#: phase 13, data-parallel training: (a) DP_RANKS ranks share the card,
+#: each a whole granite-3-8b replica at full width cut to DP_LAYERS of 40
+#: layers (1.24B parameters; bf16 params and grads, float32 AdamW moments
+#: and error buffers: 16 bytes a parameter, ~20 GB a rank), TRAIN_BATCH x
+#: TRAIN_SEQ tokens a step over both, AdamW lr TRAIN_LR, DP_STEPS steps
+#: exact then compressed.  Step 1's leaf updates against the one-process
+#: step's: AdamW's first update is about lr * sign(g), and bf16 gradients
+#: summed in another order flip the sign of near-zero ones, so within
+#: DP_STEP_RTOL of the leaf's update norm; the compressed run's bound is
+#: the reference's (tests/test_distributed.py).  (b)-(d) on four ranks,
+#: reduced configs; the hierarchical bound is tests/test_collectives.py's
+DP_RANKS, DP_LAYERS, DP_STEPS = 2, 4, 5
+DP_STEP_RTOL, DP_EF_LOSS_GAP, DP_POD_RTOL = 0.1, 0.35, 1e-4
+DP_SMALL_RANKS, DP_SMALL_STEPS, DP_SMALL_BATCH, DP_SMALL_SEQ = 4, 3, 8, 16
+#: the pipeline at tests/test_pipeline.py's size and bounds
+PIPE_L, PIPE_D, PIPE_MICRO, PIPE_B, PIPE_S = 8, 32, 6, 2, 4
+PIPE_FWD_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
+#: (d)'s leaf: granite's wk at full width
+DP_COMPRESS_SHAPE = (4096, 1024)
+DP_TIMEOUT = 600.0
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
@@ -3801,6 +3854,350 @@ def vlm_audio_on_card(torch, dispatch, smi: str) -> dict:
     return res
 
 
+# -- phase 13: data-parallel training over ranks sharing the card -------------
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ranks_agree(torch, dist, params) -> bool:
+    """Whether every rank holds the same bits in every leaf: two checksums
+    a leaf (the sum of its bits as integers and of their squares), their
+    max and min over the ranks equal."""
+    sums = []
+    with torch.no_grad():
+        for p in params.parameters():
+            bits = p.view({2: torch.int16, 4: torch.int32}[p.element_size()])
+            wide = bits.to(torch.int64)
+            sums += [wide.sum(), (wide * wide).sum()]
+            del wide
+    local = torch.stack(sums).cpu()
+    hi, lo = local.clone(), -local
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX)
+    return bool(torch.equal(hi, -lo))
+
+
+def dp_flat_rank(rank: int, device: str, reduced: bool, layers: int,
+                 batch: int, seq: int, steps: int) -> dict:
+    """Phase 13 (a) on one rank: the one-process reference step (rank 0),
+    then ``steps`` exact and ``steps`` compressed make_dp_train_step steps
+    of TRAIN_ARCH over a ("data",) mesh of every rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.grad_compression import (compressed_bytes_saved,
+                                                    init_error_buffers)
+    from repro_torch.train import loop
+    cuda = torch.device(device).type == "cuda"
+    mesh = make_mesh((dist.get_world_size(),), ("data",), device)
+    cfg, model, opt, step_fn = launch_train.build(
+        TRAIN_ARCH, reduced=reduced, lr=TRAIN_LR, device=device,
+        overrides={"n_layers": layers})
+
+    def init():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        return model.init(gen).trainable_()
+    corpus = MarkovCorpus(cfg.vocab_size, seed=SEED)
+    draws = [corpus.batch(batch, seq) for _ in range(steps)]
+    res = {}
+    ref = p0 = None
+    if rank == 0:              # the one-process step on the global batch
+        p0, ref = init(), init()
+        m = step_fn(ref, opt.init(ref), draws[0])[2]     # updates ref
+        res["ref_loss"] = float(m["loss"])
+        if cuda:
+            torch.cuda.empty_cache()
+    reduce_s = []
+    real_reduce = loop.dp_reduce
+
+    def timed_reduce(*args, **kwargs):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        out = real_reduce(*args, **kwargs)
+        _sync(torch, device)
+        reduce_s.append(time.perf_counter() - t0)
+        return out
+    loop.dp_reduce = timed_reduce
+    for compress in (False, True):
+        params = init()
+        res["params"] = sum(p.numel() for p in params.parameters())
+        opt_state = opt.init(params)
+        err = init_error_buffers(params) if compress else {}
+        step = loop.make_dp_train_step(model, opt, mesh, compress=compress)
+        run = {"loss": [], "step_s": [], "agree": [], "peak": []}
+        reduce_s.clear()
+        collectives.reset_traffic()
+        _sync(torch, device)
+        dispatch.reset_launch_counts()
+        for b in draws:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt_state, err, m = step(params, opt_state, err, b)
+            loss = float(m["loss"])
+            _sync(torch, device)
+            run["step_s"].append(time.perf_counter() - t0)
+            run["loss"].append(loss)
+            if cuda:
+                run["peak"].append(torch.cuda.max_memory_allocated())
+            if ref is not None:          # rank 0 after the exact step 1
+                with torch.no_grad():
+                    pr = dict(ref.named_parameters())
+                    pz = dict(p0.named_parameters())
+                    run["step1_update_err"] = max(
+                        float((p.float() - pr[n].float()).norm()
+                              / (pr[n].float() - pz[n].float()).norm()
+                              .clamp_min(1e-30))
+                        for n, p in params.named_parameters())
+                ref = p0 = pr = pz = None
+            run["agree"].append(_ranks_agree(torch, dist, params))
+        run["counts"] = dict(dispatch.launch_counts)
+        run["traffic"] = dict(collectives.traffic)
+        run["reduce_s"] = list(reduce_s)
+        run["saved_model"] = compressed_bytes_saved(params)
+        res["compressed" if compress else "exact"] = run
+        del params, opt_state, err
+        if cuda:
+            torch.cuda.empty_cache()
+    loop.dp_reduce = real_reduce
+    return res
+
+
+def dp_small_rank(rank: int, device: str) -> dict:
+    """Phase 13 (b)-(d) on one of four ranks: the hierarchical trainer
+    against the flat one, the pipeline against the sequential run, and
+    the compress collectives on ``device`` against the same on the CPU."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.optim.grad_compression import (compress_decompress_psum,
+                                                    ef_compress_psum,
+                                                    init_error_buffers)
+    from repro_torch.train import loop
+    res = {}
+    # (b) flat (4,) against hierarchical (2, 2), reduced float32
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = Model(cfg, device=device)
+    weights = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    for shape, axes in (((4,), ("data",)), ((2, 2), ("pod", "data"))):
+        mesh = make_mesh(shape, axes, device)
+        params = copy.deepcopy(weights).to(device).trainable_()
+        opt = AdamW(lr=3e-3)
+        opt_state, err = opt.init(params), init_error_buffers(params)
+        step = loop.make_dp_train_step(model, opt, mesh)
+        corpus = MarkovCorpus(cfg.vocab_size, seed=SEED)
+        collectives.reset_traffic()
+        losses, agree = [], []
+        for _ in range(DP_SMALL_STEPS):
+            params, opt_state, err, m = step(
+                params, opt_state, err,
+                corpus.batch(DP_SMALL_BATCH, DP_SMALL_SEQ))
+            losses.append(float(m["loss"]))
+            agree.append(_ranks_agree(torch, dist, params))
+        res[describe(mesh)] = {"loss": losses, "agree": agree,
+                               "traffic": dict(collectives.traffic)}
+    # (c) the pipeline, 4 stages of 2 layers, against the sequential run
+    rng = np.random.RandomState(SEED)
+    w = torch.from_numpy((rng.normal(0, 1, (PIPE_L, PIPE_D, PIPE_D))
+                          / np.sqrt(PIPE_D)).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(0, 0.1, (PIPE_L, PIPE_D))
+                            .astype(np.float32)).to(device)
+    xs = torch.from_numpy(rng.normal(
+        0, 1, (PIPE_MICRO, PIPE_B, PIPE_S, PIPE_D)).astype(np.float32)
+                          ).to(device)
+
+    def block_fn(p, h):
+        for wi, bi in zip(p["w"], p["b"]):
+            h = torch.tanh(h @ wi + bi)
+        return h
+    whole = {"w": w.clone().requires_grad_(),
+             "b": bias.clone().requires_grad_()}
+    out_seq = torch.stack([block_fn(whole, xs[m])
+                           for m in range(PIPE_MICRO)])
+    (out_seq ** 2).sum().backward()
+    stage, per = dist.get_rank(), PIPE_L // 4
+    mine = {k: v[stage * per:(stage + 1) * per].clone().requires_grad_()
+            for k, v in (("w", w), ("b", bias))}
+    pipe_mesh = make_mesh((4,), ("stage",), device)
+    collectives.reset_traffic()
+    out = pipeline_apply(pipe_mesh, "stage", block_fn, mine, xs)
+    (out ** 2).sum().backward()
+    _sync(torch, device)
+    res["pipe_fwd_err"] = float((out - out_seq).detach().abs().max())
+    res["pipe_grad_err"] = max(
+        float((mine[k].grad - whole[k].grad[stage * per:(stage + 1) * per])
+              .abs().max() / whole[k].grad.abs().max()) for k in ("w", "b"))
+    res["pipe_traffic"] = dict(collectives.traffic)
+    # (d) the compress collectives, device against CPU tensors
+    rng = np.random.RandomState(100 + rank)
+    cases = {"leaf": (rng.normal(0, 3e-3, DP_COMPRESS_SHAPE),
+                      rng.normal(0, 1e-5, DP_COMPRESS_SHAPE), torch.float32),
+             "bf16": (rng.normal(0, 2, 4096), rng.normal(0, 0.01, 4096),
+                      torch.bfloat16)}
+    same = {}
+    for name, (g, e, dtype) in cases.items():
+        outs = {}
+        for dev in (device, "cpu"):
+            tg = torch.from_numpy(g.astype(np.float32)).to(dev, dtype)
+            te = torch.from_numpy(e.astype(np.float32)).to(dev)
+            outs[dev] = [t.cpu() for t in (compress_decompress_psum(tg),
+                                           *ef_compress_psum(tg, te, None,
+                                                             4))]
+        same[name] = all(torch.equal(a, b) for a, b in
+                         zip(outs[device], outs["cpu"]))
+    res["compress_same"] = same
+    return res
+
+
+def dp_on_card(torch, smi: str) -> dict:
+    """Phase 13: the data-parallel trainer over ranks sharing the card,
+    checks (a)-(d) of the module docstring; returns the launch counts and
+    the numbers printed."""
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"dp: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held by "
+        f"this process, {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB "
+        f"free on the card; {DP_RANKS} ranks share it over "
+        f"{backend_for('cuda', DP_RANKS)}")
+    # two replicas and their transients fill most of the card: the ranks'
+    # allocators (and only theirs) map segments that grow rather than
+    # cache fixed blocks
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks(dp_flat_rank, DP_RANKS, device="cuda",
+                            timeout=DP_TIMEOUT,
+                            args=("cuda", False, DP_LAYERS, TRAIN_BATCH,
+                                  TRAIN_SEQ, DP_STEPS))
+        small = spawn_ranks(dp_small_rank, DP_SMALL_RANKS, device="cuda",
+                            timeout=DP_TIMEOUT, args=("cuda",))
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    res = check_dp_flat(ranks, DP_LAYERS, DP_STEPS, smi)
+    res.update(check_dp_small(small))
+    res["wall_s"] = time.perf_counter() - t_phase
+    say(f"dp: phase 13 in {res['wall_s']:.1f} s on {smi}")
+    return res
+
+
+def check_dp_flat(ranks: list, layers: int, steps: int, smi: str) -> dict:
+    """Phase 13 (a)'s checks and lines from its ranks' results."""
+    res = {"counts": {}}
+    expected = {"mha": 2 * layers * steps, "mha_bwd": layers * steps}
+    n_params = ranks[0]["params"]
+    say(f"dp: (a) {TRAIN_ARCH}, {layers} of 40 layers, {n_params:,} "
+        f"parameters a replica ({16 * n_params / 2 ** 30:.1f} GiB a rank at "
+        f"16 bytes a parameter), B={TRAIN_BATCH} x S={TRAIN_SEQ} over "
+        f"{len(ranks)} ranks, AdamW lr {TRAIN_LR}")
+    for mode in ("exact", "compressed"):
+        runs = [r[mode] for r in ranks]
+        step_ms = statistics.median(runs[0]["step_s"][1:]) * 1e3
+        reduce_ms = statistics.median(runs[0]["reduce_s"][1:]) * 1e3
+        t = runs[0]["traffic"]
+        payload = sum(v for k, v in t.items()
+                      if k not in ("staged", "calls")) / steps
+        f32_b, int8_b = runs[0]["saved_model"]
+        m = res[mode] = dict(
+            losses=runs[0]["loss"], step_ms=step_ms, reduce_ms=reduce_ms,
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            payload_bytes=payload, staged_bytes=t.get("staged", 0) / steps,
+            saved_model=(f32_b, int8_b),
+            peak_bytes=[max(r["peak"], default=0) for r in runs],
+            counts=[r["counts"] for r in runs])
+        say(f"dp: (a) {mode}: losses {m['losses']}; {step_ms:.1f} ms a step "
+            f"(median of steps 2-{steps}, host clock, synchronised), "
+            f"{m['tokens_per_s']:.0f} tokens/s over the ranks; the "
+            f"reduction {reduce_ms:.1f} ms a step; payload handed to "
+            f"collectives {payload / 1e9:.4f} GB a rank a step "
+            f"(compressed_bytes_saved's model: {f32_b / 1e9:.4f} GB float32 "
+            f"against {int8_b / 1e9:.4f} GB int8), "
+            f"{m['staged_bytes'] / 1e9:.4f} GB copied through host "
+            f"memory by the port; peak "
+            f"{[round(b / 2 ** 30, 2) for b in m['peak_bytes']]} GiB a rank;"
+            f" launch counts {m['counts']} (expected {expected} a rank) "
+            f"(on {smi})")
+        if any(c != expected for c in m["counts"]):
+            fail(f"dp: (a) {mode} launch counts {m['counts']} != {expected}")
+        if not all(all(r["agree"]) for r in runs):
+            fail(f"dp: (a) {mode}: the ranks' parameters differ after a step")
+        if not np.all(np.isfinite(m["losses"])) or any(
+                r["loss"] != runs[0]["loss"] for r in runs):
+            fail(f"dp: (a) {mode}: losses not finite or not the same on "
+                 f"every rank")
+    for k in ("mha", "mha_bwd"):
+        res["counts"][k] = res["exact"]["counts"][0].get(k, 0) \
+            + res["compressed"]["counts"][0].get(k, 0)
+    exact, comp = res["exact"]["losses"], res["compressed"]["losses"]
+    dloss = abs(exact[0] - ranks[0]["ref_loss"])
+    upd = ranks[0]["exact"]["step1_update_err"]
+    gap = abs(comp[-1] - exact[-1])
+    say(f"dp: (a) step 1 against one-process make_train_step on the global "
+        f"batch: loss {exact[0]:.5f} / {ranks[0]['ref_loss']:.5f} (|d| "
+        f"{dloss:.3g} <= {TRAIN_LOSS_ATOL}); worst leaf update off by "
+        f"{upd:.3g} of its norm (<= {DP_STEP_RTOL}); compressed last loss "
+        f"{comp[-1]:.4f} (first {comp[0]:.4f}) against exact {exact[-1]:.4f}"
+        f": gap {gap:.4f} (< {DP_EF_LOSS_GAP}); parameters bit-identical on "
+        f"every rank after every step")
+    if not dloss <= TRAIN_LOSS_ATOL or not upd <= DP_STEP_RTOL:
+        fail("dp: (a) step 1 off the one-process step")
+    if not (comp[-1] < comp[0] and gap < DP_EF_LOSS_GAP):
+        fail("dp: (a) the compressed run does not learn within the "
+             "reference's bound of the exact run")
+    res["step1_loss_err"], res["step1_update_err"] = dloss, upd
+    return res
+
+
+def check_dp_small(small: list) -> dict:
+    """Phase 13 (b)-(d)'s checks and lines from the four ranks' results."""
+    flat, hier = small[0]["data=4"], small[0]["pod=2 x data=2"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hier["loss"],
+                                                   flat["loss"]))
+    say(f"dp: (b) reduced {TRAIN_ARCH}, float32, {DP_SMALL_STEPS} steps on "
+        f"four ranks: hierarchical (pod=2 x data=2) losses {hier['loss']} "
+        f"against flat {flat['loss']}: rel {rel:.3g} (<= {DP_POD_RTOL}); "
+        f"rank 0's traffic, flat {flat['traffic']}, hierarchical "
+        f"{hier['traffic']}")
+    if not rel <= DP_POD_RTOL or not all(
+            all(r[k]["agree"]) for r in small
+            for k in ("data=4", "pod=2 x data=2")):
+        fail("dp: (b) the hierarchical trainer is off the flat one, or the "
+             "ranks differ")
+    fwd = max(r["pipe_fwd_err"] for r in small)
+    grad = max(r["pipe_grad_err"] for r in small)
+    say(f"dp: (c) the pipeline over 4 stages ({PIPE_L} layers of "
+        f"{PIPE_D}, {PIPE_MICRO} microbatches): forward within {fwd:.3g} "
+        f"(<= {PIPE_FWD_ATOL}), stage gradients within {grad:.3g} of max "
+        f"|sequential| (<= {PIPE_GRAD_RTOL}); stage 1's traffic "
+        f"{small[1]['pipe_traffic']}")
+    if not fwd <= PIPE_FWD_ATOL or not grad <= PIPE_GRAD_RTOL:
+        fail("dp: (c) the pipeline is off the sequential run")
+    same = [r["compress_same"] for r in small]
+    say(f"dp: (d) compress collectives on CUDA tensors == CPU tensors, "
+        f"bit for bit, per rank: {same}")
+    if not all(all(s.values()) for s in same):
+        fail("dp: (d) the compress collectives differ between CUDA and CPU "
+             "tensors")
+    return {"pod_rel": rel, "pipe_fwd_err": fwd, "pipe_grad_err": grad}
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -3859,6 +4256,10 @@ def main() -> int:
                 kernel = line.split("'")[1][:90]
             elif "registers" in line or "spill" in line:
                 say(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
+
+    # -- 13. data-parallel training over ranks sharing the card -------------
+    # first, while this process holds nothing on the card
+    dp = dp_on_card(torch, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
     rng = np.random.RandomState(SEED)
@@ -4365,6 +4766,7 @@ def main() -> int:
          "launches": lm["counts"]["mha"],
          "max_abs_err": max(err_fa, fam["err_fa"], xfam["err_fa"]),
          "train_launches": lm_train["counts"]["mha"],
+         "dp_launches_a_rank": dp["counts"]["mha"],
          "families_launches": fam_launches["mha"],
          "families_max_abs_err": max(fam["err_fa"], xfam["err_fa"]),
          "cross": xfam["times"],
@@ -4378,6 +4780,7 @@ def main() -> int:
                  "its XLA attention (src/repro/models/attention.py:151-186)"
                  " with jax.grad",
          "launches": lm_train["counts"]["mha_bwd"],
+         "dp_launches_a_rank": dp["counts"]["mha_bwd"],
          "families_launches": fam_launches["mha_bwd"],
          "max_abs_err": max(lm_train["bwd_abs_err"], xfam["err_bwd"]),
          "max_rel_err": lm_train["bwd_err"],
@@ -4417,6 +4820,10 @@ def main() -> int:
         for arch in (X_VLM, X_AUDIO) for mode in ("off", "on")}
         | {f"{X_AUDIO} train": {k: xfam["train"][k] for k in (
             "losses", "step_ms", "wall_s", "peak_bytes")}}))
+    say("dp: " + json.dumps({mode: {k: dp[mode][k] for k in (
+        "losses", "step_ms", "reduce_ms", "tokens_per_s", "payload_bytes",
+        "staged_bytes", "saved_model", "peak_bytes")}
+        for mode in ("exact", "compressed")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

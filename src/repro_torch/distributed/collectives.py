@@ -1,0 +1,186 @@
+"""Collectives over ``torch.distributed`` ranks, and the hierarchical
+all-reduce of the multi-pod mesh (port of ``repro.distributed.collectives``,
+DESIGN.md §5).
+
+Cross-pod links are slower than intra-pod links, so the flat all-reduce
+over ("pod", "data") is decomposed into:
+
+  1. reduce-scatter within the pod  (fast links carry the bulk)
+  2. all-reduce of the scattered shards across pods
+     (slow links carry 1/pod_size of the bytes)
+  3. all-gather within the pod
+
+The reference runs these under ``shard_map`` on named mesh axes; the port
+runs them on the process groups of a ``DeviceMesh``'s axes.
+
+Every collective of the port goes through the wrappers below.  They count
+what they move in :data:`traffic` (per process: the payload bytes handed
+to each collective, as ``tensor.numel() * element_size()``, and the bytes
+copied through host memory), and they choose up front, by backend and
+device, whether a collective runs on the tensor or on a host copy of it
+(:func:`staged`).  PyTorch's backend table gives gloo only all-reduce and
+broadcast on CUDA tensors (gloo copies those through host memory
+itself), so the port copies for gloo's reduce-scatter, all-gather, send
+and recv on CUDA tensors.  On torch 2.11 (an H100 machine) gloo also ran
+reduce-scatter and all-gather on CUDA tensors and aborted the process on
+a send; the table keeps the documented pair.  A collective that fails
+raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.distributed as dist
+
+#: the collectives a backend runs on host tensors only
+HOST_ONLY = {"gloo": frozenset({"reduce_scatter", "all_gather", "send",
+                                "recv"})}
+
+#: the tensor forms of reduce-scatter and all-gather (``*_single`` since
+#: torch 2.10, where the ``*_tensor`` names warn)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+
+#: this process's counts: payload bytes by collective, "staged" bytes
+#: copied device -> host -> device, "calls"
+traffic: collections.Counter = collections.Counter()
+
+
+def reset_traffic() -> None:
+    traffic.clear()
+
+
+def staged(op: str, tensor: torch.Tensor, group=None) -> bool:
+    """Whether collective ``op`` on ``tensor`` copies through host memory:
+    a CUDA tensor under a backend that runs ``op`` on host tensors only."""
+    return tensor.device.type == "cuda" and \
+        op in HOST_ONLY.get(dist.get_backend(group), ())
+
+
+def _count(op: str, tensor: torch.Tensor) -> None:
+    traffic[op] += tensor.numel() * tensor.element_size()
+    traffic["calls"] += 1
+
+
+def _to_host(tensor: torch.Tensor) -> torch.Tensor:
+    traffic["staged"] += tensor.numel() * tensor.element_size()
+    return tensor.cpu()
+
+
+def _from_host(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    traffic["staged"] += host.numel() * host.element_size()
+    return host.to(like.device)
+
+
+def divide(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` as a true division on every device (on CUDA, a tensor
+    divided by a Python number multiplies by its reciprocal)."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None
+               ) -> torch.Tensor:
+    """Reduce ``x`` in place over ``group``; returns ``x``."""
+    _count("all_reduce", x)
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Overwrite ``x`` with global rank ``src``'s; returns ``x``."""
+    _count("broadcast", x)
+    dist.broadcast(x, src=src, group=group)
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ``group`` of ``x``'s leading-dim block this rank owns
+    (``x.shape[0]`` divisible by the group's size)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    _count("reduce_scatter", x)
+    src = _to_host(x) if staged("reduce_scatter", x, group) else x
+    out = src.new_empty((x.shape[0] // n, *x.shape[1:]))
+    _REDUCE_SCATTER(out, src, group=group)
+    return _from_host(out, x) if src is not x else out
+
+
+def all_gather(shard: torch.Tensor, group=None) -> torch.Tensor:
+    """The group's shards concatenated along the leading dim."""
+    n = dist.get_world_size(group)
+    shard = shard.contiguous()
+    _count("all_gather", shard)
+    src = _to_host(shard) if staged("all_gather", shard, group) else shard
+    out = src.new_empty((n * shard.shape[0], *shard.shape[1:]))
+    _ALL_GATHER(out, src, group=group)
+    return _from_host(out, shard) if src is not shard else out
+
+
+def send(x: torch.Tensor, dst: int, group=None) -> None:
+    """Send ``x`` to global rank ``dst`` (blocking)."""
+    x = x.contiguous()
+    _count("send", x)
+    dist.send(_to_host(x) if staged("send", x, group) else x, dst=dst,
+              group=group)
+
+
+def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Receive a tensor of ``like``'s shape, dtype and device from global
+    rank ``src`` (blocking)."""
+    out = torch.empty_like(like, memory_format=torch.contiguous_format)
+    _count("recv", out)
+    if staged("recv", out, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.recv(host, src=src, group=group)
+        return _from_host(host, out)
+    dist.recv(out, src=src, group=group)
+    return out
+
+
+def group_over(mesh, axes: tuple):
+    """The process group spanning ``axes`` of ``mesh``: one axis's group,
+    or the default group for a mesh that has just these axes and every
+    rank."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if tuple(mesh.mesh_dim_names) == tuple(axes) and \
+            mesh.size() == dist.get_world_size():
+        return dist.group.WORLD
+    raise ValueError(f"no group over axes {axes} of a mesh with axes "
+                     f"{mesh.mesh_dim_names} on {mesh.size()} of "
+                     f"{dist.get_world_size()} ranks")
+
+
+def hierarchical_psum(x: torch.Tensor, mesh, *, intra_axis: str = "data",
+                      inter_axis: str = "pod") -> torch.Tensor:
+    """Sum over (inter_axis x intra_axis) via RS -> inter-AR -> AG.
+
+    Requires the leading dim of ``x`` to be divisible by the intra-axis
+    size; otherwise falls back to the flat sum (an all-reduce within the
+    pod, then across pods).  Returns a new tensor."""
+    intra, inter = mesh.get_group(intra_axis), mesh.get_group(inter_axis)
+    if x.shape[0] % dist.get_world_size(intra):
+        return all_reduce(all_reduce(x.clone(), group=intra), group=inter)
+    # 1. reduce-scatter within the pod over the leading dim
+    shard = reduce_scatter(x, intra)
+    # 2. all-reduce the shard across pods (1/n_intra of the bytes)
+    all_reduce(shard, group=inter)
+    # 3. all-gather within the pod
+    return all_gather(shard, intra)
+
+
+def hierarchical_pmean(x: torch.Tensor, mesh, *, intra_axis: str = "data",
+                       inter_axis: str = "pod") -> torch.Tensor:
+    total = (dist.get_world_size(mesh.get_group(intra_axis))
+             * dist.get_world_size(mesh.get_group(inter_axis)))
+    return divide(hierarchical_psum(x, mesh, intra_axis=intra_axis,
+                                    inter_axis=inter_axis), total)
+
+
+def cross_pod_bytes(n_bytes: int, pod_size: int) -> tuple[int, int]:
+    """(flat slow-link bytes, hierarchical slow-link bytes) per device —
+    the napkin justification: hierarchical moves 1/pod_size as much over
+    the slow links."""
+    return n_bytes, n_bytes // pod_size

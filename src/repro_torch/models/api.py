@@ -171,3 +171,26 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
            for name in ("tok_emb", "final_norm", "lm_head", "meta")
            if name in tree}
     return Params(**top, layers=nn.ModuleList(layers))
+
+
+def stacked_groups(cfg: ArchConfig, names) -> list[list[str]]:
+    """The port's leaf ``names`` grouped by the reference leaf that holds
+    them, in ``names``' order of first appearance, layers in order within a
+    group: a decoder LM's ``layers.{r * len(unit) + u}.<rest>`` over the
+    reps ``r`` of unit slot ``u`` (the reference's ``unit[u]`` leaf
+    ``[reps, ...]``), the encoder-decoder's ``enc.{i}.<rest>`` and
+    ``dec.{i}.<rest>`` over ``i``; every other leaf alone."""
+    slots = (len(transformer.unit_pattern(cfg)[0])
+             if cfg.family != "audio" else None)
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            key = ("layers", int(parts[1]) % slots, *parts[2:])
+        elif parts[0] in ("enc", "dec") and len(parts) > 2:
+            key = (parts[0], *parts[2:])
+        else:
+            key = (name,)
+        groups.setdefault(key, []).append(name)
+    return [sorted(g, key=lambda n: int(n.split(".")[1])) if len(g) > 1
+            else g for g in groups.values()]

@@ -31,8 +31,8 @@ Port of ``repro.sched.manifest``.  :func:`build_system` and
 on (``"cuda"`` unless the caller asks for ``"cpu"``).  The port's PIM
 system has one execution path, the reference's ``backend: vmap`` (all
 cores one leading tensor axis); ``backend: shard_map`` spreads the cores
-over a device mesh, which waits for the distributed layer (ROADMAP queue
-1 item 12b) and raises ``NotImplementedError``.
+over a device mesh, which waits for the PIM system over ranks (ROADMAP
+queue 1 item 12d) and raises ``NotImplementedError``.
 
 Service mode (DESIGN.md §14.4): :func:`submit_manifest` admits one
 manifest onto an existing — possibly serving — scheduler, so new
@@ -131,8 +131,9 @@ def build_system(spec: Optional[dict], device: str = "cuda"
         if backend == "shard_map":
             raise NotImplementedError(
                 "system backend: 'shard_map' is not ported yet: the port "
-                "runs every core on one device (backend: vmap; ROADMAP "
-                "queue 1 item 12b)")
+                "runs every core on one device (backend: vmap); the PIM "
+                "system over torch.distributed ranks is ROADMAP queue 1 "
+                "item 12d")
     sched_kw = {}
     if "rank_size" in spec:
         sched_kw["rank_size"] = int(spec.pop("rank_size"))

@@ -1786,3 +1786,76 @@ def test_vlm_and_audio_decode_on_the_card_matches_the_cpu(cuda, arch):
         got[device] = (first.cpu(), logits.cpu())
     for g, c in zip(got["cuda"], got["cpu"]):
         assert float((g - c).abs().max()) <= 1e-4
+
+
+# -- data-parallel training over gloo ranks sharing the card ---------------------
+
+#: reduced float32 DP step, card against CPU: as STEP_LOSS_ATOL; each leaf
+#: of the params (one SGD step of lr 0.1 from equal weights) within
+#: DP_PARAM_ATOL, a gradient element's float32 error times lr.  Compressed,
+#: an element whose local gradient lies within float error of a rounding
+#: tie may round to the next int8 level on one rank: its mean gradient
+#: then moves by one quantum (scale / world), its param by lr times that
+#: (tok_emb, 1 of 65,536 elements by 2.6e-4, observed); such flips stay
+#: under DP_MAX_FLIP_SHARE of the elements
+DP_PARAM_ATOL, DP_LR, DP_MAX_FLIP_SHARE = 1e-5, 0.1, 1e-3
+
+
+def _card_ranks(fn, *args):
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+    return spawn_ranks(getattr(torch_ranks, fn), 2, args=args,
+                       device="cuda", timeout=300)
+
+
+def test_compress_collective_on_the_card_equals_the_cpu(cuda):
+    """compress_decompress_psum and ef_compress_psum on two gloo ranks
+    sharing the card, on CUDA and on CPU tensors: bit-identical outputs
+    and error buffers (float32 and bf16, ties, zeros, a 4096 x 1024
+    leaf)."""
+    rng = np.random.RandomState(0)
+    ties = np.tile(np.arange(-6, 7, dtype=np.float32) + 0.5, (2, 1))
+    ties[0, 0] = 127.0
+    cases = {
+        "leaf": (rng.normal(0, 3e-3, (2, 4096, 1024)).astype(np.float32),
+                 rng.normal(0, 1e-5, (2, 4096, 1024)).astype(np.float32),
+                 "float32"),
+        "bf16": (rng.normal(0, 2, (2, 1000)).astype(np.float32),
+                 rng.normal(0, 0.01, (2, 1000)).astype(np.float32),
+                 "bfloat16"),
+        "ties": (ties, np.zeros_like(ties), "float32"),
+        "zeros": (np.zeros((2, 33), np.float32),
+                  np.zeros((2, 33), np.float32), "float32")}
+    for r in _card_ranks("card_compress_body", cases):
+        for case, got in r["cuda"].items():
+            for key, value in got.items():
+                np.testing.assert_array_equal(value, r["cpu"][case][key],
+                                              err_msg=f"{case} {key}")
+
+
+def test_dp_step_on_the_card_matches_the_cpu(cuda):
+    """One flat make_dp_train_step step of reduced granite-3-8b in float32
+    (remat on, SGD) on two gloo ranks sharing the card, exact and
+    compressed, against the same on CPU tensors: the loss, the params,
+    the ranks equal to each other; 2 mha and 1 mha_bwd a layer a rank."""
+    cfg = get_config("granite-3-8b").reduced()
+    results = _card_ranks("card_dp_step_body", "granite-3-8b", 4, 64)
+    for r in results:
+        for compress in (False, True):
+            card, cpu = r["cuda", compress], r["cpu", compress]
+            assert card["counts"] == {"mha": 2 * cfg.n_layers,
+                                      "mha_bwd": cfg.n_layers}
+            assert abs(card["loss"] - cpu["loss"]) <= STEP_LOSS_ATOL
+            flips = total = 0
+            for name, p in cpu["params"].items():
+                d = np.abs(card["params"][name] - p)
+                quantum = DP_LR * cpu["scales"][name] / 2 if compress else 0
+                assert d.max() <= DP_PARAM_ATOL + 1.001 * quantum, name
+                flips += int((d > DP_PARAM_ATOL).sum())
+                total += d.size
+            assert flips <= DP_MAX_FLIP_SHARE * total, (compress, flips)
+    for key in results[0]:
+        assert results[0][key]["digest"] == results[1][key]["digest"], key

@@ -31,6 +31,7 @@ of theirs; the scan reorders products of numbers in (0, 1]
 (``SCAN_RTOL``).
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -266,17 +267,19 @@ def test_vlm_and_audio_still_raise():
     """What still raises around the VLM and audio families: they load and
     build a Model (tests/test_torch_vlm_audio.py holds them to the
     reference), but the serve launcher refuses them, since ServeEngine
-    prefills tokens alone; the data-parallel trainer and ``backend:
-    shard_map`` raise (item 12b)."""
+    prefills tokens alone; the data-parallel trainer builds
+    (tests/test_torch_dp_train.py runs it) and ``backend: shard_map``
+    raises (item 12d)."""
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg = get_config(arch).reduced()
         params = Model(cfg, device="cpu").init(torch.Generator())
         assert Model.param_count(params) > 0
         with pytest.raises(SystemExit):
             tserve.main(["--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tloop.make_dp_train_step(None, None)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    mesh = SimpleNamespace(mesh_dim_names=("pod", "data"), shape=(1, 1))
+    assert callable(tloop.make_dp_train_step(None, None, mesh,
+                                             compress=True))
+    with pytest.raises(NotImplementedError, match="item 12d"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
 
 

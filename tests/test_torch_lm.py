@@ -31,6 +31,7 @@ models (flipping one step by hand in the port; the norm over the
 exact above.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -112,7 +113,8 @@ def test_plan_heads_matches_the_reference(n_q, n_kv, tp):
 def test_what_is_not_ported_raises():
     """The VLM and audio ids load and build a Model; the serve launcher
     refuses them (ServeEngine prefills tokens alone); the data-parallel
-    trainer and ``backend: shard_map`` still raise (item 12b)."""
+    trainer builds (tests/test_torch_dp_train.py runs it); ``backend:
+    shard_map`` still raises (item 12d)."""
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg = get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
@@ -120,9 +122,9 @@ def test_what_is_not_ported_raises():
         assert Model(cfg.reduced(), device="cpu").cfg == cfg.reduced()
         with pytest.raises(SystemExit):
             tserve.main(["--arch", arch, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tloop.make_dp_train_step(None, None)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    mesh = SimpleNamespace(mesh_dim_names=("data",), shape=(1,))
+    assert callable(tloop.make_dp_train_step(None, None, mesh))
+    with pytest.raises(NotImplementedError, match="item 12d"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
 
 

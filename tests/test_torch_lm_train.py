@@ -33,6 +33,7 @@ import dataclasses
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from pathlib import Path
 
 import jax
@@ -334,11 +335,12 @@ def test_eval_step_matches_the_reference():
 
 def test_what_training_does_not_port_raises():
     """The trainer builds the VLM and audio ids (their Model included);
-    the serve launcher refuses them; the data-parallel trainer and
-    ``backend: shard_map`` still raise (item 12b)."""
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tloop.make_dp_train_step(None, tadam.AdamW(), None)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    the serve launcher refuses them; the data-parallel trainer builds
+    (tests/test_torch_dp_train.py runs it) and ``backend: shard_map``
+    still raises (item 12d)."""
+    mesh = SimpleNamespace(mesh_dim_names=("data",), shape=(1,))
+    assert callable(tloop.make_dp_train_step(None, tadam.AdamW(), mesh))
+    with pytest.raises(NotImplementedError, match="item 12d"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg, model, _, _ = tlaunch.build(arch, reduced=True, device="cpu")

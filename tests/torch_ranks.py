@@ -1,0 +1,247 @@
+"""Rank bodies of the port's distributed tests, run by
+``repro_torch.launch.mesh.spawn_ranks``.
+
+A spawned rank imports the module that holds its body; this one imports
+neither JAX nor the JAX package, so no rank does.  Each body takes numpy
+inputs that the test's main process made and returns numpy results (or
+plain Python values) for the main process to hold against the reference.
+"""
+import hashlib
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives
+from repro_torch.distributed.act_sharding import constrain, use_mesh
+from repro_torch.distributed.pipeline import pipeline_apply
+from repro_torch.distributed.sharding import place
+from repro_torch.launch.mesh import describe, make_mesh
+from repro_torch.optim.grad_compression import (compress_decompress_psum,
+                                                ef_compress_psum,
+                                                init_error_buffers)
+
+#: the pipeline oracle's stage count (tests/test_pipeline.py)
+PIPE_STAGES = 4
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 as float32 (numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device,
+                                            dtype=getattr(torch, dtype))
+
+
+def compress_cases(cases: dict, group, index: int, world: int,
+                   device="cpu") -> dict:
+    """Each case ``(g [W, ...], err [W, ...], dtype)`` through both
+    compress collectives on this rank's row ``index``."""
+    out = {}
+    for name, (g, err, dtype) in cases.items():
+        tg = _tensor(g[index], dtype, device)
+        total = compress_decompress_psum(tg, group)
+        mean, new_err = ef_compress_psum(
+            tg, _tensor(err[index], "float32", device), group, world)
+        out[name] = {"psum": _np(total), "mean": _np(mean),
+                     "err": _np(new_err)}
+    return out
+
+
+def distributed_body(rank: int, inputs: dict) -> dict:
+    """The collectives, placements and pipeline on 8 ranks: a (2, 4)
+    ("pod", "data") mesh, a (2, 2, 2) ("pod", "data", "model") mesh, its
+    (2, 2) ("data", "model") submeshes and the world."""
+    pod4 = make_mesh((2, 4), ("pod", "data"), "cpu")
+    cube = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    coord = dict(zip(pod4.mesh_dim_names, pod4.get_coordinate()))
+    res = {"describe": [describe(pod4), describe(cube)],
+           "coord": cube.get_coordinate(), "jax": "jax" in sys.modules}
+
+    # compression over a 4-rank "data" group (each pod one group on the
+    # same rows) and over all 8 ranks
+    res["compress4"] = compress_cases(inputs["compress4"],
+                                      pod4.get_group("data"),
+                                      coord["data"], 4)
+    res["compress8"] = compress_cases(inputs["compress8"], None, rank, 8)
+
+    # the hierarchical sum on (2, 4): rank r holds rows [4r, 4r + 4)
+    collectives.reset_traffic()
+    for name, x in inputs["hier"].items():
+        local = torch.from_numpy(x[rank])
+        res[f"hier_{name}"] = _np(collectives.hierarchical_psum(local, pod4))
+        res[f"hmean_{name}"] = _np(collectives.hierarchical_pmean(local,
+                                                                  pod4))
+    res["traffic"] = dict(collectives.traffic)
+
+    # placements on (2, 2, 2) and on its (2, 2) ("data", "model") submesh
+    full = torch.from_numpy(inputs["place"])
+    res["placed"] = [_np(place(full, cube, spec).to_local())
+                     for spec in inputs["place_specs"]]
+    square = cube["data", "model"]
+    res["square_coord"] = square.get_coordinate()
+    res["square_placed"] = [_np(place(full, square, spec).to_local())
+                            for spec in inputs["square_specs"]]
+    with use_mesh(cube):
+        replicated = place(full, cube, ())
+        res["constrained"] = _np(constrain(replicated, "btd").to_local())
+        res["plain_unchanged"] = constrain(full, "btd") is full
+    res["no_mesh_unchanged"] = constrain(replicated, "btd") is replicated
+
+    # the pipeline: 4 stages along "data", one pipeline a pod
+    pipe = inputs["pipe"]
+    stage, per = coord["data"], pipe["w"].shape[0] // PIPE_STAGES
+    params = {k: torch.from_numpy(pipe[k][stage * per:(stage + 1) * per])
+              .requires_grad_() for k in ("w", "b")}
+
+    def block_fn(p, h):
+        for w, b in zip(p["w"], p["b"]):
+            h = torch.tanh(h @ w + b)
+        return h
+    xs = torch.from_numpy(pipe["xs"])
+    out = pipeline_apply(pod4, "data", block_fn, params, xs)
+    (out ** 2).sum().backward()
+    res["pipe_out"] = _np(out)
+    res["pipe_grads"] = {k: _np(p.grad) for k, p in params.items()}
+    with torch.no_grad():
+        res["pipe_out_no_grad"] = _np(pipeline_apply(pod4, "data", block_fn,
+                                                     params, xs))
+    return res
+
+
+def failing_body(rank: int) -> None:
+    """Rank 1 raises while rank 0 waits for it in an all-reduce."""
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    time.sleep(0.5)
+    dist.all_reduce(torch.ones(4))
+
+
+def sleeping_body(rank: int) -> None:
+    time.sleep(600)
+
+
+# -- the data-parallel trainer ------------------------------------------------
+
+def _digest(params) -> str:
+    h = hashlib.sha256()
+    for name, p in params.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _scales(model, params, err: dict, batch: dict, mesh) -> dict:
+    """Each leaf's compress scale for this step: max |g + err| over its
+    reference leaf's layers and every rank, over 127."""
+    from repro_torch.models.api import stacked_groups
+    from repro_torch.train import loop
+    _, raw = loop.value_and_grad(model, params, loop.local_rows(batch, mesh))
+    scales = {}
+    for names in stacked_groups(model.cfg, raw):
+        amax = max(torch.max(torch.abs(raw[n].float() + err[n]))
+                   for n in names)
+        collectives.all_reduce(amax, op=dist.ReduceOp.MAX)
+        scales.update(dict.fromkeys(
+            names, float(torch.clamp(amax, min=1e-12)) / 127.0))
+    return scales
+
+
+def dp_train_body(rank: int, arch: str, ref_params: dict, runs: dict,
+                  batch: int, seq: int, steps: int, lr: float) -> dict:
+    """The port's ``make_dp_train_step`` on 4 ranks, from the reference's
+    parameters: each run ``name: (mesh shape, axes, compress)`` takes
+    ``steps`` steps on fresh seeded MarkovCorpus batches.  Returns each
+    run's losses, grad norms, a digest of the params after every step
+    (equal on every rank), final params, what the last step handed to
+    collectives, and the compressed run's step-1 gradients, scales and
+    error buffers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.models.api import Model, params_from_jax
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import loop
+
+    cfg = get_config(arch).reduced()
+    model = Model(cfg, device="cpu")
+    out = {"jax": "jax" in sys.modules}
+    for name, (shape, axes, compress) in runs.items():
+        mesh = make_mesh(shape, axes, "cpu")
+        params = params_from_jax(cfg, ref_params, device="cpu").trainable_()
+        opt = AdamW(lr=lr)
+        opt_state, err = opt.init(params), init_error_buffers(params)
+        corpus = MarkovCorpus(cfg.vocab_size, seed=0)
+        step = loop.make_dp_train_step(model, opt, mesh, compress=compress)
+        run = {"loss": [], "grad_norm": [], "digest": []}
+        for i in range(steps):
+            b = corpus.batch(batch, seq)
+            if compress and i == 0:
+                (_, grads), _ = loop._dp_call(mesh, model, params, err, b,
+                                              True)
+                run["step1_grads"] = {n: _np(g) for n, g in grads.items()}
+                run["step1_scales"] = _scales(model, params, err, b, mesh)
+            collectives.reset_traffic()
+            params, opt_state, err, m = step(params, opt_state, err, b)
+            run["traffic"] = dict(collectives.traffic)
+            if compress and i == 0:
+                run["err1"] = {n: _np(e) for n, e in err.items()}
+            run["loss"].append(float(m["loss"]))
+            run["grad_norm"].append(float(m["grad_norm"]))
+            run["digest"].append(_digest(params))
+        run["params"] = {n: _np(p) for n, p in params.named_parameters()}
+        out[name] = run
+    return out
+
+
+# -- on the card: two gloo ranks sharing it --------------------------------------
+
+def card_compress_body(rank: int, cases: dict) -> dict:
+    """Both compress collectives on CUDA tensors, then on CPU tensors, in
+    one gloo group."""
+    world = dist.get_world_size()
+    return {device: compress_cases(cases, None, rank, world, device)
+            for device in ("cuda", "cpu")}
+
+
+def card_dp_step_body(rank: int, arch: str, batch: int, seq: int) -> dict:
+    """One flat ``make_dp_train_step`` step (SGD, so params move by the
+    reduced gradient) of reduced ``arch`` with remat on, exact and
+    compressed, on the card and on the CPU from the same weights; the
+    compress scales, and the card's launch counts (of the step alone)."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import MarkovCorpus
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import SGD
+    from repro_torch.train import loop
+
+    cfg = get_config(arch).reduced(remat="full")
+    weights = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    b = MarkovCorpus(cfg.vocab_size, seed=0).batch(batch, seq)
+    out = {}
+    for device in ("cuda", "cpu"):
+        mesh = make_mesh((dist.get_world_size(),), ("data",), device)
+        model = Model(cfg, device=device)
+        for compress in (False, True):
+            params = copy.deepcopy(weights).to(device).trainable_()
+            opt = SGD(lr=0.1)
+            err = init_error_buffers(params)
+            scales = _scales(model, params, err, b, mesh)
+            dispatch.reset_launch_counts()
+            params, _, err, m = loop.make_dp_train_step(
+                model, opt, mesh, compress=compress)(
+                    params, opt.init(params), err, b)
+            out[device, compress] = {
+                "scales": scales,
+                "loss": float(m["loss"]),
+                "params": {n: _np(p) for n, p in params.named_parameters()},
+                "err": {n: _np(e) for n, e in err.items()},
+                "counts": dict(dispatch.launch_counts),
+                "digest": _digest(params.to("cpu"))}
+    return out
