@@ -240,6 +240,27 @@ Phases, in order; any failure exits non-zero:
                   PIPE_GRAD_RTOL of the sequential run on the card;
               (d) compress_decompress_psum and ef_compress_psum on CUDA
                   tensors bit-identical to the same ranks on CPU tensors
+ 14. PIM-ML over ranks  the PIM system with backend="shard_map": its
+              cores spread over PIM_RANKS ranks that share the card
+              (gloo), 1024 of the 2048 a rank, at phases 4-5's sizes and
+              on their data (generated once by this process after phase
+              13, written under build/phase14 and memory-mapped by every
+              rank; removed after): LIN int32 under fabric, host and
+              hierarchical, LOG int32_lut_wram, KME int16, DTR and EMB
+              int32 D=8 under fabric, each with the rank's launch counts
+              zeroed just before it and checked exactly after; the model
+              state equal on both ranks after every step (every flush
+              for EMB, whose tables each rank holds a block of); each
+              result bit-identical to this process's one-process card fit
+              of phases 4-5 (the KME inertia, a float32 sum in another
+              order, within KME_INERTIA_RTOL); kernels 1-6 against their
+              plain versions at the rank-local shapes; each fit timed
+              again (ms/iteration beside phase 5's) and a third time
+              with every collective synchronised and timed (the cross-
+              rank reduce's ms and share) with collectives.traffic; then
+              PIM_SMALL_RANKS ranks over PIM_SMALL_CORES cores, whose
+              hierarchical groups of 8 straddle ranks, against the same
+              fits in this process, bit for bit
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -255,6 +276,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -372,6 +394,27 @@ PIPE_FWD_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
 #: (d)'s leaf: granite's wk at full width
 DP_COMPRESS_SHAPE = (4096, 1024)
 DP_TIMEOUT = 600.0
+
+#: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
+#: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
+#: version, data, reduce), each at phase 4-5's parameters; the KME inertia
+#: against the one-process fit's (tests/test_torch_kmeans.py's INERTIA_RTOL);
+#: then PIM_SMALL_RANKS ranks over PIM_SMALL_CORES cores (6 a rank:
+#: hierarchical groups of 8 straddle ranks 0-1 and 2-3) at small sizes
+PIM_RANKS, PIM_TIMEOUT = 2, 600.0
+PIM_FITS = {
+    "lin int32 fabric": ("linreg", "int32", "lin", "fabric"),
+    "lin int32 host": ("linreg", "int32", "lin", "host"),
+    "lin int32 hierarchical": ("linreg", "int32", "lin", "hierarchical"),
+    "log int32_lut_wram fabric": ("logreg", "int32_lut_wram", "log",
+                                  "fabric"),
+    "kme int16 fabric": ("kmeans", "int16", "kme", "fabric"),
+    "dtr fabric": ("dtree", None, "dtr", "fabric"),
+    "emb int32 D=8 fabric": ("emb", "int32", "emb", "fabric"),
+}
+KME_INERTIA_RTOL = 1e-6
+PIM_SMALL_RANKS, PIM_SMALL_CORES, PIM_SMALL_SAMPLES = 4, 24, 24_000
+PIM_DATA_DIR = Path(__file__).resolve().parent / "build" / "phase14"
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
@@ -848,26 +891,16 @@ def check_emb_kernels(torch, dev, make_system) -> tuple[int, int, dict]:
     return err_g, err_s, main
 
 
-def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
-                     ) -> tuple[dict, list, str]:
-    """EMB's main path at the Netflix matrix's size: every fit of
-    EMB_FITS through the workload's ``fit_steps`` with the launch counts
-    zeroed just before it and checked just after; then the deferred D=8
-    int32 fit fused (EMB_FUSE steps a chunk, one CUDA graph replay each),
-    against the serial one.  Returns the summed launch counts (the
-    serial fits'), a profiler summary of 50 eager int32 steps and one of
-    a fused fit."""
-    from repro_torch.data.synthetic import make_recsys
-    n_emb, avail = host_samples(EMB_SIZES, EMB_HOST_BYTES_PER_SAMPLE)
-    say(f"host MemAvailable {avail / 2 ** 30:.1f} GiB: EMB runs at {n_emb:,}"
-        f" ratings (the Netflix matrix's {EMB_SIZES[0]:,} need "
-        f"~{EMB_SIZES[0] * EMB_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB to "
-        f"generate; taken when under half of MemAvailable)")
-    t0 = time.perf_counter()
-    X, y = make_recsys(n_emb, n_users=EMB_USERS, n_items=EMB_ITEMS,
-                       dim=EMB_DIM, seed=SEED)
-    say(f"data: {n_emb:,} EMB ratings ({EMB_USERS:,} users x "
-        f"{EMB_ITEMS:,} items) in {time.perf_counter() - t0:.1f} s")
+def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str,
+                     X, y) -> tuple[dict, list, str, dict]:
+    """EMB's main path at the Netflix matrix's size (the ratings ``X``,
+    ``y``): every fit of EMB_FITS through the workload's ``fit_steps``
+    with the launch counts zeroed just before it and checked just after;
+    then the deferred D=8 int32 fit fused (EMB_FUSE steps a chunk, one
+    CUDA graph replay each), against the serial one.  Returns the summed
+    launch counts (the serial fits'), a profiler summary of 50 eager int32
+    steps and one of a fused fit, and each serial fit's model and seconds
+    a step."""
     system = make_system("pim", n_cores=N_CORES, device="cuda")
     ds = system.put(X, y)
     wl = get_workload("emb")
@@ -875,7 +908,7 @@ def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
                 frac_bits=EMB_FRAC_BITS, n_users=EMB_USERS, n_items=EMB_ITEMS,
                 record_every=EMB_ITERS // 4, seed=SEED)
     totals: dict = {}
-    serial = {}
+    serial, step_s = {}, {}
     for name, params in EMB_FITS:
         spec = wl.spec(**base, **params)
         dispatch.reset_launch_counts()
@@ -899,6 +932,7 @@ def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
             totals[k] = totals.get(k, 0) + v
         dt = statistics.median(steps[1:EMB_ITERS])
         mean = statistics.mean(steps[1:EMB_ITERS])
+        step_s[name] = dt
         say(f"fit: emb     {name:<21} {dt * 1e3:.3f} ms/step (median of "
             f"steps 2-{EMB_ITERS}; mean {mean * 1e3:.3f}), "
             f"{EMB_BATCH / dt:.4g} samples/s; setup and first step "
@@ -913,7 +947,8 @@ def emb_fits_on_card(torch, make_system, get_workload, dispatch, smi: str
     fused_profile = emb_fused_on_card(torch, wl, ds, base, dispatch,
                                       serial["int32 deferred D=8"], smi)
     del X, y, ds
-    return totals, profile, fused_profile
+    return totals, profile, fused_profile, {
+        name: (serial[name], step_s[name]) for name in serial}
 
 
 def emb_fused_on_card(torch, wl, ds, base: dict, dispatch, serial, smi: str
@@ -4198,6 +4233,437 @@ def check_dp_small(small: list) -> dict:
     return {"pod_rel": rel, "pipe_fwd_err": fwd, "pipe_grad_err": grad}
 
 
+# -- phase 14: PIM-ML over ranks sharing the card ------------------------------
+
+def digest(*arrays) -> str:
+    """A sha256 of arrays' dtypes, shapes and bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def pim_params(workload: str, small: bool = False) -> dict:
+    """Phase 4-5's parameters of a workload's fit (``small``: phase 14's
+    reduced four-rank case)."""
+    if workload in ("linreg", "logreg"):
+        return {"n_iters": ITERS}
+    if workload == "kmeans":
+        return {"n_clusters": KME_K, "n_init": 1, "max_iter": ITERS,
+                "tol": 0.0}
+    if workload == "dtree":
+        return {"max_depth": 6 if small else DTR_DEPTH}
+    return dict(n_iters=EMB_CHECK_ITERS if small else EMB_ITERS,
+                batch=EMB_BATCH, dim=EMB_DIM, lr=EMB_LR,
+                frac_bits=EMB_FRAC_BITS, seed=SEED, flush_every=EMB_FLUSH,
+                **({} if small else dict(n_users=EMB_USERS,
+                                         n_items=EMB_ITEMS,
+                                         record_every=EMB_ITERS // 4)))
+
+
+def model_summary(workload: str, m) -> dict:
+    """What phase 14 compares of a fit's model: large arrays as digests."""
+    if workload in ("linreg", "logreg"):
+        return {"w": digest(m.w), "b": float(m.b)}
+    if workload == "kmeans":
+        return {"centroids": digest(m.centroids), "labels": digest(m.labels),
+                "n_iters": int(m.n_iters), "inertia": float(m.inertia)}
+    if workload == "dtree":
+        return {"tree": digest(m.feature, m.threshold, m.left, m.right,
+                               m.leaf_class, m.depth),
+                "n_nodes": int(m.n_nodes)}
+    return {"tables": digest(m.user_raw, m.item_raw),
+            "history": [tuple(h) for h in m.history],
+            "n_flushes": int(m.n_flushes)}
+
+
+def same_summary(got: dict, want: dict) -> bool:
+    """Equal summaries; a KME inertia (a float32 sum over the cores in
+    another order over ranks) within KME_INERTIA_RTOL."""
+    if "inertia" in want:
+        got, want = dict(got), dict(want)
+        gi, wi = got.pop("inertia"), want.pop("inertia")
+        if abs(gi - wi) > KME_INERTIA_RTOL * abs(wi):
+            return False
+    return got == want
+
+
+def _step_state(gen, tick) -> dict:
+    """The state a fit holds after a step: its snapshot's arrays, or, for
+    a tree (not resumable), the arrays of the tree grown so far."""
+    if getattr(tick, "resumable", False):
+        return tick.snapshot()["arrays"]
+    while getattr(gen, "gi_yieldfrom", None) is not None:
+        gen = gen.gi_yieldfrom
+    local = gen.gi_frame.f_locals
+    return {k: local[k] for k in ("feature", "threshold", "left", "right",
+                                  "leaf_class", "depth")}
+
+
+def ranked_fit(torch, system, ds, workload: str, spec, every: int = 1):
+    """One fit through ``fit_steps`` with the digest of the model state
+    after every ``every``-th step and after the last; returns the model,
+    the digests and the wall seconds to a synchronize."""
+    from repro_torch.api import get_workload
+    gen = get_workload(workload).fit_steps(ds, spec)
+    digests, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        try:
+            tick = next(gen)
+        except StopIteration as stop:
+            torch.cuda.synchronize()
+            return stop.value.model, digests, time.perf_counter() - t0
+        steps += int(tick)
+        if steps % every == 0:
+            arrays = _step_state(gen, tick)
+            digests.append(digest(*(arrays[k] for k in sorted(arrays))))
+
+
+def per_iteration(workload: str, steps: list, n_iters: int) -> float:
+    """Seconds an iteration, as phase 5 reports it: the whole fit over its
+    iterations (LIN, LOG), the median of iterations 2-N (KME, EMB), the
+    mean round (DTR)."""
+    if workload in ("linreg", "logreg"):
+        return sum(steps) / n_iters
+    if workload == "dtree":
+        return sum(steps) / len(steps)
+    return statistics.median(steps[1:n_iters])
+
+
+def pim_rank_fits(torch, system_for, data: dict, fits: dict, small: bool
+                  ) -> dict:
+    """Phase 14's fits on one rank: each with the launch counts zeroed
+    just before it and read just after, the state's digests, then timed
+    again plain and with every collective synchronised and timed."""
+    from repro_torch.api import get_workload
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    out, systems, views = {}, {}, {}
+    for name, (workload, version, key, reduce) in fits.items():
+        if reduce not in systems:
+            systems[reduce] = system_for(reduce)
+        system = systems[reduce]
+        if (reduce, key) not in views:
+            views[reduce, key] = system.put(*data[key])
+        ds = views[reduce, key]
+        wl = get_workload(workload)
+        spec = wl.spec(version, **pim_params(workload, small))
+        every = EMB_FLUSH if workload == "emb" else 1
+        dispatch.reset_launch_counts()
+        model, digests, first_s = ranked_fit(torch, system, ds, workload,
+                                             spec, every)
+        counts = dict(dispatch.launch_counts)
+        rec = {"model": model_summary(workload, model), "digests": digests,
+               "counts": counts, "first_s": first_s,
+               "rounds": tree_rounds(model) if workload == "dtree" else 0,
+               "n_flushes": getattr(model, "n_flushes", 0)}
+        n_iters = rec["n_iters"] = (
+            rec["rounds"] if workload == "dtree"
+            else spec.params["n_iters"] if workload == "emb" else ITERS)
+        for timing in (False, True):
+            system.ranks.timing, system.ranks.seconds = timing, 0.0
+            collectives.reset_traffic()
+            torch.cuda.synchronize()
+            steps, _ = step_times(wl.fit_steps(ds, spec))
+            torch.cuda.synchronize()
+            if timing:
+                rec["reduce_s"] = system.ranks.seconds / n_iters
+                rec["reduce_share"] = system.ranks.seconds / sum(steps)
+                rec["timed_s"] = per_iteration(workload, steps, n_iters)
+            else:
+                rec["s"] = per_iteration(workload, steps, n_iters)
+                rec["traffic"] = dict(collectives.traffic)
+        system.ranks.timing = False
+        rec["block"] = (system.ranks.start, system.ranks.stop)
+        out[name] = rec
+    return out, views
+
+
+def pim_rank_kernels(torch, views: dict, system) -> dict:
+    """Kernels 1-6 on this rank's own shards (the rank-local core count
+    and shapes), each against its plain version once."""
+    from repro_torch.core.lut import build_sigmoid_lut
+    from repro_torch.kernels.gini_split import (gini_split_cuda,
+                                                gini_split_plain)
+    from repro_torch.kernels.kmeans_assign import (kmeans_assign_cuda,
+                                                   kmeans_assign_plain)
+    from repro_torch.kernels.lut_activation import (lut_sigmoid_cuda,
+                                                    lut_sigmoid_plain)
+    from repro_torch.kernels.quant_matmul import (fx_matvec_cuda,
+                                                  fx_matvec_plain)
+    from repro_torch.kernels.sparse_gather import (
+        emb_gather_cuda, emb_gather_plain, emb_scatter_add_cuda,
+        emb_scatter_add_plain)
+    rng = np.random.RandomState(SEED + system.ranks.rank)
+    dev = system.device
+    out = {}
+
+    def check(name, outs, refs, shape):
+        out[name] = {"err": same(torch, outs, refs), "shape": list(shape)}
+
+    x = views["fabric", "lin"].gd_view("int32")[0]
+    w = torch.from_numpy(rng.randint(-(4 << 10), 4 << 10, x.shape[-1])
+                         .astype(np.int32)).to(dev)
+    check("fx_matvec", [fx_matvec_cuda(x, w, 10)],
+          [fx_matvec_plain(x, w, 10)], x.shape)
+    z = fx_matvec_plain(views["fabric", "log"].gd_view("int32")[0], w, 10)
+    lut = build_sigmoid_lut(device=dev)
+    for placement in ("wram", "mram"):
+        check(f"lut_sigmoid {placement}",
+              [lut_sigmoid_cuda(z, lut, placement)],
+              [lut_sigmoid_plain(z, lut)], z.shape)
+    kv = views["fabric", "kme"].kmeans_view("int16")
+    c = torch.from_numpy(kv.host_q[rng.choice(kv.host_q.shape[0], KME_K,
+                                              replace=False)]).to(dev)
+    check("kmeans_assign", kmeans_assign_cuda(kv.shards, c),
+          kmeans_assign_plain(kv.shards, c), kv.shards.shape)
+    xs, ys, valid = views["fabric", "dtr"].tree_view()
+    n_leaves = 2 ** (DTR_DEPTH + 2)
+    leaf = torch.from_numpy(rng.randint(0, 1 << 10, tuple(valid.shape))
+                            .astype(np.int32)).to(dev)
+    th = torch.from_numpy(rng.randn(n_leaves, xs.shape[-1])
+                          .astype(np.float32)).to(dev)
+    check("gini_counts", gini_split_cuda(xs, ys, leaf, th, 2),
+          gini_split_plain(xs, ys, leaf, th, 2), xs.shape)
+    t = system.put_table(np.zeros((EMB_USERS, EMB_DIM), np.float32))
+    tab, ids = t.view("int32", EMB_FRAC_BITS)
+    tab = torch.from_numpy(rng.randint(INT32_MIN, INT32_MAX, tab.shape,
+                                       np.int64).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(zipf_ids(rng, EMB_BATCH, EMB_USERS)).to(dev)
+    upd = torch.from_numpy(rng.randint(INT32_MIN, INT32_MAX,
+                                       (EMB_BATCH, EMB_DIM), np.int64)
+                           .astype(np.int32)).to(dev)
+    index = t.gather_index()
+    check("emb_gather", [emb_gather_cuda(tab, ids, idx, index)],
+          [emb_gather_plain(tab, ids, idx, index)], tab.shape)
+    check("emb_scatter_add", [emb_scatter_add_cuda(tab, ids, idx, upd)],
+          [emb_scatter_add_plain(tab, ids, idx, upd)], tab.shape)
+    return out
+
+
+def pim_rank(rank: int, files: dict) -> dict:
+    """Phase 14 on one of PIM_RANKS ranks: the PIM_FITS over N_CORES
+    cores spread over the ranks, on the memory-mapped data of phases
+    4-5, then kernels 1-6 at the rank-local shapes."""
+    import torch
+    from repro_torch.api import make_system
+    data = {}
+    for key in ("lin", "log", "kme", "dtr", "emb"):
+        # copy-on-write maps: the views' torch.from_numpy wants a
+        # writable array (nothing writes them)
+        X = np.load(files[key + "_x"], mmap_mode="c")
+        y = (np.load(files[key + "_y"], mmap_mode="c")
+             if key + "_y" in files else None)
+        data[key] = (X, y)
+
+    def system_for(reduce):
+        return make_system("pim", n_cores=N_CORES, reduce=reduce,
+                           device="cuda", backend="shard_map")
+    fits, views = pim_rank_fits(torch, system_for, data, PIM_FITS, False)
+    system = system_for("fabric")
+    kernels = pim_rank_kernels(torch, views, system)
+    return {"fits": fits, "kernels": kernels, "jax": "jax" in sys.modules,
+            "block": (system.ranks.start, system.ranks.stop),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def pim_small_data() -> dict:
+    """The reduced four-rank case's data (made in every process alike)."""
+    from repro_torch.data.synthetic import (make_blobs, make_classification,
+                                            make_linear_dataset,
+                                            make_recsys)
+    n = PIM_SMALL_SAMPLES
+    return {"lin": make_linear_dataset(n, N_FEATURES, seed=SEED)[:2],
+            "log": make_classification(n, N_FEATURES, seed=SEED),
+            "kme": (make_blobs(n, N_FEATURES, centers=KME_K,
+                               seed=SEED)[0], None),
+            "dtr": make_classification(2 * n, N_FEATURES, seed=SEED,
+                                       class_sep=1.4),
+            "emb": make_recsys(EMB_CHECK, n_users=600, n_items=300,
+                               dim=EMB_DIM, seed=SEED)}
+
+
+#: the reduced case's fits: every reduce hierarchical (groups of 8)
+PIM_SMALL_FITS = {
+    "lin int32 hierarchical": ("linreg", "int32", "lin", "hierarchical"),
+    "log int32_lut_wram hierarchical": ("logreg", "int32_lut_wram", "log",
+                                        "hierarchical"),
+    "kme int16 hierarchical": ("kmeans", "int16", "kme", "hierarchical"),
+    "dtr hierarchical": ("dtree", None, "dtr", "hierarchical"),
+    "emb int32 D=8 hierarchical": ("emb", "int32", "emb", "hierarchical"),
+}
+
+
+def pim_small_rank(rank: int) -> dict:
+    """Phase 14's reduced case on one of PIM_SMALL_RANKS ranks."""
+    import torch
+    from repro_torch.api import make_system
+    fits, _ = pim_rank_fits(
+        torch, lambda reduce: make_system(
+            "pim", n_cores=PIM_SMALL_CORES, reduce=reduce, device="cuda",
+            backend="shard_map"), pim_small_data(), PIM_SMALL_FITS, True)
+    return {"fits": fits, "jax": "jax" in sys.modules}
+
+
+def pim_data(n_dtr: int, n_emb: int) -> dict:
+    """Phases 4-5's datasets, made once here for them and for phase 14,
+    and written as .npy files under PIM_DATA_DIR for phase 14's ranks."""
+    from repro_torch.data.synthetic import (make_blobs, make_classification,
+                                            make_linear_dataset,
+                                            make_recsys)
+    t0 = time.perf_counter()
+    data = {"lin": make_linear_dataset(N_SAMPLES, N_FEATURES, seed=SEED)[:2],
+            "log": make_classification(N_SAMPLES, N_FEATURES, seed=SEED)}
+    say(f"data: {N_SAMPLES}x{N_FEATURES} LIN and LOG datasets in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data["kme"] = (make_blobs(KME_SAMPLES, N_FEATURES, centers=KME_K,
+                              seed=SEED)[0], None)
+    say(f"data: {KME_SAMPLES}x{N_FEATURES} KME blobs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data["dtr"] = make_classification(n_dtr, N_FEATURES, seed=SEED,
+                                      class_sep=1.4)
+    say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data["emb"] = make_recsys(n_emb, n_users=EMB_USERS, n_items=EMB_ITEMS,
+                              dim=EMB_DIM, seed=SEED)
+    say(f"data: {n_emb:,} EMB ratings ({EMB_USERS:,} users x "
+        f"{EMB_ITEMS:,} items) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    PIM_DATA_DIR.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for key, (X, y) in data.items():
+        for part, a in (("x", X), ("y", y)):
+            if a is not None:
+                path = PIM_DATA_DIR / f"{key}_{part}.npy"
+                np.save(path, a)
+                files[f"{key}_{part}"] = str(path)
+    size = sum(os.path.getsize(p) for p in files.values())
+    say(f"data: {size / 2 ** 30:.2f} GiB written under {PIM_DATA_DIR} for "
+        f"phase 14's ranks in {time.perf_counter() - t0:.1f} s")
+    data["files"] = files
+    return data
+
+
+def pim_on_card(torch, data: dict, smi: str) -> dict:
+    """Phase 14: the PIM system over PIM_RANKS ranks sharing the card,
+    then the reduced four-rank case against this process's card fits.
+    Returns the ranks' records (their fits are held against phases 4-5's
+    one-process fits by check_pim_ranks)."""
+    import shutil
+    from repro_torch.api import get_workload, make_system
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    t_phase = time.perf_counter()
+    say(f"pim: {PIM_RANKS} ranks share the card over "
+        f"{backend_for('cuda', PIM_RANKS)}, {N_CORES // PIM_RANKS} of "
+        f"{N_CORES} PIM cores a rank")
+    try:
+        ranks = spawn_ranks(pim_rank, PIM_RANKS, device="cuda",
+                            timeout=PIM_TIMEOUT, args=(data["files"],))
+    finally:
+        shutil.rmtree(PIM_DATA_DIR, ignore_errors=True)
+    if any(r["jax"] for r in ranks):
+        fail("pim: a rank imported JAX")
+    blocks = [r["block"] for r in ranks]
+    if blocks != [(0, N_CORES // 2), (N_CORES // 2, N_CORES)]:
+        fail(f"pim: the ranks own cores {blocks}")
+    for name, (workload, *_rest) in PIM_FITS.items():
+        recs = [r["fits"][name] for r in ranks]
+        check_pim_counts(name, workload, recs)
+    for name in ranks[0]["kernels"]:
+        k = [r["kernels"][name] for r in ranks]
+        say(f"pim: {name} == plain at the rank-local shapes "
+            f"{[x['shape'] for x in k]} (max abs err "
+            f"{max(x['err'] for x in k)})")
+    t_small = time.perf_counter()
+    small = spawn_ranks(pim_small_rank, PIM_SMALL_RANKS, device="cuda",
+                        timeout=PIM_TIMEOUT)
+    sdata = pim_small_data()
+    for name, (workload, version, key, reduce) in PIM_SMALL_FITS.items():
+        recs = [r["fits"][name] for r in small]
+        check_pim_counts(name, workload, recs)
+        system = make_system("pim", n_cores=PIM_SMALL_CORES, reduce=reduce,
+                             device="cuda")
+        wl = get_workload(workload)
+        want = model_summary(workload, wl.fit(
+            system.put(*sdata[key]),
+            wl.spec(version, **pim_params(workload, True))).model)
+        if recs[0]["model"] != want:
+            fail(f"pim: {name} over {PIM_SMALL_RANKS} ranks != the "
+                 f"one-process card fit")
+        say(f"pim: {name} on {PIM_SMALL_CORES} cores over "
+            f"{PIM_SMALL_RANKS} ranks (blocks "
+            f"{[r['fits'][name]['block'] for r in small]}, groups of 8 "
+            f"across ranks 0-1 and 2-3) == the one-process card fit, bit "
+            f"for bit; launch counts a rank {recs[0]['counts']}")
+    say(f"pim: the {PIM_SMALL_RANKS}-rank case in "
+        f"{time.perf_counter() - t_small:.1f} s")
+    wall = time.perf_counter() - t_phase
+    say(f"pim: phase 14 in {wall:.1f} s on {smi}")
+    return {"ranks": ranks, "small": small, "wall_s": wall}
+
+
+def check_pim_counts(name: str, workload: str, recs: list) -> None:
+    """Every rank ran the same model state after every step and launched
+    exactly what its fit needs."""
+    first = recs[0]
+    if not first["digests"] or any(r["digests"] != first["digests"]
+                                   or r["model"] != first["model"]
+                                   for r in recs):
+        fail(f"pim: {name}: the ranks' model states differ")
+    if workload in ("linreg", "logreg"):
+        want = {"fx_matvec": ITERS}
+        if workload == "logreg":
+            want["lut_sigmoid"] = ITERS
+    elif workload == "kmeans":
+        want = {"kmeans_assign": ITERS}
+    elif workload == "dtree":
+        want = {"gini_split": first["rounds"]}
+    else:
+        if first["n_flushes"] != first["n_iters"] // EMB_FLUSH:
+            fail(f"pim: {name}: {first['n_flushes']} flushes")
+        want = {"emb_gather": 2 * first["n_iters"],
+                "emb_scatter_add": 2 * first["n_flushes"]}
+    for r in recs:
+        if r["counts"] != want:
+            fail(f"pim: {name}: launch counts {r['counts']} != {want}")
+
+
+def check_pim_ranks(pim: dict, one_process: dict, smi: str) -> None:
+    """Phase 14's fits over ranks against phases 4-5's one-process card
+    fits (``one_process``: each PIM_FITS workload's model summary and its
+    ms per iteration), and the lines with their times."""
+    ranks = pim["ranks"]
+    for name, (workload, version, key, reduce) in PIM_FITS.items():
+        recs = [r["fits"][name] for r in ranks]
+        want, one_s = one_process[workload]
+        if not same_summary(recs[0]["model"], want):
+            fail(f"pim: {name} over {PIM_RANKS} ranks != the one-process "
+                 f"card fit")
+        r = recs[0]
+        unit = {"dtree": "round", "emb": "step"}.get(workload, "iteration")
+        say(f"fit over ranks: {name:<26} {r['s'] * 1e3:.3f} ms/{unit} "
+            f"(rank 0; rank 1 {recs[1]['s'] * 1e3:.3f}; one process, phase "
+            f"5: {one_s * 1e3:.3f}); with every "
+            f"collective synchronised and timed {r['timed_s'] * 1e3:.3f} "
+            f"ms/{unit}, of which the cross-rank reduce "
+            f"{r['reduce_s'] * 1e3:.3f} ms ({100 * r['reduce_share']:.1f}%); "
+            f"traffic a rank {r['traffic']}; launch counts a rank "
+            f"{r['counts']}; the first fit (views included) "
+            f"{r['first_s']:.2f} s; == the one-process card fit, and both "
+            f"ranks' state equal after every "
+            f"{'flush' if workload == 'emb' else 'step'} "
+            f"({len(r['digests'])} checks) ({N_CORES} cores over "
+            f"{PIM_RANKS} ranks, on {smi})")
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -4215,8 +4681,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.core.lut import build_sigmoid_lut
     from repro_torch.core.metrics import adjusted_rand_index
-    from repro_torch.data.synthetic import (make_blobs, make_classification,
-                                            make_linear_dataset)
+    from repro_torch.data.synthetic import make_blobs, make_classification
     from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.gini_split import (gini_split_cuda,
                                                 gini_split_plain)
@@ -4260,6 +4725,16 @@ def main() -> int:
     # -- 13. data-parallel training over ranks sharing the card -------------
     # first, while this process holds nothing on the card
     dp = dp_on_card(torch, smi)
+
+    # -- 14. PIM-ML over ranks sharing the card, on phases 4-5's data -------
+    # (their fits are held against phases 4-5's one-process fits there)
+    n_emb, mem_avail = host_samples(EMB_SIZES, EMB_HOST_BYTES_PER_SAMPLE)
+    say(f"host MemAvailable {mem_avail / 2 ** 30:.1f} GiB: EMB runs at "
+        f"{n_emb:,} ratings (the Netflix matrix's {EMB_SIZES[0]:,} need "
+        f"~{EMB_SIZES[0] * EMB_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB to "
+        f"generate; taken when under half of MemAvailable)")
+    pim_sets = pim_data(n_dtr, n_emb)
+    pim = pim_on_card(torch, pim_sets, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
     rng = np.random.RandomState(SEED)
@@ -4307,11 +4782,7 @@ def main() -> int:
     err_mm, err_fa = check_lm_kernels(torch, dev, gen, lm_prompt_lens)
 
     # -- 4. the main path at full size ---------------------------------------
-    t0 = time.perf_counter()
-    X, y, _ = make_linear_dataset(N_SAMPLES, N_FEATURES, seed=SEED)
-    Xc, yc = make_classification(N_SAMPLES, N_FEATURES, seed=SEED)
-    say(f"data: {N_SAMPLES}x{N_FEATURES} LIN and LOG datasets in "
-        f"{time.perf_counter() - t0:.1f} s")
+    (X, y), (Xc, yc) = pim_sets.pop("lin"), pim_sets.pop("log")
     plan = ([("linreg", v) for v in LIN_VERSIONS]
             + [("logreg", v) for v in LOG_VERSIONS])
     results = {}
@@ -4358,10 +4829,7 @@ def main() -> int:
     say(f"TransferStats equal on card and CPU: {results['cuda', 'stats']}")
 
     # KME at the paper's strong-scaling size, on the card
-    t0 = time.perf_counter()
-    Xk, _, _ = make_blobs(KME_SAMPLES, N_FEATURES, centers=KME_K, seed=SEED)
-    say(f"data: {KME_SAMPLES}x{N_FEATURES} KME blobs in "
-        f"{time.perf_counter() - t0:.1f} s")
+    Xk = pim_sets.pop("kme")[0]
     kme_system = make_system("pim", n_cores=N_CORES, device="cuda")
     kme_ds = kme_system.put(Xk)
     dispatch.reset_launch_counts()
@@ -4398,11 +4866,7 @@ def main() -> int:
     del Xk, view, sums, wide, narrow
 
     # DTR at the largest size the host can generate, on the card
-    t0 = time.perf_counter()
-    Xd, yd = make_classification(n_dtr, N_FEATURES, seed=SEED,
-                                 class_sep=1.4)
-    say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
-        f"{time.perf_counter() - t0:.1f} s")
+    Xd, yd = pim_sets.pop("dtr")
     dtr_system = make_system("pim", n_cores=N_CORES, device="cuda")
     dtr_ds = dtr_system.put(Xd, yd)
     dispatch.reset_launch_counts()
@@ -4469,8 +4933,9 @@ def main() -> int:
     say(f"TransferStats equal on card and CPU: {gs}")
 
     # EMB at the Netflix matrix's size, on the card; then card == CPU
-    emb_counts, emb_profile, emb_fused_profile = emb_fits_on_card(
-        torch, make_system, get_workload, dispatch, smi)
+    emb_counts, emb_profile, emb_fused_profile, emb_serial = \
+        emb_fits_on_card(torch, make_system, get_workload, dispatch, smi,
+                         *pim_sets.pop("emb"))
     emb_card_equals_cpu(make_system, make_estimator)
 
     # qwen3-8b served at full width through Model and ServeEngine; then
@@ -4606,6 +5071,7 @@ def main() -> int:
             f" on {smi}")
     del flush, km, gi
 
+    one_s = {}       # seconds an iteration of the fits phase 14 repeats
     for workload, version in plan:
         ds = lin_ds if workload == "linreg" else log_ds
         make_estimator(workload, version=version, n_iters=1,
@@ -4615,7 +5081,7 @@ def main() -> int:
         make_estimator(workload, version=version, n_iters=ITERS,
                        system=system).fit(ds)
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / ITERS
+        dt = one_s[workload, version] = (time.perf_counter() - t0) / ITERS
         say(f"fit: {workload:<7} {version:<15} {dt * 1e3:.3f} ms/iteration, "
             f"{N_SAMPLES / dt:.4g} samples/s ({N_CORES} cores, on {smi})")
     kme_wl, dtr_wl = get_workload("kmeans"), get_workload("dtree")
@@ -4623,7 +5089,7 @@ def main() -> int:
     for version in ("int16", "fp32"):          # views resident since phase 4
         steps, _ = step_times(kme_wl.fit_steps(
             kme_ds, kme_wl.spec(version, **kme_params)))
-        dt = statistics.median(steps[1:ITERS])
+        dt = one_s["kmeans", version] = statistics.median(steps[1:ITERS])
         say(f"fit: kmeans  {version:<15} {dt * 1e3:.3f} ms/iteration "
             f"(median of iterations 2-{ITERS}), {KME_SAMPLES / dt:.4g} "
             f"samples/s; the first step with the init draw "
@@ -4632,7 +5098,7 @@ def main() -> int:
     g_rounds, (steps, _) = gini_round_times(
         torch, dispatch, lambda: step_times(dtr_wl.fit_steps(
             dtr_ds, dtr_wl.spec(max_depth=DTR_DEPTH))))
-    dt = sum(steps) / len(steps)
+    dt = one_s["dtree", None] = sum(steps) / len(steps)
     say(f"fit: dtree   max_depth {DTR_DEPTH:<5} {dt * 1e3:.3f} ms/round "
         f"(mean of {len(steps)}), {n_dtr / dt:.4g} samples/s per round; "
         f"rounds {' '.join(f'{t * 1e3:.1f}' for t in steps)} ms "
@@ -4650,6 +5116,22 @@ def main() -> int:
         say(f"profile: {name}: " + device_profile(torch, fit))
     say(f"profile: EMB int32 eager, 50 steps at the Netflix size: "
         f"{emb_profile}")
+
+    # -- 14, checked: the fits over ranks against the one-process ones -------
+    def gd(version):
+        w, b = results["cuda", version]
+        return SimpleNamespace(w=w, b=b)
+    emb_model, one_s["emb", "int32"] = emb_serial["int32 deferred D=8"]
+    check_pim_ranks(pim, {
+        "linreg": (model_summary("linreg", gd("int32")),
+                   one_s["linreg", "int32"]),
+        "logreg": (model_summary("logreg", gd("int32_lut_wram")),
+                   one_s["logreg", "int32_lut_wram"]),
+        "kmeans": (model_summary("kmeans", kme["int16"].result_.model),
+                   one_s["kmeans", "int16"]),
+        "dtree": (model_summary("dtree", dtr.tree_), one_s["dtree", None]),
+        "emb": (model_summary("emb", emb_model), one_s["emb", "int32"])},
+        smi)
 
     # -- 6. step fusion: each fused chunk one CUDA graph replay --------------
     fused_gd_fits(torch, dispatch, make_estimator, system, lin_ds, log_ds,
@@ -4792,8 +5274,19 @@ def main() -> int:
          "library": "F.scaled_dot_product_attention forward + backward",
          "fwd_bwd_ms": bt["fwd_bwd_ms"]},
     ]
+    ranked = {}     # phase 14's launches on rank 0, and its checks' errors
+    for rec in pim["ranks"][0]["fits"].values():
+        add_counts(ranked, rec["counts"])
+    ranked_err = {}
+    for r in pim["ranks"]:
+        for name, check in r["kernels"].items():
+            name = name.split()[0]
+            ranked_err[name] = max(ranked_err.get(name, 0), check["err"])
     for k in kernels:
         op = "gini_split" if k["name"] == "gini_counts" else k["name"]
+        if op in ranked:
+            k["ranks_launches_a_rank"] = ranked[op]
+            k["ranks_max_abs_err"] = ranked_err[k["name"]]
         if op in COMPARE_KERNELS:
             k["compare_launches"] = compare_counts[op]
         if op in service["drain"]:
@@ -4820,6 +5313,10 @@ def main() -> int:
         for arch in (X_VLM, X_AUDIO) for mode in ("off", "on")}
         | {f"{X_AUDIO} train": {k: xfam["train"][k] for k in (
             "losses", "step_ms", "wall_s", "peak_bytes")}}))
+    say("pim over ranks: " + json.dumps({name: {
+        k: pim["ranks"][0]["fits"][name][k] for k in (
+            "s", "reduce_s", "reduce_share", "traffic", "counts")}
+        for name in PIM_FITS}))
     say("dp: " + json.dumps({mode: {k: dp[mode][k] for k in (
         "losses", "step_ms", "reduce_ms", "tokens_per_s", "payload_bytes",
         "staged_bytes", "saved_model", "peak_bytes")}

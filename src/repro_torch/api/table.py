@@ -162,7 +162,10 @@ class ShardedTable:
     def unshard(self, shards) -> np.ndarray:
         """Reassemble (V, D) host rows from an (S, R, D) shard grid (e.g.
         the trainer's updated tables), inverting the placement, in the
-        shards' own storage dtype."""
+        shards' own storage dtype.  A resident tensor is gathered whole
+        first (over ranks it holds the rank's block of shards)."""
+        if isinstance(shards, torch.Tensor):
+            shards = self.system.gather_cores(shards).cpu()
         shards = np.asarray(shards)
         out = np.zeros((self.n_rows, self.dim), shards.dtype)
         owned = self._ids >= 0

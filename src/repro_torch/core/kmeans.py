@@ -376,7 +376,8 @@ def fit_steps(dataset, cfg: Optional[KMeansConfig] = None,
                 if return_labels:
                     lbl = system.map_elementwise(labels_k, (Xs, valid),
                                                  (_cast_centroids(C),))
-                    best.labels = host_array(lbl).reshape(-1)[:n]
+                    best.labels = host_array(
+                        system.gather_cores(lbl)).reshape(-1)[:n]
     finally:
         if program is not None:
             # the chunk graphs die with the fit that captured them

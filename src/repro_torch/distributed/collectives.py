@@ -80,11 +80,17 @@ def divide(x: torch.Tensor, n) -> torch.Tensor:
     return x / torch.full((), n, dtype=x.dtype, device=x.device)
 
 
+#: the reduce ops by name
+REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+              "max": dist.ReduceOp.MAX}
+
+
 def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None
                ) -> torch.Tensor:
-    """Reduce ``x`` in place over ``group``; returns ``x``."""
+    """Reduce ``x`` in place over ``group`` with ``op`` (a ``ReduceOp``
+    or one of ``REDUCE_OPS``' names); returns ``x``."""
     _count("all_reduce", x)
-    dist.all_reduce(x, op=op, group=group)
+    dist.all_reduce(x, op=REDUCE_OPS.get(op, op), group=group)
     return x
 
 
@@ -116,6 +122,28 @@ def all_gather(shard: torch.Tensor, group=None) -> torch.Tensor:
     out = src.new_empty((n * shard.shape[0], *shard.shape[1:]))
     _ALL_GATHER(out, src, group=group)
     return _from_host(out, shard) if src is not shard else out
+
+
+def all_gather_blocks(block: torch.Tensor, sizes, group=None
+                      ) -> torch.Tensor:
+    """Every rank's ``block`` concatenated along the leading dim in rank
+    order, where rank r's block has ``sizes[r]`` rows (sizes may differ,
+    and be 0) and the same trailing shape and dtype on every rank.  Each
+    block is padded to the largest size for one :func:`all_gather`."""
+    sizes = [int(s) for s in sizes]
+    rank = dist.get_rank(group)
+    if block.shape[0] != sizes[rank]:
+        raise ValueError(f"rank {rank}'s block has {block.shape[0]} rows, "
+                         f"its size says {sizes[rank]}")
+    width = max(sizes)
+    if width == 0:
+        return block
+    if block.shape[0] < width:
+        block = torch.cat([block, block.new_zeros(
+            (width - block.shape[0], *block.shape[1:]))])
+    full = all_gather(block, group)
+    return torch.cat([full[r * width:r * width + n]
+                      for r, n in enumerate(sizes)])
 
 
 def send(x: torch.Tensor, dst: int, group=None) -> None:

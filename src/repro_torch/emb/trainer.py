@@ -382,8 +382,8 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
         ra, rm = pack_rng(rng)
         pu_idx, pu_upd = utable.pending_arrays()
         pi_idx, pi_upd = itable.pending_arrays()
-        arrays = {"u_tab": utable.unshard(host_array(Ut)),
-                  "i_tab": itable.unshard(host_array(It)),
+        arrays = {"u_tab": utable.unshard(Ut),
+                  "i_tab": itable.unshard(It),
                   "pend_u_idx": pu_idx, "pend_u_upd": pu_upd,
                   "pend_i_idx": pi_idx, "pend_i_upd": pi_upd}
         arrays.update(ra)
@@ -464,8 +464,8 @@ def fit_steps(dataset, cfg: Optional[EmbConfig] = None, *,
             record(it_done, lambda: batch_loss(err))
             yield ChunkTick(1, _snapshot)
 
-    u_raw = utable.unshard(host_array(Ut))
-    i_raw = itable.unshard(host_array(It))
+    u_raw = utable.unshard(Ut)
+    i_raw = itable.unshard(It)
     if int_ver:
         u_emb = from_fixed(torch.from_numpy(u_raw), f).numpy()
         i_emb = from_fixed(torch.from_numpy(i_raw), f).numpy()

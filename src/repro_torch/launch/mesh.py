@@ -6,7 +6,8 @@ A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` whose
 ``mesh_dim_names`` are the reference's axis names; building one needs the
 default process group, which every rank of :func:`spawn_ranks` has.  The
 reference forces host devices (``--xla_force_host_platform_device_count``)
-to get a mesh on one machine; the port starts one process a rank instead.
+to get a mesh on one machine; the port starts one process a rank instead
+(or runs under ``torchrun``: :func:`init_from_env`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,27 @@ def backend_for(device: Union[str, torch.device], world: int) -> str:
             torch.cuda.device_count() >= world:
         return "nccl"
     return "gloo"
+
+
+def init_from_env(device: Union[str, torch.device] = "cuda") -> bool:
+    """Initialise the default process group from ``torchrun``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) when it names one and no group exists yet, with the
+    backend of :func:`backend_for`; on ``"cuda"`` the rank takes GPU
+    ``LOCAL_RANK % device_count``.  Returns whether a default group is
+    initialised afterwards."""
+    if dist.is_initialized():
+        return True
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    dev, world = torch.device(device), int(os.environ["WORLD_SIZE"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    dist.init_process_group(
+        backend_for(dev, world), init_method="env://",
+        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT))
+    return True
 
 
 def _rank_main(rank: int, world: int, fn: Callable, args: tuple,

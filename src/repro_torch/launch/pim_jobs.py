@@ -30,6 +30,14 @@ after ``--idle-timeout`` seconds with no new work.
 manifests whose modeled makespan bound exceeds X are rejected whole —
 reported, never queued, never a crash.
 
+A manifest with ``system: {backend: shard_map}`` spreads the PIM cores
+over ranks: run it under ``torchrun``, which every rank runs alike (the
+default process group comes from torchrun's environment; rank 0 writes
+the ``--json`` report):
+
+  torchrun --nproc_per_node 2 -m repro_torch.launch.pim_jobs \
+      ranked.json --device cpu
+
 Port of ``repro.launch.pim_jobs``: the same flags, plus ``--device``
 (``cuda`` unless the caller asks for ``cpu``).  The JSON report adds
 ``launch_counts``, the kernel launches each CUDA kernel made in this
@@ -43,7 +51,10 @@ import json
 import sys
 import time
 
+import torch.distributed as dist
+
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import init_from_env
 from repro_torch.obs import (TRACER, Column, format_ratio, render_table,
                              write_chrome_trace)
 from repro_torch.sched import (SloViolation, job_report, load_manifest,
@@ -149,6 +160,9 @@ def main(argv=None) -> int:
     doc = DEMO_MANIFEST if args.manifest is None \
         else load_manifest(args.manifest)
 
+    ranked = (doc.get("system") or {}).get("backend") == "shard_map"
+    if ranked:
+        init_from_env(args.device)
     if args.trace:
         TRACER.enable()
     t0 = time.perf_counter()
@@ -226,7 +240,7 @@ def main(argv=None) -> int:
         print(f"elastic: {n_restored} job(s) restored without re-running,"
               f" {n_recoveries} supervised retrie(s)")
 
-    if args.json:
+    if args.json and (not ranked or dist.get_rank() == 0):
         report = {"makespan_seconds": makespan, "jobs": rows,
                   "scheduler": stats, "device": args.device,
                   "launch_counts": dict(dispatch.launch_counts)}

@@ -303,12 +303,21 @@ class PimSlice(PimSystem):
     every closure parameter, so one kernel object serves every tenant)
     and mirror their ``TransferStats`` into the parent's.  Each keeps its
     own chunk-graph cache (``adopt_parent_session`` says why).
+
+    Over ranks (``backend="shard_map"``) the slice's core i is the
+    parent's core ``lease.start + i``, on the rank that owns that one:
+    each rank holds its share of the lease, possibly none, and every rank
+    runs the slice's fits.  Nothing compiled is shared between slices,
+    so no state crosses two rank layouts.
     """
 
     def __init__(self, parent: PimSystem, lease: BankLease):
         check_lease_bounds(parent, lease)
         self.parent = parent
         self.lease = lease
+        ranks = (None if parent.ranks is None
+                 else parent.ranks.sub(lease.start, lease.stop))
         super().__init__(dataclasses.replace(parent.config,
-                                             n_cores=lease.n_cores))
+                                             n_cores=lease.n_cores),
+                         ranks=ranks)
         adopt_parent_session(self, parent)

@@ -28,11 +28,12 @@ file whose text parses as JSON).
 
 Port of ``repro.sched.manifest``.  :func:`build_system` and
 :func:`run_manifest` take the ``device`` every system of the port runs
-on (``"cuda"`` unless the caller asks for ``"cpu"``).  The port's PIM
-system has one execution path, the reference's ``backend: vmap`` (all
-cores one leading tensor axis); ``backend: shard_map`` spreads the cores
-over a device mesh, which waits for the PIM system over ranks (ROADMAP
-queue 1 item 12d) and raises ``NotImplementedError``.
+on (``"cuda"`` unless the caller asks for ``"cpu"``).  ``backend:
+vmap`` (the default) keeps every PIM core on one device; ``backend:
+shard_map`` spreads them over the ranks of the default
+``torch.distributed`` process group (``systems/ranks.py``), which every
+rank must have initialised and in which every rank runs the same
+manifest; without a group it raises ``ValueError``.
 
 Service mode (DESIGN.md §14.4): :func:`submit_manifest` admits one
 manifest onto an existing — possibly serving — scheduler, so new
@@ -128,12 +129,7 @@ def build_system(spec: Optional[dict], device: str = "cuda"
             raise ValueError(
                 f"system backend: {backend!r} only applies to kind: pim "
                 f"(a {kind!r} target always runs single-image)")
-        if backend == "shard_map":
-            raise NotImplementedError(
-                "system backend: 'shard_map' is not ported yet: the port "
-                "runs every core on one device (backend: vmap); the PIM "
-                "system over torch.distributed ranks is ROADMAP queue 1 "
-                "item 12d")
+        kwargs["backend"] = str(backend)
     sched_kw = {}
     if "rank_size" in spec:
         sched_kw["rank_size"] = int(spec.pop("rank_size"))

@@ -690,6 +690,11 @@ class PimScheduler:
             for name, sys_ in self.systems.items()}
         self.system = self.systems[self.default_target]
         self.allocator = self._allocators[self.default_target]
+        #: a system whose cores are spread over ranks: every rank runs
+        #: this scheduler, and the clock its decisions read is rank 0's
+        #: (``_now``)
+        self._ranked = next((s for s in self.systems.values()
+                             if getattr(s, "ranks", None) is not None), None)
         self.backfill = backfill
         #: priority preemption in _admit: a high-priority submit may
         #: evict lower-priority resumable RUNNING jobs to claim cores
@@ -832,6 +837,7 @@ class PimScheduler:
             size = self._sized(n_cores, target)
             handle = JobHandle(next(self._next_job_id), wl, spec,
                                priority, size, name)
+            handle.submitted_at = self._now()
             handle.target = target
             handle.retry_budget = (self.default_retry_budget
                                    if retry_budget is None
@@ -1132,11 +1138,22 @@ class PimScheduler:
                         "sched.drift_ratio", DRIFT_BUCKETS)
                 drift_hist.observe(ratio)
 
+    def _now(self) -> float:
+        """``time.monotonic()``; over ranks rank 0's, broadcast, so that
+        the deadlines (the "deadline" policy's admission key) and the
+        misses are the same on every rank, and the ranks take the same
+        decisions in the same order.  Every rank calls it at the same
+        points (submission, settling)."""
+        if self._ranked is None:
+            return time.monotonic()
+        return self._ranked.ranks.broadcast_value(time.monotonic(),
+                                                  self._ranked.device)
+
     def _settle(self, run: _Runnable) -> None:
         """Stamp completion latency on every job of ``run`` that just
         reached a terminal state, and count deadline misses — the SLO
         observable the "deadline" policy is judged by (DESIGN.md §14)."""
-        now = time.monotonic()
+        now = self._now()
         for job in run.jobs:
             if job.done and job.finished_at is None:
                 job.finished_at = now

@@ -22,6 +22,12 @@ Every launch — a ``map_*`` call or a fused chunk — runs through
 ``_record_execution`` hook: a modeled target
 (:class:`~repro_torch.systems.gpu_model.ModeledGpuSystem`) prices it
 there; the PIM and host targets just run it.
+
+Over ranks (``PimConfig(backend="shard_map")``, ``systems/ranks.py``)
+a rank's tensors hold its own block of cores, and each strategy's
+:meth:`ReduceStrategy.rank_reduce` returns on every rank what its
+``device_reduce`` returns over all the cores in one process; the
+accounting, which reads the shapes of that result, stays the same.
 """
 from __future__ import annotations
 
@@ -35,7 +41,9 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..distributed import collectives
 from ..obs.trace import NULL_SPAN, TRACER
+from .ranks import CoreBlocks
 
 
 class ReduceVia(enum.Enum):
@@ -267,6 +275,11 @@ class ReduceStrategy:
     on the device inside a fused chunk; ``device_reduce_full`` is the
     fully on-device reduction a chunk's steps use; ``count_chunk``
     charges a chunk's reduce movement, k times one step's.
+
+    Over ranks ``rank_reduce`` / ``rank_reduce_full`` take one rank's
+    block of partials and return, on every rank, what ``device_reduce``
+    / ``device_reduce_full`` return over every core: by default the
+    blocks are gathered in core order and reduced as in one process.
     """
 
     #: False when the per-step reduction needs the host (HostReduce): a
@@ -289,6 +302,12 @@ class ReduceStrategy:
         """Complete on-device reduction, for the steps of a fused chunk."""
         return self.device_reduce(partials)
 
+    def rank_reduce(self, partials, blocks: CoreBlocks):
+        return self.device_reduce(_map(blocks.gather, partials))
+
+    def rank_reduce_full(self, partials, blocks: CoreBlocks):
+        return self.device_reduce_full(_map(blocks.gather, partials))
+
     def finalize(self, system: "System", out):
         return out
 
@@ -310,10 +329,16 @@ class ReduceStrategy:
 
 
 class FabricReduce(ReduceStrategy):
-    """On-device sum over the cores axis."""
+    """On-device sum over the cores axis; over ranks, a sum over the
+    rank's block, then an all-reduce."""
 
     def device_reduce(self, partials):
         return _map(lambda v: _device_sum(v, 0), partials)
+
+    def rank_reduce(self, partials, blocks):
+        return _map(lambda v: blocks.reduce(v, "sum"), partials)
+
+    rank_reduce_full = rank_reduce
 
     def count_pim_to_cpu(self, system, out) -> int:
         # every core ships its partial of the reduced shape to the host
@@ -323,7 +348,9 @@ class FabricReduce(ReduceStrategy):
 class HostReduce(ReduceStrategy):
     """Paper-faithful schedule: per-core partials are copied to the host
     and reduced with numpy; the result lives on the host.  Not fusable:
-    the reduce is itself a host round trip."""
+    the reduce is itself a host round trip.  Over ranks every rank
+    gathers every core's partial in core order and sums them as one
+    process does."""
 
     fusable = False
 
@@ -362,6 +389,55 @@ class HierarchicalReduce(ReduceStrategy):
     def _groups(self, n_cores: int) -> int:
         g = self.group_size
         return n_cores // g if g > 1 and n_cores % g == 0 else 0
+
+    def _plan(self, start: int, stop: int) -> tuple:
+        """A block's cores ``[start, stop)`` as ``(head, groups, tail)``:
+        ``head`` raw partials ending the group the block starts inside,
+        the number of whole groups, and ``tail`` raw partials starting
+        the group it stops inside."""
+        g = self.group_size
+        head_end = min(stop, -(-start // g) * g)
+        first, last = -(-start // g), max(stop // g, -(-start // g))
+        return (head_end - start, last - first,
+                max(0, stop - max(last * g, head_end)))
+
+    def rank_reduce(self, partials, blocks):
+        """The group sums of the one-process schedule, in group order, on
+        every rank: a rank sums its whole groups on its device and ships
+        the raw partials of a group that straddles a rank boundary,
+        which every rank then sums as the one-process reduce sums a
+        group."""
+        if not self._groups(blocks.n_cores):
+            return _map(blocks.gather, partials)
+        g = self.group_size
+        plans = [self._plan(a, b) for a, b in blocks.bounds]
+        head, n_whole, _ = plans[blocks.rank]
+
+        def _grouped(v):
+            rest = v.shape[1:]
+            whole = v[head:head + n_whole * g]
+            payload = torch.cat([v[:head], _device_sum(
+                whole.reshape(n_whole, g, *rest), 1), v[head + n_whole * g:]])
+            full = blocks.gather(payload, [sum(p) for p in plans])
+            groups, pending, pos = [], [], 0
+            for h, n, t in plans:
+                for kind, rows in (("raw", h), ("sum", n), ("raw", t)):
+                    piece = full[pos:pos + rows]
+                    pos += rows
+                    if kind == "sum":
+                        groups.append(piece)
+                        continue
+                    pending.append(piece)
+                    if sum(p.shape[0] for p in pending) == g:
+                        groups.append(_device_sum(
+                            torch.cat(pending).reshape(1, g, *rest), 1))
+                        pending = []
+            return torch.cat(groups)
+        return _map(_grouped, partials)
+
+    def rank_reduce_full(self, partials, blocks):
+        return _map(lambda v: _device_sum(v, 0),
+                    self.rank_reduce(partials, blocks))
 
     def device_reduce(self, partials):
         def _grouped(v):
@@ -478,6 +554,9 @@ class System:
     #: True on processor-centric targets: the LOG fp32 baseline then uses
     #: the exact sigmoid, not the DPU Taylor expansion.
     exact_transcendentals: bool = False
+    #: this rank's block of the cores when they are spread over ranks
+    #: (``systems/ranks.py``); None when one process holds every core
+    ranks: Optional[CoreBlocks] = None
 
     def __init__(self, config):
         self.config = config
@@ -536,6 +615,15 @@ class System:
     def broadcast(self, tree: Any) -> Any:
         """Model-state broadcast to every execution site (accounted)."""
         raise NotImplementedError
+
+    def gather_cores(self, t: torch.Tensor) -> torch.Tensor:
+        """A resident ``[n_shards, ...]`` tensor whole: over ranks every
+        rank's block gathered in core order (untimed: not a reduce);
+        otherwise ``t`` itself."""
+        if self.ranks is None:
+            return t
+        return collectives.all_gather_blocks(t, self.ranks.sizes,
+                                             self.ranks.group)
 
     # -- kernel registry -----------------------------------------------------
 
@@ -636,6 +724,16 @@ class System:
 
     # -- execution ------------------------------------------------------------
 
+    def _reduce(self, strat: ReduceStrategy, partials):
+        if self.ranks is None:
+            return strat.device_reduce(partials)
+        return strat.rank_reduce(partials, self.ranks)
+
+    def _reduce_full(self, strat: ReduceStrategy, partials):
+        if self.ranks is None:
+            return strat.device_reduce_full(partials)
+        return strat.rank_reduce_full(partials, self.ranks)
+
     def map_reduce(self, kernel, sharded: tuple, replicated: tuple,
                    strategy: StrategyLike = None):
         """Run ``kernel(*sharded, *replicated)`` over all cores in one
@@ -652,7 +750,7 @@ class System:
             out = self._launch(
                 ("map_reduce", kkey, len(sharded), len(replicated),
                  strat.cache_token()),
-                lambda: strat.device_reduce(fn(*sharded, *replicated)),
+                lambda: self._reduce(strat, fn(*sharded, *replicated)),
                 (sharded, replicated))
         self._charge_reduce(strat, out)
         return strat.finalize(self, out)
@@ -660,14 +758,19 @@ class System:
     def map_reduce_custom(self, kernel, sharded: tuple,
                           replicated: tuple, reduce: dict):
         """Like map_reduce but with per-key reduce ops ("sum"|"min"|"max")
-        over the cores axis."""
+        over the cores axis (over ranks: over the rank's block, then an
+        all-reduce with the same op)."""
         fn = self._resolve_kernel(kernel)
         self.stats.kernel_launches += 1
         self.stats.host_syncs += 1
         self._charge_launch_operands(sharded, replicated)
-        ops = {"sum": lambda v: _device_sum(v, 0),
-               "min": lambda v: torch.amin(v, dim=0),
-               "max": lambda v: torch.amax(v, dim=0)}
+        if self.ranks is not None:
+            ops = {op: (lambda v, op=op: self.ranks.reduce(v, op))
+                   for op in ("sum", "min", "max")}
+        else:
+            ops = {"sum": lambda v: _device_sum(v, 0),
+                   "min": lambda v: torch.amin(v, dim=0),
+                   "max": lambda v: torch.amax(v, dim=0)}
 
         def run():
             partials = fn(*sharded, *replicated)
@@ -756,6 +859,12 @@ class StepProgram:
     and the emits (or the part of them ``shipped`` names).  A
     non-``fusable`` strategy (HostReduce, CompressedReduce) degrades to k
     ordinary ``map_reduce`` steps with the unfused accounting.
+
+    Over ranks each step's reduce is a collective, which a CUDA graph
+    over gloo cannot hold, so a chunk runs its k steps one by one with
+    the reduce between them, on the card as on the CPU, under the fused
+    accounting.  ``counts`` says which ran: ``"replays"`` of a chunk
+    graph, ``"eager"`` chunks of k steps.
     """
 
     def __init__(self, system: System, kernel, prepare: Callable,
@@ -774,6 +883,7 @@ class StepProgram:
         self._kernel = kernel
         self._fn = system._resolve_kernel(kernel)
         self._kkey = system._kernel_key(kernel)
+        self.counts: collections.Counter = collections.Counter()
 
     def _key(self, *parts) -> tuple:
         return (self._fn, self.name, self.strategy.cache_token(), *parts,
@@ -800,12 +910,19 @@ class StepProgram:
             partials = self._fn(*shards, *self.prepare(carry))
             if key not in self.system._step_cache:
                 self.system._step_cache[key] = self.strategy.device_reduce(
-                    _map(lambda v: torch.empty_like(v, device="meta"),
-                         partials))
+                    _map(self._meta_partial, partials))
             carry, out = self.update(
-                carry, self.strategy.device_reduce_full(partials))
+                carry, self.system._reduce_full(self.strategy, partials))
             outs.append(out)
         return carry, _stack(outs)
+
+    def _meta_partial(self, v: torch.Tensor) -> torch.Tensor:
+        """A partial's shape over every core, as a meta tensor (over ranks
+        ``v`` holds the rank's block)."""
+        lead = v.shape[:1] if self.system.ranks is None \
+            else (self.system.n_shards,)
+        return torch.empty((*lead, *v.shape[1:]), dtype=v.dtype,
+                           device="meta")
 
     def run(self, carry, sharded: tuple, k: int, xs=None, *,
             donate: bool = True):
@@ -827,13 +944,17 @@ class StepProgram:
         stats.kernel_launches += 1
         stats.host_syncs += 1
         carry_in = carry
-        if _leaves(carry)[0].device.type == "cuda":
+        if _leaves(carry)[0].device.type == "cuda" and \
+                self.system.ranks is None:
             from .step_graph import chunk_graph
             graph = chunk_graph(self, carry, sharded, xs, k)
+            self.counts["replays"] += 1
 
             def run():
                 return graph.replay(carry_in, xs, clone=not donate)
         else:
+            self.counts["eager"] += 1
+
             def run():
                 return self.steps(carry_in, sharded, xs, k)
         span = (TRACER.span(f"chunk:{self.name}", self.system._trace_track,

@@ -103,6 +103,12 @@ class CompressedReduce(ReduceStrategy):
     def device_reduce_full(self, partials):
         return self.inner.device_reduce_full(partials)
 
+    def rank_reduce(self, partials, blocks):
+        return self.inner.rank_reduce(partials, blocks)
+
+    def rank_reduce_full(self, partials, blocks):
+        return self.inner.rank_reduce_full(partials, blocks)
+
     def finalize(self, system, out):
         positions = iter(range(len(_leaves(out))))
 

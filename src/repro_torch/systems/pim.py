@@ -11,6 +11,15 @@ The per-core kernels take the whole batch and launch once for all cores.
 Rows are padded and ordered exactly as ``repro.systems.pim.PimSystem``
 orders them, so every core holds the same rows as in the reference.
 
+Backends, with the reference's names: ``"vmap"`` keeps every core on
+one device; ``"shard_map"`` spreads the cores over the ranks of the
+default ``torch.distributed`` process group (``systems/ranks.py``): rank
+r holds only its block of cores, ``[start_r, stop_r)``, the same rows
+each core holds in one process, and the reduces run as collectives.
+Every rank runs the same host code.  ``n_shards``, the placements' byte
+counts and ``TransferStats`` stay those of the whole machine, equal on
+every rank and equal to the reference's.
+
 Time on the modeled DPUs comes from
 :class:`~repro_torch.systems.topology.HierarchicalCostModel`
 (:meth:`PimSystem.cost_model`); the on-bank storage-dtype table its MRAM
@@ -31,6 +40,7 @@ import torch
 from ..core.quantization import storage_bytes
 from ..obs.trace import TRACER
 from .base import System, _tree_bytes
+from .ranks import CoreBlocks
 from .topology import (DEFAULT_RANKS_PER_CHANNEL, DPU_FREQ_HZ,
                        DPU_MRAM_BYTES_PER_CYCLE, DPU_OP_CYCLES,
                        DPU_PIPELINE_SATURATION_THREADS,
@@ -51,12 +61,28 @@ class PimConfig:
     dpus_per_rank: Optional[int] = None  # None: largest divisor <= 64
     ranks_per_channel: int = DEFAULT_RANKS_PER_CHANNEL
     device: str = "cuda"
+    backend: str = "vmap"        # "vmap" | "shard_map"
+
+
+BACKENDS = ("vmap", "shard_map")
 
 
 class PimSystem(System):
-    """Host-orchestrated data-parallel execution over simulated PIM cores."""
+    """Host-orchestrated data-parallel execution over simulated PIM cores.
+
+    ``backend="shard_map"`` needs an initialised default process group
+    (``repro_torch.launch.mesh.spawn_ranks``, or ``torchrun`` and
+    ``init_process_group``) and raises ``ValueError`` without one."""
 
     kind = "pim"
+
+    def __init__(self, config: PimConfig, ranks: Optional[CoreBlocks] = None):
+        if config.backend not in BACKENDS:
+            raise ValueError(f"unknown PIM backend {config.backend!r}; "
+                             f"known: {BACKENDS}")
+        super().__init__(config)
+        if config.backend == "shard_map":
+            self.ranks = ranks or CoreBlocks.over_group(config.n_cores)
 
     @property
     def n_shards(self) -> int:
@@ -76,35 +102,53 @@ class PimSystem(System):
 
     # -- data placement ------------------------------------------------------
 
+    def _block(self) -> tuple:
+        """This process's cores ``[start, stop)``: all of them, or the
+        rank's block."""
+        if self.ranks is None:
+            return 0, self.config.n_cores
+        return self.ranks.start, self.ranks.stop
+
     def shard_rows(self, x: np.ndarray, pad_value=0) -> torch.Tensor:
-        """Partition rows across cores: (n, ...) -> (n_cores, n_pc, ...).
+        """Partition rows across cores: (n, ...) -> (n_cores, n_pc, ...)
+        (over ranks, this rank's cores of it).
 
         Equal-size shards (padding the tail as needed) mirror the paper's
-        equal per-bank buffers.  Counts the modeled CPU->PIM bytes and
-        the shard_transfers/shard_bytes counters."""
+        equal per-bank buffers.  Counts the modeled CPU->PIM bytes of
+        every core and the shard_transfers/shard_bytes counters."""
+        x = np.asarray(x)
         c = self.config.n_cores
         n = x.shape[0]
         n_pc = -(-n // c)
-        pad = c * n_pc - n
+        start, stop = self._block()
+        rows = x[min(n, start * n_pc):min(n, stop * n_pc)]
+        pad = (stop - start) * n_pc - rows.shape[0]
         if pad:
-            x = np.concatenate(
-                [x, np.full((pad,) + x.shape[1:], pad_value, x.dtype)], 0)
-        out = x.reshape(c, n_pc, *x.shape[1:])
-        self.stats.cpu_to_pim += out.nbytes
+            rows = np.concatenate(
+                [rows, np.full((pad,) + x.shape[1:], pad_value, x.dtype)], 0)
+        out = np.ascontiguousarray(rows).reshape(stop - start, n_pc,
+                                                 *x.shape[1:])
+        nbytes = c * n_pc * int(np.prod(x.shape[1:], dtype=np.int64)) \
+            * x.dtype.itemsize
+        self.stats.cpu_to_pim += nbytes
         self.stats.shard_transfers += 1
-        self.stats.shard_bytes += out.nbytes
-        return torch.from_numpy(np.ascontiguousarray(out)).to(self.device)
+        self.stats.shard_bytes += nbytes
+        return torch.from_numpy(out).to(self.device)
 
     def row_validity_mask(self, n: int) -> torch.Tensor:
-        """(n_cores, n_pc) bool mask marking real (non-padding) rows."""
+        """(n_cores, n_pc) bool mask marking real (non-padding) rows
+        (over ranks, this rank's cores of it)."""
         c = self.config.n_cores
         n_pc = -(-n // c)
-        idx = torch.arange(c * n_pc, device=self.device).reshape(c, n_pc)
+        start, stop = self._block()
+        idx = torch.arange(start * n_pc, stop * n_pc,
+                           device=self.device).reshape(stop - start, n_pc)
         return idx < n
 
     def broadcast(self, tree: Any) -> Any:
         """Host -> all cores broadcast of model state (counted per core).
-        The simulated cores share one device, so nothing moves."""
+        Every rank already holds the model state it computed, so nothing
+        moves."""
         nbytes = _tree_bytes(tree) * self.config.n_cores
         self.stats.cpu_to_pim += nbytes
         if TRACER.enabled:

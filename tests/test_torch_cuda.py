@@ -1859,3 +1859,52 @@ def test_dp_step_on_the_card_matches_the_cpu(cuda):
             assert flips <= DP_MAX_FLIP_SHARE * total, (compress, flips)
     for key in results[0]:
         assert results[0][key]["digest"] == results[1][key]["digest"], key
+
+
+def test_pim_fit_over_ranks_on_the_card_equals_the_cpu(cuda):
+    """A LIN int32 fit over 2 gloo ranks sharing the card
+    (``backend="shard_map"``, 7 cores: 4 + 3), serial and fused (a chunk's
+    steps one by one, no graph replayed), under fabric and hierarchical
+    (one group of 7 across the ranks), equals the one-process CPU fit bit
+    for bit with equal TransferStats; each rank launched fx_matvec once a
+    step."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    from repro_torch.api import get_workload, make_system
+    from repro_torch.data.synthetic import make_linear_dataset
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks
+    data = {"lin": make_linear_dataset(4000, 13, seed=3)[:2]}
+    runs = {f"{reduce}/{fuse}": {
+        "kind": "fit", "workload": "linreg", "version": "int32",
+        "data": "lin", "n_cores": 7, "reduce": reduce,
+        "params": {"n_iters": 6, "fuse_steps": fuse}}
+        for reduce in ("fabric", "hierarchical-auto") for fuse in (1, 3)}
+    program = {"kind": "program", "n_cores": 7, "k": 3}
+    ranks = spawn_ranks(torch_ranks.pim_body, 2,
+                        args=(data, runs | {"program": program}, "cuda"),
+                        device="cuda", timeout=300)
+    for r in ranks:
+        assert r["program"]["counts"] == {"eager": 1}
+        assert not r["program"]["replays"]
+    one = torch_ranks.pim_body(0, data, {"program": program | {
+        "backend": "vmap"}}, "cpu")
+    np.testing.assert_array_equal(ranks[0]["program"]["carry"],
+                                  one["program"]["carry"])
+    wl = get_workload("linreg")
+    for name, case in runs.items():
+        system = make_system("pim", n_cores=7, reduce=case["reduce"],
+                             device="cpu")
+        want = wl.fit(system.put(*data["lin"]),
+                      wl.spec("int32", **case["params"])).model
+        for r in ranks:
+            got = r[name]
+            np.testing.assert_array_equal(got["model"].w, want.w)
+            assert got["model"].b == want.b
+            assert got["stats"] == dataclasses.asdict(system.stats)
+            assert got["launches"] == {"fx_matvec": 6}
+            assert not got["replays"]
+            assert got["digests"] == ranks[0][name]["digests"]
+

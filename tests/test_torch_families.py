@@ -268,8 +268,9 @@ def test_vlm_and_audio_still_raise():
     build a Model (tests/test_torch_vlm_audio.py holds them to the
     reference), but the serve launcher refuses them, since ServeEngine
     prefills tokens alone; the data-parallel trainer builds
-    (tests/test_torch_dp_train.py runs it) and ``backend: shard_map``
-    raises (item 12d)."""
+    (tests/test_torch_dp_train.py runs it); ``backend: shard_map``
+    builds the PIM system over ranks inside a process group only
+    (tests/test_torch_pim_ranks.py runs it) and raises outside one."""
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg = get_config(arch).reduced()
         params = Model(cfg, device="cpu").init(torch.Generator())
@@ -279,7 +280,7 @@ def test_vlm_and_audio_still_raise():
     mesh = SimpleNamespace(mesh_dim_names=("pod", "data"), shape=(1, 1))
     assert callable(tloop.make_dp_train_step(None, None, mesh,
                                              compress=True))
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(ValueError, match="process group"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
 
 

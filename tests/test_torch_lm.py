@@ -114,7 +114,8 @@ def test_what_is_not_ported_raises():
     """The VLM and audio ids load and build a Model; the serve launcher
     refuses them (ServeEngine prefills tokens alone); the data-parallel
     trainer builds (tests/test_torch_dp_train.py runs it); ``backend:
-    shard_map`` still raises (item 12d)."""
+    shard_map`` raises outside a process group (inside one it builds the
+    PIM system over ranks: tests/test_torch_pim_ranks.py)."""
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg = get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
@@ -124,7 +125,7 @@ def test_what_is_not_ported_raises():
             tserve.main(["--arch", arch, "--device", "cpu"])
     mesh = SimpleNamespace(mesh_dim_names=("data",), shape=(1,))
     assert callable(tloop.make_dp_train_step(None, None, mesh))
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(ValueError, match="process group"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
 
 

@@ -336,11 +336,12 @@ def test_eval_step_matches_the_reference():
 def test_what_training_does_not_port_raises():
     """The trainer builds the VLM and audio ids (their Model included);
     the serve launcher refuses them; the data-parallel trainer builds
-    (tests/test_torch_dp_train.py runs it) and ``backend: shard_map``
-    still raises (item 12d)."""
+    (tests/test_torch_dp_train.py runs it); ``backend: shard_map``
+    raises outside a process group (inside one it builds the PIM system
+    over ranks: tests/test_torch_pim_ranks.py)."""
     mesh = SimpleNamespace(mesh_dim_names=("data",), shape=(1,))
     assert callable(tloop.make_dp_train_step(None, tadam.AdamW(), mesh))
-    with pytest.raises(NotImplementedError, match="item 12d"):
+    with pytest.raises(ValueError, match="process group"):
         tmanifest.build_system({"backend": "shard_map"}, device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-tiny"):
         cfg, model, _, _ = tlaunch.build(arch, reduced=True, device="cpu")

@@ -6,6 +6,7 @@ neither JAX nor the JAX package, so no rank does.  Each body takes numpy
 inputs that the test's main process made and returns numpy results (or
 plain Python values) for the main process to hold against the reference.
 """
+import dataclasses
 import hashlib
 import sys
 import time
@@ -244,4 +245,150 @@ def card_dp_step_body(rank: int, arch: str, batch: int, seq: int) -> dict:
                 "err": {n: _np(e) for n, e in err.items()},
                 "counts": dict(dispatch.launch_counts),
                 "digest": _digest(params.to("cpu"))}
+    return out
+
+
+# -- the PIM system over ranks (PimConfig(backend="shard_map")) ----------------
+
+def _state_digest(arrays: dict) -> str:
+    """A digest of a model state's host arrays (sorted by name)."""
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        a = np.ascontiguousarray(np.asarray(arrays[name]))
+        h.update(name.encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _innermost(gen):
+    while getattr(gen, "gi_yieldfrom", None) is not None:
+        gen = gen.gi_yieldfrom
+    return gen
+
+
+def _step_state(gen, tick) -> dict:
+    """The model state a fit holds after a step: its snapshot's arrays,
+    or, for a tree (not resumable), the arrays of the tree grown so far."""
+    if getattr(tick, "resumable", False):
+        return tick.snapshot()["arrays"]
+    local = _innermost(gen).gi_frame.f_locals
+    return {k: local[k] for k in ("feature", "threshold", "left", "right",
+                                  "leaf_class", "depth")}
+
+
+def pim_fit(system, data: dict, case: dict, state=None, stop_after=None):
+    """One fit of ``case`` (workload, version, data key, params) on
+    ``system`` through its workload's ``fit_steps``, the digest of the
+    model state after every step, and its result; ``stop_after`` steps
+    ends it early with the snapshot there instead."""
+    from repro_torch.api import get_workload
+    X, y = data[case["data"]]
+    wl = get_workload(case["workload"])
+    gen = wl.fit_steps(system.put(X, y),
+                       wl.spec(case["version"], **case["params"]),
+                       **({} if state is None else {"state": state}))
+    digests, steps = [], 0
+    while True:
+        try:
+            tick = next(gen)
+        except StopIteration as stop:
+            res = stop.value
+            return {"model": res.model, "digests": digests}
+        steps += int(tick)
+        digests.append(_state_digest(_step_state(gen, tick)))
+        if stop_after is not None and steps >= stop_after:
+            snap = tick.snapshot()
+            gen.close()
+            return {"snapshot": snap, "digests": digests}
+
+
+def _job_sig(h) -> dict:
+    """A job handle's wall-clock-free record (and its result's model)."""
+    return {"name": h.name, "workload": h.workload.name,
+            "version": h.spec.version, "state": h.state.value,
+            "steps": h.steps, "iters": h.iters, "cores": h.n_cores,
+            "lease": None if h.lease is None else (h.lease.start,
+                                                   h.lease.n_cores),
+            "transfer": (None if h.transfer is None
+                         else dataclasses.asdict(h.transfer)),
+            "modeled_seconds": h.modeled_seconds,
+            "has_deadline": h.deadline is not None,
+            "deadline_missed": h.deadline_missed,
+            "model": None if h.result is None else h.result.model}
+
+
+def pim_body(rank: int, data: dict, cases: dict, device: str = "cpu"
+             ) -> dict:
+    """Every case of ``cases`` on this rank, on ``device``, in order; each
+    returns host data, with the kernel launches and chunk-graph replays
+    it made.  A case is one of:
+
+    * ``{"kind": "fit", "n_cores", "reduce", ...}``: a fit on a
+      ``backend="shard_map"`` system (its result, per-step digests,
+      ``TransferStats``; with ``"state"`` it resumes from a snapshot,
+      with ``"stop_after"`` it returns the snapshot at that step);
+    * ``{"kind": "slice", "n_cores", "lease": (start, n), "fits"}``: the
+      fits on a slice of such a system, with the slice's and the parent's
+      ``TransferStats``;
+    * ``{"kind": "manifest", "doc"}``: ``run_manifest``, each job's
+      record;
+    * ``{"kind": "program", "n_cores", "k"}``: one k-step chunk of a
+      ``StepProgram`` that sums every core's rows into an int32 carry
+      (the carry and the program's ``counts``; ``"backend": "vmap"``
+      runs it in one process).
+    """
+    from repro_torch.api import make_system
+    from repro_torch.kernels import dispatch
+    from repro_torch.sched.allocator import BankLease
+    from repro_torch.sched.manifest import run_manifest
+
+    out = {"jax": "jax" in sys.modules}
+    for name, case in cases.items():
+        collectives.reset_traffic()
+        dispatch.reset_launch_counts()
+        if case["kind"] == "fit":
+            system = make_system("pim", n_cores=case["n_cores"],
+                                 reduce=case["reduce"], device=device,
+                                 backend="shard_map")
+            rec = pim_fit(system, data, case, case.get("state"),
+                          case.get("stop_after"))
+            rec["stats"] = dataclasses.asdict(system.stats)
+            rec["block"] = (system.ranks.start, system.ranks.stop)
+        elif case["kind"] == "slice":
+            parent = make_system("pim", n_cores=case["n_cores"],
+                                 device=device, backend="shard_map")
+            sl = parent.slice(BankLease(*case["lease"]))
+            rec = {"fits": {k: pim_fit(sl, data, c)
+                            for k, c in case["fits"].items()},
+                   "block": (sl.ranks.start, sl.ranks.stop),
+                   "stats": dataclasses.asdict(sl.stats),
+                   "parent_stats": dataclasses.asdict(parent.stats)}
+        elif case["kind"] == "program":
+            system = make_system("pim", n_cores=case["n_cores"],
+                                 device=device,
+                                 backend=case.get("backend", "shard_map"))
+            rows = system.shard_rows(np.arange(
+                4 * case["n_cores"], dtype=np.int32).reshape(-1, 2))
+            program = system.step_program(
+                lambda x: {"s": torch.sum(x, dim=1, dtype=torch.int32)},
+                lambda carry: (),
+                lambda carry, red: (carry * 3 + red["s"], None),
+                name="sum-rows")
+            carry, _ = program.run(
+                torch.zeros(2, dtype=torch.int32, device=system.device),
+                (rows,), case["k"])
+            rec = {"carry": carry.cpu().numpy(),
+                   "counts": dict(program.counts),
+                   "stats": dataclasses.asdict(system.stats)}
+        else:
+            sched, handles = run_manifest(case["doc"], device=device)
+            rec = {"jobs": [_job_sig(h) for h in handles],
+                   "backend": sched.system.config.backend,
+                   "block": (sched.system.ranks.start,
+                             sched.system.ranks.stop)}
+        rec["traffic"] = dict(collectives.traffic)
+        rec["launches"] = dict(dispatch.launch_counts)
+        rec["replays"] = dict(dispatch.graph_replays)
+        out[name] = rec
     return out
