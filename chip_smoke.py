@@ -47,7 +47,7 @@ Phases, in order; any failure exits non-zero:
               - qwen3-8b served at full width and depth (36 layers, bf16,
                 quantize_dense on, seeded random weights) through Model
                 and ServeEngine: 8 requests over 4 slots, prompt lengths
-                drawn from 128-1024, 32 new tokens each; launch counts
+                drawn from 128-1024, 16 new tokens each; launch counts
                 exactly 3 int_matmul per layer per forward call and 1
                 flash_attention per layer per prefill; the same load with
                 quantize_dense off; the busy share over decode steps;
@@ -262,6 +262,50 @@ Phases, in order; any failure exits non-zero:
               hierarchical groups of 8 straddle ranks, against the same
               fits in this process, bit for bit
 
+ 15. tensor-parallel  the dense LM on sharded parameters: TP_RANKS ranks
+              share the card (gloo) on a ("data"=1, "model"=2) mesh, the
+              weights placed by the reference's param_shardings
+              (Model.place), each rank's launch counts zeroed just before
+              each run.  It runs first, right after the build:
+              (a) qwen3-8b at full width and depth (36 layers, bf16,
+                  ~8.2 GB of weights a rank): 2 prompts of 512 tokens
+                  prefilled, then 8 greedy decode tokens, quantize_dense on
+                  and off; the logits against one process on the same
+                  weights fed the same tokens and, quantize_dense on, the
+                  ranks' int8 activations (TP_BF16_TOL), the greedy tokens
+                  equal wherever that run's top-2 margin exceeds it; every
+                  quantized linear's int8 activations equal to one-process
+                  quantization of its gathered input, the first
+                  TP_INT8_CALLS int32 products equal to int_matmul_cuda on
+                  the gathered operands; the int8 elements that differ
+                  from a one-process run quantizing its own activations
+                  counted a forward call, beside that run's logit gap;
+                  ms a prefill and a decode token against one process (a
+                  run of its own), and the collectives' share of a decode
+                  run (every redistribution synchronised and timed);
+              (b) one granite-3-8b train step at full width, 4 of 40
+                  layers, 8 x 1024 tokens: loss and grad norm against one
+                  process (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL);
+              (c) its params saved from both ranks, restored into one
+                  process bit for bit (a digest a leaf), one more step;
+              (d) mha, mha_bwd and int_matmul launch on each rank exactly
+                  as in the one-process runs, on the rank's heads and
+                  weight shards, and each launch in (a) and (b) equals its
+                  plain version on the rank's operands (int_matmul
+                  exactly, mha within MHA_BF16_ATOL, mha_bwd within
+                  TRAIN_BWD_BF16_RTOL of max |plain|): the prefill
+                  (tensor-core) and decode (dp4a stream) int_matmul on
+                  [4096, 6144] / [6144, 4096] shards, mha on 16 of 32
+                  heads, mha_bwd at [8, 16, 1024, 128];
+              (e) the dry-run (python -m repro_torch.launch.dryrun, two
+                  processes of their own, each with a fake group of 256 /
+                  512 ranks, fake CUDA tensors) of qwen3-8b's train_4k,
+                  prefill_32k and decode_32k on both production meshes,
+                  beside the data's set-up before phase 14 (no timed
+                  phase runs beside it); their roofline rows printed (a
+                  model of H100s); its parameter bytes a rank on (1, 2)
+                  equal to what each rank of (a) holds
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
 imported.
@@ -395,6 +439,35 @@ PIPE_FWD_ATOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
 DP_COMPRESS_SHAPE = (4096, 1024)
 DP_TIMEOUT = 600.0
 
+#: phase 15, the dense LM on sharded parameters: TP_RANKS ranks share the
+#: card over gloo on a ("data"=1, "model"=TP_RANKS) mesh.  (a) LM_ARCH at
+#: full width and depth, TP_PROMPTS prompts of TP_PROMPT_LEN tokens, then
+#: TP_NEW greedy decode tokens, quantize_dense on and off; every quantized
+#: linear's int8 activations checked, and the first TP_INT8_CALLS int32
+#: products on the gathered operands.  TP_BF16_TOL: the sharded run sums
+#: each row-parallel product (wo, and down with quantize_dense off) as two
+#: bf16 partials, ~2 more bf16 roundings (2**-8) a layer than one process:
+#: 72 over 36 layers, a random walk of ~2**-8 * sqrt(72) ~ 3% of a logit's
+#: scale (~1), whose largest of 151,936 logits lies ~4 sigma out:
+#: LM_BF16_TOL's bound, 0.25.  With quantize_dense on the one-process run
+#: is fed the ranks' int8 activations and scales (Int8Feed): its linears
+#: then multiply what the ranks' did, exactly (the int32 partial sums are
+#: reduced in int32), and only the bf16 walk above (wo's half of it)
+#: separates the runs, so the same bound holds.  (b) TRAIN_ARCH at full
+#: width, TP_TRAIN_LAYERS of 40 layers, one step on TRAIN_BATCH x
+#: TRAIN_SEQ tokens (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL: phase 10's bounds
+#: for bf16 in other orders).  Every kernel launch on a rank is held
+#: against its plain version on the rank's operands (KernelChecks).  (e)
+#: the dry-run's cells (TP_DRY_SHAPES on both production meshes, and
+#: decode_32k on (1, TP_RANKS)), in processes of their own beside the
+#: data's set-up before phase 14, where no timed phase runs
+TP_RANKS, TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 2, 512, 8
+TP_INT8_CALLS, TP_TRAIN_LAYERS, TP_TIMEOUT = 6, 4, 600.0
+TP_BF16_TOL = 0.25
+TP_DRY_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
+TP_DRY_TIMEOUT = 600.0
+TP_DIR = Path(__file__).resolve().parent / "build" / "phase15"
+
 #: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
 #: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
 #: version, data, reduce), each at phase 4-5's parameters; the KME inertia
@@ -418,9 +491,15 @@ PIM_DATA_DIR = Path(__file__).resolve().parent / "build" / "phase14"
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
-#: by SEED from 128-1024, 32 new tokens each, greedy
+#: by SEED from 128-1024, 16 new tokens each, greedy.  Cut from 32 (with
+#: FAM_NEW) to keep the script inside its time limit beside phase 15 (a
+#: slower host took 1170.6 s of 1200 before the cut): the launch counts,
+#: the prefill + decode check and the card against CPU check are as
+#: before, but decode steps 17-32 of a request (cache positions up to
+#: prompt + 32) run no more, and the decode medians come from 120 calls,
+#: not 248
 LM_ARCH = "qwen3-8b"
-LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 32, 2048
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 16, 2048
 LM_PROMPT_MIN, LM_PROMPT_MAX = 128, 1024
 LM_PROFILE_STEPS = 8
 #: qwen3-8b's MLP linears as (K, N): up and gate, then down
@@ -452,7 +531,10 @@ LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
 #: phase 11, the decoder-only families at full width, bf16, seeded random
 #: weights: qwen2-moe-a2.7b and hymba-1.5b served as qwen3-8b is (LM_REQUESTS
 #: over LM_SLOTS, prompts drawn from LM_PROMPT_MIN-MAX, FAM_NEW new tokens:
-#: half of LM_NEW, to keep the phase near 150 s),
+#: half of LM_NEW, to keep the script inside its time limit; 16 until
+#: then, so decode steps 9-16 of a request, in phases 11 and 12, run no
+#: more: hymba's window of 1024 is passed either way, its meta tokens
+#: included),
 #: xlstm-350m on prompts of 64-token multiples (its mLSTM's chunk contract:
 #: a prompt longer than 64 tokens must be a multiple of 64), dbrx-132b cut
 #: to FAM_DBRX_LAYERS of 40 layers (40 would be 264 GB of bf16) on one
@@ -461,7 +543,7 @@ FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_DBRX = ("qwen2-moe-a2.7b", "hymba-1.5b",
                                            "xlstm-350m", "dbrx-132b")
 FAM_DBRX_LAYERS, FAM_DBRX_PROMPT, FAM_DBRX_NEW = 4, 512, 8
 FAM_XLSTM_CHUNK = 64
-FAM_NEW = 16
+FAM_NEW = 8
 #: (e), card against CPU on each family reduced to float32: hymba with 4
 #: layers (layer 1 slides its 32-token window; both layers of the default
 #: 2 are global), batches of 2 x 64 tokens so the window bites.  One
@@ -3889,6 +3971,671 @@ def vlm_audio_on_card(torch, dispatch, smi: str) -> dict:
     return res
 
 
+# -- phase 15: the dense LM on sharded parameters ------------------------------
+
+def _local_param_bytes(params) -> int:
+    return sum(getattr(p, "_local_tensor", p).numel() * p.element_size()
+               for p in params.parameters())
+
+
+def _digest_params(params) -> dict:
+    """name -> sha256 of each leaf's whole value (a DTensor gathered)."""
+    import hashlib
+    from repro_torch.distributed.tp import full_tensor
+    out = {}
+    for name, p in params.named_parameters():
+        t = full_tensor(p.detach()).contiguous()
+        out[name] = hashlib.sha256(t.view(torch_dtype_bits(t)).cpu().numpy()
+                                   .tobytes()).hexdigest()
+    return out
+
+
+def torch_dtype_bits(t):
+    import torch
+    return {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+
+
+class KernelChecks:
+    """Wraps the CUDA wrappers of ``ops`` in the registry: every launch
+    keeps its operand shapes (the first two tensors') and is held against
+    the op's plain version on the same operands, the rank's own shards
+    (the plain versions count no launch): int_matmul exactly; mha and
+    mha_bwd within TRAIN_BWD_BF16_RTOL of max |plain|, mha's lse within
+    TRAIN_LSE_ATOL.  The model's own activations, not unit-scale draws:
+    its prefill attention outputs reach [4, 8), where one bf16 rounding
+    (2**-8 of a value, TRAIN_BWD_BF16_RTOL's reason) is 0.03125, above
+    MHA_BF16_ATOL's absolute 2e-2."""
+
+    def __init__(self, torch, dispatch, ops):
+        self.torch, self.dispatch, self.ops = torch, dispatch, ops
+        self.shapes, self.errs, self.checked, self.over = {}, {}, {}, []
+
+    def __enter__(self):
+        self.saved = {op: self.dispatch.get_op(op) for op in self.ops}
+        for op, entry in self.saved.items():
+            def wrapped(*args, _entry=entry, _op=op, **kwargs):
+                out = _entry.cuda(*args, **kwargs)
+                self.check(_op, _entry.plain, out, args, kwargs)
+                return out
+            self.dispatch._OPS[op] = dataclasses.replace(entry, cuda=wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch._OPS.update(self.saved)
+
+    def check(self, op, plain, out, args, kwargs) -> None:
+        with self.torch.no_grad():
+            self._check(op, plain, out, args, kwargs)
+
+    def _check(self, op, plain, out, args, kwargs) -> None:
+        shapes = tuple(tuple(a.shape) for a in args[:2])
+        self.shapes.setdefault(op, set()).add(shapes)
+        self.checked[op] = self.checked.get(op, 0) + 1
+        got = out if isinstance(out, tuple) else (out,)
+        want = plain(*args, **kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        if args[0].dtype not in (self.torch.int8, self.torch.bfloat16):
+            self.over.append(f"{op} ran on {args[0].dtype}, not the main "
+                             f"path's type")
+        if op == "int_matmul":
+            errs = {op: (float((got[0].long() - want[0].long()).abs().max()),
+                         0.0)}
+        elif op == "mha":
+            errs = {op: (_rel_err(got[0], want[0]), TRAIN_BWD_BF16_RTOL),
+                    "mha abs": (float((got[0].float() - want[0].float())
+                                      .abs().max()), float("inf"))}
+            if len(got) > 1:
+                errs["mha lse"] = (float((got[1] - want[1]).abs().max()),
+                                   TRAIN_LSE_ATOL)
+        else:
+            errs = {op: (max(_rel_err(g, w) for g, w in zip(got, want)),
+                         TRAIN_BWD_BF16_RTOL),
+                    "mha_bwd abs": (max(float((g.float() - w.float()).abs()
+                                              .max())
+                                        for g, w in zip(got, want)),
+                                    float("inf"))}
+        for name, (err, tol) in errs.items():
+            self.errs[name] = max(self.errs.get(name, 0.0), err)
+            if not err <= tol:
+                self.over.append(f"{name} at {shapes}: {err} > {tol}")
+
+    def report(self) -> dict:
+        return {"shapes": {op: sorted(s) for op, s in self.shapes.items()},
+                "kernel_errs": dict(self.errs),
+                "kernel_checked": dict(self.checked),
+                "kernel_over": list(self.over)}
+
+
+class CollectiveTimer:
+    """Times every DTensor redistribution (each a collective, or a local
+    slice) on the host clock, the card synchronised before and after."""
+
+    def __init__(self, torch):
+        from torch.distributed.tensor import _api, _dispatch, _redistribute
+        self.torch, self.mods = torch, (_api, _dispatch, _redistribute)
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        real = self.mods[2].redistribute_local_tensor
+
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        self.real = real
+        for m in self.mods:
+            m.redistribute_local_tensor = timed
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.redistribute_local_tensor = self.real
+
+
+def tp_prompts(vocab: int) -> np.ndarray:
+    return np.random.RandomState(SEED).randint(
+        0, vocab, (TP_PROMPTS, TP_PROMPT_LEN)).astype(np.int32)
+
+
+def tp_serve(torch, dispatch, model, params, prompts, tokens=None,
+             new: int = TP_NEW) -> dict:
+    """Prefill ``prompts`` then ``new`` decode steps, greedy (or fed
+    ``tokens`` [new, B]): last logits each step (float32, whole),
+    tokens, ms, launch counts."""
+    from repro_torch.distributed.tp import full_tensor
+
+    def whole(t):
+        return full_tensor(t)[:, -1].float().cpu().numpy()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_seq=TP_PROMPT_LEN + TP_NEW)
+        out = [whole(logits)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = []
+        for i in range(new):
+            tok = (out[-1].argmax(-1) if tokens is None else tokens[i])
+            toks.append(np.asarray(tok, dtype=np.int32))
+            logits, cache = model.decode_step(
+                params, torch.as_tensor(toks[-1][:, None]), cache)
+            out.append(whole(logits))
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"logits": np.stack(out), "tokens": np.stack(toks),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms": (t2 - t1) * 1e3 / new,
+            "counts": dict(dispatch.launch_counts)}
+
+
+class QuantDenseHook:
+    """Replaces ``models.quantized.quant_dense`` (what every quantized
+    linear of the model calls) with ``self`` while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import quantized
+        self.module, self.orig = quantized, quantized.quant_dense
+        quantized.quant_dense = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quant_dense = self.orig
+
+
+class Int8Check(QuantDenseHook):
+    """On the ranks, every quantized linear: its sharded int8 activations
+    gathered against the one-process quantization of its gathered input
+    (the elements that differ counted); for the first ``keep`` calls also
+    the sharded int_matmul (int32 partial sums reduced) against
+    ``int_matmul_cuda`` on the gathered operands, launches not counted.
+    With ``record``, the gathered int8 activations and their scale, in
+    call order, on the host (the one-process run is fed them:
+    :class:`Int8Feed`)."""
+
+    def __init__(self, keep: int, record: bool):
+        self.keep, self.record = keep, record
+        self.calls, self.diff, self.gathered, self.gathered_diff = 0, 0, 0, 0
+        self.elements, self.records = 0, []
+
+    def __call__(self, x, w_q, w_scale):
+        from repro_torch.core.quantization import symmetric_quantize
+        from repro_torch.distributed.tp import full_tensor
+        from repro_torch.kernels import dispatch
+        from repro_torch.kernels.quant_matmul import int_matmul_cuda
+        flat = x.reshape(-1, x.shape[-1])
+        x_q, xp = symmetric_quantize(flat, bits=8)
+        got_q = full_tensor(x_q)
+        want_q, _ = symmetric_quantize(full_tensor(flat), bits=8)
+        self.diff += int((got_q != want_q).sum())
+        self.elements += got_q.numel()
+        if self.record:
+            self.records.append((got_q.cpu(), full_tensor(xp.scale).cpu()))
+        if self.calls < self.keep:
+            counts = dict(dispatch.launch_counts)
+            acc = full_tensor(dispatch.launch("int_matmul", x_q, w_q))
+            want = int_matmul_cuda(want_q, full_tensor(w_q).contiguous())
+            self.gathered_diff += int((acc != want).sum())
+            self.gathered += 1
+            dispatch.launch_counts.clear()
+            dispatch.launch_counts.update(counts)
+        self.calls += 1
+        return self.orig(x, w_q, w_scale)
+
+
+class Int8Feed(QuantDenseHook):
+    """In the one-process run, quantized linear i quantizes its own input
+    and counts the int8 elements that differ from the sharded run's call
+    i (the flips between the runs); with ``feed`` it then multiplies the
+    sharded run's int8 activations and scale in place of its own, so the
+    int8 rounding of one run cannot move the other."""
+
+    def __init__(self, records: list, feed: bool):
+        self.records, self.feed = records, feed
+        self.flips, self.sizes = [], []
+
+    def __call__(self, x, w_q, w_scale):
+        from repro_torch.core.quantization import symmetric_quantize
+        from repro_torch.kernels import dispatch
+        lead, k = x.shape[:-1], x.shape[-1]
+        x_q, _ = symmetric_quantize(x.reshape(-1, k), bits=8)
+        rec_q, rec_scale = self.records[len(self.flips)]
+        rec_q = rec_q.to(x.device)
+        self.flips.append(int((x_q != rec_q).sum()))
+        self.sizes.append(x_q.numel())
+        if not self.feed:
+            return self.orig(x, w_q, w_scale)
+        out = dispatch.launch("quant_matmul", rec_q, w_q,
+                              rec_scale.to(x.device), w_scale)
+        return out.reshape(*lead, -1).to(x.dtype)
+
+
+def tp_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
+    """Phase 15 on one of TP_RANKS ranks of a ("data"=1, "model"=2) mesh:
+    (a) qwen3-8b served with quantize_dense on and off: once checked
+    (every kernel launch against its plain version on the rank's shards,
+    every quantized linear's int8 activations; rank 0 writes them to
+    ``int8_path`` for the one-process run), once timed, and off once more
+    with the collectives timed; (b) granite-3-8b's train step at
+    TP_TRAIN_LAYERS layers, its kernels checked; (c) its params saved;
+    (d) the launch counts and the shapes each kernel ran at."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    res = {"jax": "jax" in sys.modules}
+    cfg = get_config(LM_ARCH)
+    with use_mesh(mesh):
+        model = Model(cfg, "cuda")
+        params = model.place(model.init(torch.Generator(
+            device="cuda").manual_seed(SEED)), mesh)
+        res["param_bytes"] = _local_param_bytes(params)
+        torch.cuda.empty_cache()
+        prompts = tp_prompts(cfg.vocab_size)
+        for quant in (True, False):
+            m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+            tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)  # warm-up
+            with KernelChecks(torch, dispatch, ("mha", "int_matmul")) as kc, \
+                    Int8Check(TP_INT8_CALLS, record=quant and rank == 0) \
+                    as i8:
+                run = tp_serve(torch, dispatch, m, params, prompts)
+            if i8.records:
+                torch.save(i8.records, int8_path)
+            run.update(kc.report(), int8_calls=i8.calls, int8_diff=i8.diff,
+                       int8_elements=i8.elements, int8_gathered=i8.gathered,
+                       int8_gathered_diff=i8.gathered_diff)
+            del i8
+            timed = tp_serve(torch, dispatch, m, params, prompts,
+                             tokens=run["tokens"])
+            run["prefill_ms"], run["decode_ms"] = (timed["prefill_ms"],
+                                                   timed["decode_ms"])
+            run["timed_counts"] = timed["counts"]
+            if not quant:
+                with CollectiveTimer(torch) as ct:
+                    t0 = time.perf_counter()
+                    tp_serve(torch, dispatch, m, params, prompts,
+                             tokens=run["tokens"])
+                    wall = time.perf_counter() - t0
+                run["coll_share"] = ct.seconds / wall
+                run["coll_calls"] = ct.calls
+            res["serve", quant] = run
+        res["peak_serve"] = torch.cuda.max_memory_allocated()
+        del params
+        torch.cuda.empty_cache()
+
+        tcfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                   n_layers=TP_TRAIN_LAYERS)
+        tmodel = Model(tcfg, "cuda")
+        params = tmodel.place(tmodel.init(torch.Generator(
+            device="cuda").manual_seed(SEED)), mesh).trainable_()
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(tmodel, opt)
+        batch = tp_train_batch(tcfg.vocab_size)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        with KernelChecks(torch, dispatch, ("mha", "mha_bwd")) as kc:
+            params, state, m = step(params, state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+        res["train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                        "counts": dict(dispatch.launch_counts),
+                        **kc.report(),
+                        "step_ms": timed_step(torch, step, params, state,
+                                              batch)}
+        checkpoint.save(ckpt_dir, 1, params)
+        res["saved"] = _digest_params(params)
+    return res
+
+
+def timed_step(torch, step, params, state, batch) -> float:
+    """ms of one more step (the first one warmed the card's paths)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def tp_train_batch(vocab: int) -> dict:
+    rng = np.random.RandomState(SEED + 1)
+    return {k: rng.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ))
+            .astype(np.int32) for k in ("tokens", "targets")}
+
+
+def tp_dryrun_start(out_dir: Path) -> list:
+    """Start phase 15 (e)'s dry-run, qwen3-8b's TP_DRY_SHAPES on fake CUDA
+    tensors, in two processes of their own (each owns a fake process
+    group), one a production mesh: 1pod, then decode_32k on (1, TP_RANKS);
+    2pod.  Each writes its own results."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    code = ("import sys; from repro_torch.launch import dryrun; "
+            "a = ['--arch', sys.argv[1], '--device', 'cuda', '--results', "
+            "sys.argv[2], sys.argv[3]]; "
+            "[dryrun.main(a + ['--shape', s]) for s in sys.argv[5:]]; "
+            "sys.argv[4] and dryrun.main(a + ['--shape', 'decode_32k', "
+            "'--mesh-shape', sys.argv[4]])")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    started = []
+    for pods, flag, extra in (("1pod", "--single-pod-only", f"1,{TP_RANKS}"),
+                              ("2pod", "--multi-pod-only", "")):
+        results = out_dir / f"dryrun_{pods}.json"
+        if results.exists():
+            results.unlink()
+        log = open(out_dir / f"dryrun_{pods}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, LM_ARCH, str(results), flag, extra,
+             *TP_DRY_SHAPES], env=env, stdout=log, stderr=subprocess.STDOUT)
+        started.append((proc, results, log))
+    return started
+
+
+def tp_dryrun_finish(started: list, tp: dict, smi: str) -> dict:
+    """Wait for (e), check its cells and print their roofline rows."""
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    entries = {}
+    for proc, results, log in started:
+        try:
+            rc = proc.wait(timeout=TP_DRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p, _, _ in started:
+                p.kill()
+                p.wait()
+            fail(f"tp (e): the dry-run did not end in {TP_DRY_TIMEOUT:g} s")
+        log.close()
+        if rc != 0:
+            say(Path(log.name).read_text()[-3000:])
+            fail(f"tp (e): the dry-run exited {rc}")
+        entries.update(json.loads(results.read_text()))
+    say(f"tp (e): waited {time.perf_counter() - t0:.1f} s for the dry-run "
+        f"after the data's set-up")
+    for key, e in sorted(entries.items()):
+        if e["status"] != "ok":
+            fail(f"tp (e): {key} is {e['status']}: {e.get('error')}")
+        c = e["corrected"]
+        say(f"tp (e) {key}: {e['mesh']}, traced in {e['trace_s']} s: "
+            f"{c['flops']:.4e} flops, {c['collective_bytes']:.4e} B of "
+            f"collectives {c['collective_counts']}, params "
+            f"{e['param_bytes'] / 2 ** 30:.3f} GiB, arguments "
+            f"{e['argument_bytes'] / 2 ** 30:.3f} GiB, peak "
+            f"{e['peak_bytes'] / 2 ** 30:.3f} GiB a rank (a model of "
+            f"H100 ranks, traced on this host)")
+    for mesh in ("1pod", "2pod"):
+        say(roofline.render_markdown(roofline.build_table(entries, mesh),
+                                     mesh))
+    key = f"{LM_ARCH}|decode_32k|1pod|mesh1x{TP_RANKS}"
+    measured = [r["param_bytes"] for r in tp["ranks"]]
+    want = entries[key]["param_bytes"]
+    say(f"tp (e): parameter bytes a rank on (1, {TP_RANKS}): dry-run "
+        f"{want:,}, measured {measured} on {smi}")
+    if any(b != want for b in measured):
+        fail(f"tp (e): the dry-run's {want:,} parameter bytes a rank != "
+             f"the ranks' {measured}")
+    return {"cells": len(entries)}
+
+
+def tp_one_process(torch, dispatch, tp: dict, ckpt_dir: str,
+                   int8_path: str) -> dict:
+    """The one-process runs phase 15 holds the ranks against: qwen3-8b
+    fed the ranks' tokens (with quantize_dense on also fed their int8
+    activations, and counting the flips), granite's step, the checkpoint
+    restored."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    r0 = tp["ranks"][0]
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    out = {"param_bytes": _local_param_bytes(params)}
+    prompts = tp_prompts(cfg.vocab_size)
+    records = torch.load(int8_path, weights_only=True)
+    for quant in (True, False):
+        m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+        tokens = r0["serve", quant]["tokens"]
+        tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
+        out["serve", quant] = tp_serve(torch, dispatch, m, params, prompts,
+                                       tokens=tokens)
+        if quant:
+            for feed in (False, True):
+                with Int8Feed(records, feed) as f8:
+                    run = tp_serve(torch, dispatch, m, params, prompts,
+                                   tokens=tokens)
+                run["flips"], run["sizes"] = f8.flips, f8.sizes
+                out["int8", feed] = run
+    del params, model, records
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TP_TRAIN_LAYERS)
+    tmodel = Model(tcfg, "cuda")
+    params = tmodel.init(torch.Generator(device="cuda").manual_seed(SEED)) \
+        .trainable_()
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(tmodel, opt)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    state = opt.init(params)
+    batch = tp_train_batch(tcfg.vocab_size)
+    _, _, m = step(params, state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    out["train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                    "counts": dict(dispatch.launch_counts),
+                    "step_ms": timed_step(torch, step, params, state,
+                                          batch)}
+    # (c) the ranks' checkpoint into one process, then one more step
+    params.load_(checkpoint.restore(ckpt_dir, 1, params))
+    out["restored"] = _digest_params(params)
+    _, _, m = step(params, opt.init(params), tp_train_batch(tcfg.vocab_size))
+    out["after_restore_loss"] = float(m["loss"])
+    del params, tmodel, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 15, checks (a)-(d) (the module docstring); (e) runs later,
+    beside the data's set-up only (tp_dryrun_start)."""
+    import shutil
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    t_phase = time.perf_counter()
+    ckpt, int8_path = TP_DIR / "ckpt", TP_DIR / "int8.pt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    say(f"tp: {TP_RANKS} ranks share the card over "
+        f"{backend_for('cuda', TP_RANKS)}, a (data=1, model={TP_RANKS}) "
+        f"mesh")
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(tp_rank, TP_RANKS, device="cuda",
+                            timeout=TP_TIMEOUT,
+                            args=(str(ckpt), str(int8_path)))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    tp = {"ranks": ranks}
+    one = tp_one_process(torch, dispatch, tp, str(ckpt), str(int8_path))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    int8_path.unlink()
+    check_tp(tp, one, smi)
+    tp["wall_s"] = time.perf_counter() - t_phase
+    say(f"tp: phase 15 (a)-(d) in {tp['wall_s']:.1f} s ({ranks_s:.1f} s "
+        f"the ranks) on {smi}")
+    return tp
+
+
+def _greedy(fed, tokens, tol: float) -> tuple:
+    """The positions whose top-2 margin in ``fed`` (the logits each fed
+    token came from) exceeds ``tol``, and where argmax == the token."""
+    top2 = np.sort(fed, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > tol, fed.argmax(-1) == tokens
+
+
+def check_tp(tp: dict, one: dict, smi: str) -> None:
+    """Phase 15 (a)-(d) against the one-process runs: every number
+    printed, then every failed check listed at once."""
+    ranks, bad = tp["ranks"], []
+    if any(r["jax"] for r in ranks):
+        bad.append("tp: a rank imported JAX")
+    for r in ranks:
+        for part in (r["serve", True], r["serve", False], r["train"]):
+            bad += [f"tp kernels: {o}" for o in part["kernel_over"]]
+    for quant in (True, False):
+        mode = "quantize_dense on" if quant else "off"
+        got = ranks[0]["serve", quant]
+        # with quantize_dense on, the one-process run fed the ranks' int8
+        # activations: the int8 rounding of one run cannot move the other
+        want = one["int8", True] if quant else one["serve", False]
+        for r in ranks[1:]:
+            if not np.array_equal(r["serve", quant]["logits"], got["logits"]):
+                bad.append(f"tp (a) {mode}: the ranks' logits differ")
+        err = float(np.abs(got["logits"] - want["logits"]).max())
+        sure, agree = _greedy(want["logits"][:TP_NEW], got["tokens"],
+                              TP_BF16_TOL)
+        say(f"tp (a) {mode}: logits (prefill + {TP_NEW} decode steps) max "
+            f"|sharded - one process{' fed their int8' if quant else ''}| "
+            f"{err:.4g} (tolerance {TP_BF16_TOL}); greedy tokens equal at "
+            f"{int((agree & sure).sum())} of {int(sure.sum())} positions "
+            f"whose top-2 margin exceeds it ({int(agree.sum())} of "
+            f"{agree.size} in all)")
+        if err > TP_BF16_TOL or not np.all(agree[sure]):
+            bad.append(f"tp (a) {mode}: sharded serving disagrees with one "
+                       f"process")
+        for r in ranks:
+            c = r["serve", quant]
+            if c["counts"] != one["serve", quant]["counts"] \
+                    or c["timed_counts"] != c["counts"]:
+                bad.append(f"tp (d) {mode}: rank launches {c['counts']} "
+                           f"(timed run {c['timed_counts']}) != one process "
+                           f"{one['serve', quant]['counts']}")
+        say(f"tp (a) {mode}: every launch on a rank against its plain "
+            f"version on the rank's operands: {got['kernel_checked']}, "
+            f"errors {got['kernel_errs']} (int_matmul exact, mha <= "
+            f"{TRAIN_BWD_BF16_RTOL} of max |plain|); shapes {got['shapes']}")
+        say(f"tp (a) {mode}: prefill {got['prefill_ms']:.1f} ms against "
+            f"{one['serve', quant]['prefill_ms']:.1f} ms in one process; "
+            f"{got['decode_ms']:.1f} ms a decode token against "
+            f"{one['serve', quant]['decode_ms']:.1f} ms; launches a rank "
+            f"{got['counts']} (= one process) on {smi}")
+    on = ranks[0]["serve", True]
+    calls = one["serve", True]["counts"]["int_matmul"]
+    say(f"tp (a) quantize_dense on: int8 activations of all "
+        f"{on['int8_calls']} quantized linears ({on['int8_elements']:,} "
+        f"elements) against one-process quantization of the gathered "
+        f"inputs: {on['int8_diff']} differ; int32 products of the first "
+        f"{on['int8_gathered']} against int_matmul on the gathered "
+        f"operands: {on['int8_gathered_diff']} differ")
+    if on["int8_calls"] != calls or on["int8_diff"] \
+            or on["int8_gathered"] != TP_INT8_CALLS \
+            or on["int8_gathered_diff"]:
+        bad.append("tp (a): sharded int8 activations or int_matmul outputs "
+                   "differ from one process on the same inputs")
+    unfed, fed = one["serve", True], one["int8", True]
+    per_call = len(one["int8", False]["flips"]) // (TP_NEW + 1)
+    for name, run in (("own", one["int8", False]), ("fed", fed)):
+        starts = np.arange(0, len(run["flips"]), per_call)
+        flips = np.add.reduceat(run["flips"], starts)
+        sizes = np.add.reduceat(run["sizes"], starts)
+        say(f"tp (a) quantize_dense on, one process {name} int8: elements "
+            f"differing from the ranks' int8 activations a forward call "
+            f"(prefill, then each decode step) {flips.tolist()} of "
+            f"{sizes.tolist()} ({flips.sum() / sizes.sum():.2%} in all)")
+    gap = float(np.abs(on["logits"] - unfed["logits"]).max())
+    sure, agree = _greedy(unfed["logits"][:TP_NEW], on["tokens"],
+                          TP_BF16_TOL)
+    say(f"tp (a) quantize_dense on, one process quantizing its own "
+        f"activations (not bounded: the flips above move it): logits max "
+        f"|sharded - one process| {gap:.4g}; greedy tokens equal at "
+        f"{int((agree & sure).sum())} of {int(sure.sum())} positions whose "
+        f"top-2 margin exceeds {TP_BF16_TOL} ({int(agree.sum())} of "
+        f"{agree.size} in all)")
+    if len(one["int8", False]["flips"]) != calls:
+        bad.append("tp (a): the one-process run made another number of "
+                   "quantized calls than the ranks")
+    off = ranks[0]["serve", False]
+    say(f"tp (a): with every redistribution synchronised and timed, the "
+        f"collectives take {off['coll_share']:.1%} of the decode run "
+        f"({off['coll_calls']} redistributions) on {smi}")
+    for shapes in ranks[0]["serve", True]["shapes"]["mha"]:
+        if shapes[0][1] != 32 // TP_RANKS:
+            bad.append(f"tp (d): mha ran on {shapes}, not on the rank's "
+                       f"heads")
+    for (a, b) in ranks[0]["serve", True]["shapes"]["int_matmul"]:
+        if b not in ((4096, 12288 // TP_RANKS), (12288 // TP_RANKS, 4096)):
+            bad.append(f"tp (d): int_matmul ran on a weight {b}, not a "
+                       f"shard")
+    got, want = ranks[0]["train"], one["train"]
+    for r in ranks:
+        if r["train"]["counts"] != want["counts"]:
+            bad.append(f"tp (d) train: rank launches "
+                       f"{r['train']['counts']} != one process "
+                       f"{want['counts']}")
+    dloss = abs(got["loss"] - want["loss"])
+    dnorm = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    say(f"tp (b): {TRAIN_ARCH} at {TP_TRAIN_LAYERS} layers, one step: loss "
+        f"{got['loss']:.5f} against {want['loss']:.5f} (|d| {dloss:.3g}, "
+        f"tolerance {TRAIN_LOSS_ATOL}), grad norm {got['grad_norm']:.5f} "
+        f"against {want['grad_norm']:.5f} (rel {dnorm:.3g}, tolerance "
+        f"{TRAIN_GRAD_RTOL}); {got['step_ms']:.0f} ms a step (the second) "
+        f"against {want['step_ms']:.0f} ms; launches a rank (step 1) "
+        f"{got['counts']}; every launch against its plain version on the "
+        f"rank's operands: {got['kernel_checked']}, errors "
+        f"{got['kernel_errs']} (mha and mha_bwd <= {TRAIN_BWD_BF16_RTOL} "
+        f"of max |plain|, lse <= {TRAIN_LSE_ATOL}); kernel shapes "
+        f"{got['shapes']} on {smi}")
+    if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
+        bad.append("tp (b): the sharded step disagrees with one process")
+    differ = [n for n in one["restored"]
+              if one["restored"][n] != ranks[0]["saved"].get(n)]
+    if differ or one["restored"].keys() != ranks[0]["saved"].keys():
+        bad.append(f"tp (c): {len(differ)} leaves differ after the "
+                   f"restore (first {differ[:3]})")
+    if not np.isfinite(one["after_restore_loss"]):
+        bad.append("tp (c): the step after the restore is not finite")
+    say(f"tp (c): {len(one['restored'])} leaves restored into one process "
+        f"bit for bit; the next step's loss {one['after_restore_loss']:.5f}")
+    say(f"tp: parameter bytes a rank {[r['param_bytes'] for r in ranks]} "
+        f"against {one['param_bytes']:,} in one process; serving peak "
+        f"{[r['peak_serve'] / 2 ** 30 for r in ranks]} GiB a rank")
+    if bad:
+        fail("; ".join(bad))
+
+
+def tp_kernel_errs(tp: dict) -> dict:
+    """Phase 15's largest kernel-against-plain error of each op over the
+    ranks and runs (int_matmul: abs; mha and mha_bwd: abs and over max
+    |plain|; mha's lse: abs), and the launches checked a rank."""
+    errs, checked = {}, {}
+    for r in tp["ranks"]:
+        for part in (r["serve", True], r["serve", False], r["train"]):
+            for k, e in part["kernel_errs"].items():
+                errs[k] = max(errs.get(k, 0.0), e)
+    r0 = tp["ranks"][0]
+    for part in (r0["serve", True], r0["serve", False], r0["train"]):
+        add_counts(checked, part["kernel_checked"])
+    return {"errs": errs, "checked": checked}
+
+
 # -- phase 13: data-parallel training over ranks sharing the card -------------
 
 def _sync(torch, device) -> None:
@@ -4722,8 +5469,13 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 say(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
 
+    # -- 15. the dense LM on sharded parameters -----------------------------
+    # first, while this process holds nothing on the card; (e), the
+    # dry-run, runs beside phase 14's data set-up
+    tp = tp_on_card(torch, dispatch, smi)
+
     # -- 13. data-parallel training over ranks sharing the card -------------
-    # first, while this process holds nothing on the card
+    # while this process holds nothing on the card
     dp = dp_on_card(torch, smi)
 
     # -- 14. PIM-ML over ranks sharing the card, on phases 4-5's data -------
@@ -4733,7 +5485,9 @@ def main() -> int:
         f"{n_emb:,} ratings (the Netflix matrix's {EMB_SIZES[0]:,} need "
         f"~{EMB_SIZES[0] * EMB_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB to "
         f"generate; taken when under half of MemAvailable)")
+    dry = tp_dryrun_start(TP_DIR / "dryrun")   # 15 (e), beside set-up only
     pim_sets = pim_data(n_dtr, n_emb)
+    tp_dry = tp_dryrun_finish(dry, tp, smi)
     pim = pim_on_card(torch, pim_sets, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
@@ -5274,6 +6028,22 @@ def main() -> int:
          "library": "F.scaled_dot_product_attention forward + backward",
          "fwd_bwd_ms": bt["fwd_bwd_ms"]},
     ]
+    tp0, tpk = tp["ranks"][0], tp_kernel_errs(tp)
+    for k in kernels:       # phase 15's launches on rank 0, checks' errors
+        if k["name"] == "int_matmul":
+            k["tp_launches_a_rank"] = tp0["serve", True]["counts"]["int_matmul"]
+            k["tp_max_abs_err"] = tpk["errs"]["int_matmul"]
+        elif k["name"] == "flash_attention":
+            k["tp_launches_a_rank"] = (tp0["serve", True]["counts"]["mha"]
+                                       + tp0["serve", False]["counts"]["mha"]
+                                       + tp0["train"]["counts"]["mha"])
+            k["tp_max_abs_err"] = tpk["errs"]["mha abs"]
+            k["tp_max_rel_err"] = tpk["errs"]["mha"]
+            k["tp_lse_max_abs_err"] = tpk["errs"]["mha lse"]
+        elif k["name"] == "flash_attention_bwd":
+            k["tp_launches_a_rank"] = tp0["train"]["counts"]["mha_bwd"]
+            k["tp_max_abs_err"] = tpk["errs"]["mha_bwd abs"]
+            k["tp_max_rel_err"] = tpk["errs"]["mha_bwd"]
     ranked = {}     # phase 14's launches on rank 0, and its checks' errors
     for rec in pim["ranks"][0]["fits"].values():
         add_counts(ranked, rec["counts"])
@@ -5321,6 +6091,13 @@ def main() -> int:
         "losses", "step_ms", "reduce_ms", "tokens_per_s", "payload_bytes",
         "staged_bytes", "saved_model", "peak_bytes")}
         for mode in ("exact", "compressed")}))
+    say("tp: " + json.dumps({
+        **{f"serve {'on' if q else 'off'}": {
+            k: tp0["serve", q][k] for k in ("prefill_ms", "decode_ms")}
+           for q in (True, False)},
+        "coll_share": tp0["serve", False]["coll_share"],
+        "train_step_ms": tp0["train"]["step_ms"],
+        "dry_cells": tp_dry["cells"], "wall_s": tp["wall_s"]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from ..kernels.dispatch import is_dtensor
+
 _INT_DTYPES = {8: torch.int8, 16: torch.int16, 32: torch.int32}
 
 #: storage width in bytes of every on-bank dtype used by the workloads
@@ -70,16 +72,74 @@ def symmetric_quantize(x: torch.Tensor, bits: int = 8,
     """
     qmax = 2 ** (bits - 1) - 1
     if axis is None:
-        amax = torch.amax(torch.abs(x))
+        amax = (ShardedAmax.apply(x) if is_dtensor(x)
+                else torch.amax(torch.abs(x)))
     else:
         # as the reference: a negative axis matches no dim, so every dim
         # is reduced (one scale, kept at x's rank)
         reduce_dims = tuple(i for i in range(x.dim()) if i != axis)
-        amax = torch.amax(torch.abs(x), dim=reduce_dims, keepdim=True)
-    scale = torch.clamp_min(amax, eps) / qmax
+        amax = (ShardedAmax.apply(x, reduce_dims) if is_dtensor(x) else
+                torch.amax(torch.abs(x), dim=reduce_dims, keepdim=True))
+    scale = true_divide(torch.clamp_min(amax, eps), qmax)
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
     return (q.to(int_dtype_for_bits(bits)),
             QuantParams(scale=scale, bits=bits, axis=axis))
+
+
+def true_divide(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` rounded once, as on the CPU and in XLA: on a CUDA tensor
+    ``x / n`` with a Python number multiplies by its reciprocal, one ulp
+    off for some x (a quantization scale, then its int8 values, would
+    differ from the CPU's)."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+class ShardedAmax(torch.autograd.Function):
+    """``amax(|x|)`` of a DTensor over ``dims`` (kept, as size 1; None:
+    every dim, a 0-d result), reduced over the ranks that split a reduced
+    dim, with the gradient ``torch.amax``'s formula gives the whole
+    tensor: split evenly over every element at the maximum, on whichever
+    rank it lies (DTensor's sharded ``amax`` counts only local ones in
+    its backward, and reduces through gloo's max on CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, dims=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        from ..distributed.collectives import reduce_over
+        from ..distributed.tp import mesh_groups
+        if any(p.is_partial() for p in x.placements):
+            x = x.redistribute(placements=[
+                Replicate() if p.is_partial() else p for p in x.placements])
+        reduced = (tuple(range(x.ndim)) if dims is None
+                   else tuple(d % x.ndim for d in dims))
+
+        def split_reduced(p):
+            return p.is_shard() and p.dim in reduced
+        groups = mesh_groups(x, split_reduced)
+        local = x.to_local()
+        m = (torch.amax(torch.abs(local)) if dims is None else
+             torch.amax(torch.abs(local), dim=reduced, keepdim=True))
+        m = reduce_over(m, "max", groups)
+        ctx.save_for_backward(local, m)
+        ctx.meta = (x.device_mesh, x.placements, groups, dims, reduced)
+        out_pl = [Replicate() if dims is None or split_reduced(p) else p
+                  for p in x.placements]
+        return DTensor.from_local(m, x.device_mesh, out_pl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        from ..distributed.collectives import reduce_over
+        local, m = ctx.saved_tensors
+        mesh, placements, groups, dims, reduced = ctx.meta
+        mask = torch.abs(local) == m
+        count = reduce_over(mask.sum() if dims is None else
+                            mask.sum(dim=reduced, keepdim=True),
+                            "sum", groups)
+        g = grad.to_local() if isinstance(grad, DTensor) else grad
+        out = (g / count) * mask * local.sgn()
+        return DTensor.from_local(out, mesh, placements,
+                                  run_check=False), None
 
 
 def dequantize(q: torch.Tensor, params: QuantParams) -> torch.Tensor:

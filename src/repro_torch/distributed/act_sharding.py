@@ -6,8 +6,10 @@ points as hints to XLA's SPMD partitioner, and the launcher opts in by
 setting the mesh via ``use_mesh`` (tests and single-device runs leave it
 unset -> no-op).  In the port an eager tensor is local to its rank and no
 partitioner reads a hint, so :func:`constrain` leaves a plain tensor as it
-is and redistributes a DTensor to the cut point's spec.  The model's call
-sites wait for tensor-parallel execution (ROADMAP queue 1 item 12d).
+is and redistributes a DTensor to the cut point's spec.  The dense LM
+calls it at the reference's cut points (``models/layers.py``,
+``models/attention.py``, ``models/transformer.py``), so with its
+parameters placed (``sharding.place_params``) it runs tensor-parallel.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import contextlib
 import os
 import threading
 from typing import Optional
+
+import torch
 
 from .sharding import P, placements, validate_divisibility
 
@@ -27,12 +31,22 @@ def _dp(mesh) -> tuple:
 
 @contextlib.contextmanager
 def use_mesh(mesh):
+    """Set the mesh the model's cut points constrain to.  Inside, a plain
+    tensor meeting a DTensor counts as replicated (positions, masks, the
+    optimizer's step; DTensor's ``implicit_replication``, kept on for the
+    backward too and restored on exit, so the contexts nest)."""
+    from torch.distributed.tensor import DTensor
     prev = getattr(_STATE, "mesh", None)
+    dispatcher = DTensor._op_dispatcher
+    prev_implicit = dispatcher._allow_implicit_replication
     _STATE.mesh = mesh
+    dispatcher._allow_implicit_replication = (mesh is not None
+                                              or prev_implicit)
     try:
         yield
     finally:
         _STATE.mesh = prev
+        dispatcher._allow_implicit_replication = prev_implicit
 
 
 def current_mesh():
@@ -76,7 +90,8 @@ def _spec_for(kind: str, ndim: int, mesh) -> Optional[tuple]:
 def constrain(x, kind: str):
     """``x`` unchanged when no mesh is set, the kind has no spec at its
     rank, or ``x`` is a plain tensor; a DTensor redistributed to the spec
-    (axes that do not divide dropped)."""
+    (axes that do not divide dropped), and its gradient too, as XLA
+    constrains the cotangent of ``with_sharding_constraint``."""
     from torch.distributed.tensor import DTensor
     mesh = current_mesh()
     if mesh is None or not isinstance(x, DTensor):
@@ -85,4 +100,19 @@ def constrain(x, kind: str):
     if spec is None:
         return x
     spec = validate_divisibility(spec, x.shape, mesh)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return _Constrain.apply(x, tuple(placements(spec, mesh)))
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``pl`` in the forward and the gradient to ``pl``
+    in the backward (``DTensor.redistribute``'s own backward returns the
+    gradient to the input's placements)."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.redistribute(placements=pl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(placements=ctx.pl), None

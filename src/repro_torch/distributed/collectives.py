@@ -212,3 +212,15 @@ def cross_pod_bytes(n_bytes: int, pod_size: int) -> tuple[int, int]:
     the napkin justification: hierarchical moves 1/pod_size as much over
     the slow links."""
     return n_bytes, n_bytes // pod_size
+
+
+def reduce_over(tensor: torch.Tensor, op: str, groups: list
+                ) -> torch.Tensor:
+    """``tensor`` all-reduced by ``op`` ("sum" or "max") over each of
+    ``groups`` in turn, as functional collectives (DTensor's; the
+    dry-run's trace counts them).  gloo runs both on CUDA tensors (a
+    probe on torch 2.11: float32 and bf16, a one-rank group too)."""
+    from torch.distributed import _functional_collectives as funcol
+    for group in groups:
+        tensor = funcol.all_reduce(tensor, op, group)
+    return tensor

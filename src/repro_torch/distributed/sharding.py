@@ -23,6 +23,8 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import torch
+
 #: trailing-dims spec per canonical weight name (leading dims -> None)
 _RULES: dict[str, tuple] = {
     # embeddings / heads: vocab over model
@@ -240,10 +242,13 @@ def cache_shardings(mesh, caches):
 def placements(spec: tuple, mesh) -> list:
     """DTensor placements for ``spec`` on ``mesh``: ``Shard(d)`` on each
     mesh dim that tensor dim ``d`` is split over, ``Replicate()`` on the
-    rest.  A dim split over several mesh axes takes them in mesh order
-    (pod-major, as ``P(("pod", "data"))`` lays rows out)."""
+    rest and on mesh dims of size 1 (a split in one is no split, and a
+    reduction over a one-rank group is no reduction).  A dim split over
+    several mesh axes takes them in mesh order (pod-major, as
+    ``P(("pod", "data"))`` lays rows out)."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
     out: list = [Replicate()] * len(names)
     for dim, s in enumerate(spec):
         if s is None:
@@ -255,13 +260,92 @@ def placements(spec: tuple, mesh) -> list:
         for i in idx:
             if not isinstance(out[i], Replicate):
                 raise ValueError(f"spec {spec} uses axis {names[i]} twice")
-            out[i] = Shard(dim)
+            if sizes[names[i]] > 1:
+                out[i] = Shard(dim)
     return out
 
 
 def place(tensor, mesh, spec: Optional[tuple]):
-    """``tensor`` (the same on every rank) as a DTensor on ``mesh`` laid out
-    by ``spec``; axes that do not divide its shape stay replicated."""
-    from torch.distributed.tensor import distribute_tensor
+    """``tensor`` (the same on every rank) as a DTensor on ``mesh`` laid
+    out by ``spec`` (axes that do not divide its shape stay replicated),
+    made from this rank's slice of it with no communication.  A split
+    tensor's local shard is a copy, so the whole tensor can be freed."""
     spec = validate_divisibility(tuple(spec or ()), tensor.shape, mesh)
-    return distribute_tensor(tensor, mesh, placements(spec, mesh))
+    return _from_slice(tensor, mesh, placements(spec, mesh))
+
+
+def _from_slice(tensor, mesh, pl: list):
+    from torch.distributed.tensor import DTensor
+    coord = mesh.get_coordinate()
+    local = tensor
+    for i, p in enumerate(pl):     # mesh dims in order: pod-major rows
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    if local is not tensor:
+        local = local.clone()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=tensor.shape, stride=tensor.stride())
+
+
+def local_like(tensor, like):
+    """``tensor`` (whole, the same on every rank) as a DTensor laid out as
+    the DTensor ``like``: this rank's slice, no communication."""
+    if any(p.is_partial() for p in like.placements):
+        raise ValueError(f"cannot lay a whole tensor out as {like.placements}")
+    return _from_slice(tensor.to(like.dtype), like.device_mesh,
+                       list(like.placements))
+
+
+def place_params(params, mesh, specs: dict):
+    """Replace every leaf of the :class:`Params` tree ``params`` (the same
+    on every rank) by its DTensor on ``mesh`` laid out by ``specs[name]``
+    (:func:`param_shardings`' names), in place; returns ``params``.  A
+    leaf keeps whether it requires a gradient."""
+    from torch import nn
+    for prefix, module in params.named_modules():
+        for name, p in list(module._parameters.items()):
+            full = f"{prefix}.{name}" if prefix else name
+            module._parameters[name] = nn.Parameter(
+                place(p.detach(), mesh, specs[full]),
+                requires_grad=p.requires_grad)
+    return params
+
+
+def redistribute_to(x, mesh, spec: tuple):
+    """``x`` laid out by ``spec``: a DTensor redistributed (a split of a
+    replicated dim is a local slice), a plain tensor placed."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return place(x, mesh, spec)
+    spec = validate_divisibility(tuple(spec), x.shape, mesh)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def place_opt_state(state, mesh, specs: dict):
+    """An ``AdamState`` with its moments laid out by ``specs``
+    (:func:`opt_state_shardings`: ZeRO-1, the parameter's spec plus the
+    data axes); the step stays a replicated scalar."""
+    return state._replace(
+        m={n: redistribute_to(t, mesh, specs[n]) for n, t in state.m.items()},
+        v={n: redistribute_to(t, mesh, specs[n]) for n, t in state.v.items()})
+
+
+def place_batch(batch: dict, mesh) -> dict:
+    """Every tensor of ``batch`` (the global batch, the same on every rank)
+    as a DTensor with its rows over the data axes
+    (:func:`batch_shardings`)."""
+    specs = batch_shardings(mesh, batch)
+    return {k: place(v, mesh, specs[k]) for k, v in batch.items()}
+
+
+def cache_tensor(shape: tuple, fill: float, dtype, device, mesh=None):
+    """A decode-cache tensor ``[B, Hkv, ...]`` filled with ``fill``: plain
+    on ``device``, or on ``mesh`` a DTensor over (data axes, "model") by
+    :func:`cache_shardings`' rule for KV caches, of which each rank
+    allocates its shard alone."""
+    if mesh is None:
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import full
+    spec = _cache_spec("k", tuple(shape), mesh, True)
+    return full(shape, fill, dtype=dtype, device_mesh=mesh,
+                placements=placements(spec, mesh))

@@ -61,8 +61,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         window: int = 0) -> torch.Tensor:
     """Attention on q's device: the kernel for CUDA tensors (through
     :class:`MhaFunction` when q, k or v needs a gradient), the plain
-    version for CPU ones."""
-    if (q.is_cuda and torch.is_grad_enabled()
+    version for CPU ones; fake tensors take :class:`MhaFunction` too, so
+    the dry-run's backward is charged ``mha_bwd``."""
+    if ((q.is_cuda or dispatch.is_fake(q)) and torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return MhaFunction.apply(q, k, v, causal, q_offset, window)
     return dispatch.launch("mha", q, k, v, causal=causal, q_offset=q_offset,
@@ -404,6 +405,67 @@ def mha_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-dispatch.register_op("mha", cuda=mha_cuda, plain=mha_plain, cost=mha_cost)
+def mha_fake(q, k, v, *, causal: bool = True, q_offset: int = 0,
+             window: int = 0, with_lse: bool = False):
+    out = q.new_empty(q.shape)
+    if with_lse:
+        return out, q.new_empty(q.shape[:3], dtype=torch.float32)
+    return out
+
+
+def mha_bwd_fake(q, k, v, out, dout, lse, *, causal: bool = True,
+                 q_offset: int = 0, window: int = 0):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def on_head_shards(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on each rank's local batch rows and heads
+    of the DTensors ``args`` (each redistributed to the first's
+    placements), each tensor it returns placed as the first."""
+    from torch.distributed.tensor import DTensor
+    pl = _head_placements(args[0])
+    args = _to_placements(pl, *args)
+    mesh = args[0].device_mesh
+    out = fn(*(a.to_local() for a in args), **kwargs)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                     for o in out)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _head_placements(q) -> list:
+    """q's placements, which attention keeps: each rank attends over its
+    own batch rows and heads (``Shard(0)``, ``Shard(1)``; with GQA a
+    rank's query heads read its own kv heads when both split evenly).
+    The other operands are redistributed to them (activations only)."""
+    for p in q.placements:
+        if not (p.is_replicate() or p.is_shard(0) or p.is_shard(1)):
+            raise ValueError(f"attention: no rule for q placed {p}")
+    return list(q.placements)
+
+
+def _to_placements(placements, *ts):
+    from torch.distributed.tensor import DTensor
+    return tuple(t.redistribute(placements=placements)
+                 if isinstance(t, DTensor) and list(t.placements)
+                 != placements else t for t in ts)
+
+
+def mha_sharded(q, k, v, **kwargs):
+    """``mha`` on each rank's batch rows and heads: in and out placed as
+    q (heads ``Shard(1)`` over "model")."""
+    return on_head_shards(functools.partial(dispatch.launch, "mha"),
+                          q, k, v, **kwargs)
+
+
+def mha_bwd_sharded(q, k, v, out, dout, lse, **kwargs):
+    """``mha_bwd`` on each rank's batch rows and heads, placed as q."""
+    return on_head_shards(functools.partial(dispatch.launch, "mha_bwd"),
+                          q, k, v, out, dout, lse, **kwargs)
+
+
+dispatch.register_op("mha", cuda=mha_cuda, plain=mha_plain, cost=mha_cost,
+                     fake=mha_fake, sharded=mha_sharded)
 dispatch.register_op("mha_bwd", cuda=mha_bwd_cuda, plain=mha_bwd_plain,
-                     cost=mha_bwd_cost)
+                     cost=mha_bwd_cost, fake=mha_bwd_fake,
+                     sharded=mha_bwd_sharded)

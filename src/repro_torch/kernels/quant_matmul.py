@@ -317,7 +317,113 @@ def quant_dense(x: torch.Tensor, w_q: torch.Tensor,
     return out.reshape(*lead, -1).to(x.dtype)
 
 
+def int_matmul_cost(a_q: torch.Tensor, b_q: torch.Tensor
+                    ) -> dispatch.KernelCost:
+    """``2 M N K`` int8 operations; a and b read, the int32 c written."""
+    (m, k), n = a_q.shape, b_q.shape[1]
+    return dispatch.KernelCost(ops=2.0 * m * n * k,
+                               bytes=float(m * k + k * n + 4 * m * n),
+                               rate="int8")
+
+
+def quant_matmul_cost(a_q: torch.Tensor, b_q: torch.Tensor,
+                      a_scale: torch.Tensor, b_scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> dispatch.KernelCost:
+    """``int_matmul``'s product; a, b and the scales read, the
+    dequantized ``[M, N]`` written in ``out_dtype``."""
+    (m, k), n = a_q.shape, b_q.shape[1]
+    nbytes = (m * k + k * n + a_scale.numel() * a_scale.element_size()
+              + b_scale.numel() * b_scale.element_size()
+              + m * n * torch.empty((), dtype=out_dtype).element_size())
+    return dispatch.KernelCost(ops=2.0 * m * n * k, bytes=float(nbytes),
+                               rate="int8")
+
+
+def int_matmul_fake(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    return a_q.new_empty((a_q.shape[0], b_q.shape[1]), dtype=torch.int32)
+
+
+def quant_matmul_fake(a_q, b_q, a_scale, b_scale,
+                      out_dtype: torch.dtype = torch.float32):
+    return a_q.new_empty((a_q.shape[0], b_q.shape[1]), dtype=out_dtype)
+
+
+def product_placements(a_q, b_q) -> list:
+    """The placements of ``a @ b`` on each mesh dim, from a's and b's: a's
+    rows split (``Shard(0)``, b replicated) split c's rows; b's columns
+    split (column-parallel) split c's columns; a's K split against b's
+    (row-parallel) leaves partial sums; replicated stays replicated.  Any
+    other pair raises: no rule gathers an operand."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rules = {(Replicate(), Replicate()): Replicate(),
+             (Shard(0), Replicate()): Shard(0),
+             (Replicate(), Shard(1)): Shard(1),
+             (Shard(1), Shard(0)): Partial()}
+    out = []
+    for pa, pb in zip(a_q.placements, b_q.placements):
+        if (pa, pb) not in rules:
+            raise ValueError(f"int_matmul: no rule for a {pa} against b "
+                             f"{pb} (a {tuple(a_q.shape)}, b "
+                             f"{tuple(b_q.shape)})")
+        out.append(rules[pa, pb])
+    return out
+
+
+def _as_dtensors(*ts):
+    """Each tensor as a DTensor on the first DTensor's mesh; a plain
+    tensor replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
+    return tuple(t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in ts)
+
+
+def _a_placements(a_q, b_q) -> list:
+    """The placements a must have against b's (b, the weight, is never
+    moved): split K where b splits K, rows kept split or replicated where
+    b is replicated, replicated where b splits its columns."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pa, pb in zip(a_q.placements, b_q.placements):
+        if pb.is_shard(0):
+            out.append(Shard(1))
+        elif pb.is_replicate() and (pa.is_replicate() or pa.is_shard(0)):
+            out.append(pa)
+        else:
+            out.append(Replicate())
+    return out
+
+
+def int_matmul_sharded(a_q, b_q):
+    """``int_matmul`` on each rank's shards, placed by
+    :func:`product_placements`; row-parallel products stay ``Partial``:
+    int32 partial sums, exact once summed.  The activations a are
+    redistributed to what b's placements need (:func:`_a_placements`)."""
+    a_q, b_q = _as_dtensors(a_q, b_q)
+    want = _a_placements(a_q, b_q)
+    if list(a_q.placements) != want:
+        a_q = a_q.redistribute(placements=want)
+    return dispatch.on_shards("int_matmul", [product_placements(a_q, b_q)],
+                              a_q, b_q)
+
+
+def quant_matmul_sharded(a_q, b_q, a_scale, b_scale,
+                         out_dtype: torch.dtype = torch.float32):
+    """The sharded ``int_matmul``, its partial sums reduced in int32
+    (exact, so the dequantized product equals the one-process one), then
+    the dequant on the shards."""
+    from torch.distributed.tensor import Replicate
+    acc = dispatch.launch("int_matmul", a_q, b_q)
+    if any(p.is_partial() for p in acc.placements):
+        acc = acc.redistribute(placements=[
+            Replicate() if p.is_partial() else p for p in acc.placements])
+    return _dequant(*_as_dtensors(acc, a_scale, b_scale), out_dtype)
+
+
 dispatch.register_op("int_matmul", cuda=int_matmul_cuda,
-                     plain=int_matmul_plain)
+                     plain=int_matmul_plain, cost=int_matmul_cost,
+                     fake=int_matmul_fake, sharded=int_matmul_sharded)
 dispatch.register_op("quant_matmul", cuda=quant_matmul_cuda,
-                     plain=quant_matmul_plain)
+                     plain=quant_matmul_plain, cost=quant_matmul_cost,
+                     fake=quant_matmul_fake, sharded=quant_matmul_sharded)

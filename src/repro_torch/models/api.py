@@ -30,9 +30,18 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..configs.shapes import InputShape
+from ..distributed.act_sharding import current_mesh
+from ..distributed.sharding import (batch_shardings, param_shardings,
+                                    param_shardings_fsdp, place,
+                                    place_params)
+from ..kernels.dispatch import is_dtensor
 from ..systems.base import resolve_device
 from . import encdec, transformer
-from .layers import Params
+from .layers import Params, leaf_shapes
+
+#: the families that run on parameters sharded over "model"
+TP_FAMILIES = ("dense",)
 
 
 class Model:
@@ -57,12 +66,45 @@ class Model:
             return encdec.init_encdec(self.cfg, gen)
         return transformer.init_lm(self.cfg, gen)
 
+    def param_shapes(self) -> dict:
+        """Every leaf's shape and dtype as a meta tensor, by
+        ``named_parameters()`` name: the weights ``init`` draws, drawn
+        from nothing (``FakeTensorMode``)."""
+        return leaf_shapes(encdec.init_encdec if self.is_encdec
+                           else transformer.init_lm, self.cfg)
+
     @staticmethod
     def param_count(params: Params) -> int:
         return sum(p.numel() for p in params.parameters())
 
+    # -- sharded parameters -----------------------------------------------------
+    def param_specs(self, mesh, tree) -> dict:
+        """The reference's specs of ``tree``'s leaves on ``mesh``: FSDP
+        for a config that asks for it, else tensor-parallel (the backbone
+        replicated where ``tp_dense`` is off)."""
+        if self.cfg.family not in TP_FAMILIES:
+            from ..train.loop import DP_TODO
+            raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family})"
+                                      f": {DP_TODO}")
+        if self.cfg.fsdp:
+            return param_shardings_fsdp(mesh, tree)
+        return param_shardings(mesh, tree, tp_dense=self.cfg.tp_dense)
+
+    def place(self, params: Params, mesh) -> Params:
+        """``params`` (the same on every rank: ``init`` from one seed, or
+        ``params_from_jax``) laid out on ``mesh`` by :meth:`param_specs`,
+        in place, each rank keeping its shards."""
+        return place_params(params, mesh, self.param_specs(mesh, params))
+
     def _on_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """``a`` on the model's device; inside ``use_mesh`` a DTensor with
+        its rows over the data axes (the global batch, the same on every
+        rank)."""
+        t = torch.as_tensor(a, device=self.device)
+        mesh = current_mesh()
+        if mesh is None or is_dtensor(t):
+            return t
+        return place(t, mesh, batch_shardings(mesh, {"x": t})["x"])
 
     def _extras(self, batch: dict) -> dict:
         """The decoder's inputs beside the tokens: the VLM's vision states
@@ -115,10 +157,40 @@ class Model:
         return transformer.lm_decode_step(self.cfg, params, tokens, cache)
 
     def init_cache(self, batch: int, max_seq: int):
+        """Empty decode caches on the model's device; inside ``use_mesh``
+        a dense LM's are laid out by ``cache_shardings``."""
         if self.is_encdec:
             return encdec.init_dec_cache(self.cfg, batch, max_seq,
                                          self.device)
         return transformer.init_cache(self.cfg, batch, max_seq, self.device)
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Meta-tensor stand-ins for a step's data inputs (the reference's
+    ``ShapeDtypeStruct``s).
+
+    train   : {tokens, targets (+vision/frames)}
+    prefill : {tokens (+vision/frames)}
+    decode  : {tokens [B, 1], cache}
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    dt, tok = getattr(torch, cfg.dtype), torch.int32
+    if shape.kind == "decode":
+        cache = (encdec.init_dec_cache(cfg, b, s, "meta")
+                 if cfg.family == "audio"
+                 else transformer.init_cache(cfg, b, s, "meta"))
+        return {"tokens": meta((b, 1), tok), "cache": cache}
+    spec = {"tokens": meta((b, s), tok)}
+    if shape.kind == "train":
+        spec["targets"] = meta((b, s), tok)
+    if cfg.family == "vlm":
+        spec["vision"] = meta((b, cfg.vision_tokens, cfg.vision_dim), dt)
+    if cfg.family == "audio":
+        spec["frames"] = meta((b, cfg.encoder_seq, cfg.d_model), dt)
+    return spec
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -10,7 +10,9 @@ model-parallel degree (16), so the parameter shapes equal the reference's
 that is prefill and the training-style forward, and every
 cross-attention (no mask, ``Skv`` the vision or encoder states).  Decode's
 self-attention attends over the static cache with a ``kv_len`` mask and
-keeps the plain masked path, as the reference does.
+keeps the plain masked path, as the reference does; on DTensors it runs
+on each rank's batch rows and heads.  The projections are constrained to
+heads over "model" (``"bhsd"``), the reference's cut point.
 """
 from __future__ import annotations
 
@@ -19,7 +21,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.flash_attention import gqa_repeat, mha
+from ..core.quantization import true_divide
+from ..distributed.act_sharding import constrain, current_mesh
+from ..distributed.sharding import cache_tensor
+from ..distributed.tp import matmul
+from ..kernels.dispatch import is_dtensor
+from ..kernels.flash_attention import gqa_repeat, mha, on_head_shards
 from .layers import Params, apply_rope, dense_init, rms_norm
 
 
@@ -95,23 +102,25 @@ class KVCache(NamedTuple):
 def init_kv_cache(batch: int, plan: HeadPlan, head_dim: int, max_seq: int,
                   dtype: torch.dtype, bits: int = 16,
                   device="cuda") -> KVCache:
+    """An empty cache; inside ``use_mesh`` its tensors are DTensors over
+    (data axes, "model") (``sharding.cache_tensor``)."""
     shape = (batch, plan.n_kv, max_seq, head_dim)
+    mesh = current_mesh()
+
+    def make(shp, fill, dt):
+        return cache_tensor(shp, fill, dt, device, mesh)
     if bits == 8:
-        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
-                       torch.zeros(shape, dtype=torch.int8, device=device),
-                       0,
-                       torch.ones(shape[:-1], dtype=torch.float32,
-                                  device=device),
-                       torch.ones(shape[:-1], dtype=torch.float32,
-                                  device=device))
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+        return KVCache(make(shape, 0, torch.int8), make(shape, 0, torch.int8),
+                       0, make(shape[:-1], 1.0, torch.float32),
+                       make(shape[:-1], 1.0, torch.float32))
+    return KVCache(make(shape, 0, dtype), make(shape, 0, dtype), 0)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., D] -> (int8 [..., D], f32 scale [...]) per-vector symmetric."""
     xf = x.to(torch.float32)
-    scale = torch.clamp_min(torch.amax(torch.abs(xf), dim=-1), 1e-12) / 127.0
+    scale = true_divide(torch.clamp_min(torch.amax(torch.abs(xf), dim=-1),
+                                        1e-12), 127.0)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -128,9 +137,9 @@ def _project_qkv(params, spec: AttnSpec, x: torch.Tensor,
     Rotary embeddings apply unless ``positions`` is None."""
     b, s, _ = x.shape
     hd = spec.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    q = matmul(x, params["wq"])
+    k = matmul(x, params["wk"])
+    v = matmul(x, params["wv"])
     if spec.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -144,7 +153,7 @@ def _project_qkv(params, spec: AttnSpec, x: torch.Tensor,
     if positions is not None and spec.rope_fraction > 0:
         q = apply_rope(q, positions, spec.rope_fraction, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_fraction, spec.rope_theta)
-    return q, k, v
+    return constrain(q, "bhsd"), constrain(k, "bhsd"), constrain(v, "bhsd")
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
@@ -166,6 +175,10 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
         reach = q_offset + q.shape[2]
         w = 0 if window is None or window >= reach else window
         return mha(q, k, v, causal=causal, q_offset=q_offset, window=w)
+    if is_dtensor(q):        # each rank over its own rows and heads
+        return on_head_shards(_sdpa, q, k, v, causal=causal,
+                              q_offset=q_offset, window=window,
+                              kv_len=kv_len)
     d = q.shape[-1]
     sq, skv = q.shape[2], k.shape[2]
     k, v = gqa_repeat(q, k, v)
@@ -193,7 +206,10 @@ def attend(params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its heads merged and projected through ``params["wo"]``: [B, S, d]."""
     out = _sdpa(q, k, v, **mask)
     b, _, s, _ = q.shape
-    return out.transpose(1, 2).reshape(b, s, -1) @ params["wo"].to(q.dtype)
+    # the row-parallel product's partial sums reduced here, where XLA
+    # puts the all-reduce, so the residual add sees the whole stream
+    return constrain(matmul(out.transpose(1, 2).reshape(b, s, -1),
+                            params["wo"]), "btd")
 
 
 def attention(params, spec: AttnSpec, x: torch.Tensor,
@@ -241,7 +257,7 @@ def cross_queries(params, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
     """Cross-attention's queries of ``x`` [B, S, d]: [B, Hq, S, D], with
     the bias and the query norm where the spec has them."""
     b, s, _ = x.shape
-    q = x @ params["wq"].to(x.dtype)
+    q = matmul(x, params["wq"])
     if spec.qkv_bias:
         q = q + params["bq"].to(x.dtype)
     q = q.reshape(b, s, spec.plan.n_q, spec.head_dim).transpose(1, 2)
@@ -258,8 +274,8 @@ def cross_kv(params, spec: AttnSpec, kv_states: torch.Tensor,
     cache has none)."""
     b, sk, _ = kv_states.shape
     kv = kv_states.to(dtype)
-    k = kv @ params["wk"].to(dtype)
-    v = kv @ params["wv"].to(dtype)
+    k = matmul(kv, params["wk"])
+    v = matmul(kv, params["wv"])
     if spec.qkv_bias:
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)

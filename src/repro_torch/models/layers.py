@@ -54,6 +54,14 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def load_(self, named: dict) -> "Params":
+        """Copy ``named[name]`` (a restored checkpoint's tensors, DTensors
+        laid out as the leaves) into every leaf in place; returns self."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                p.copy_(named[name])
+        return self
+
     def trainable_(self) -> "Params":
         """Let every floating-point leaf require a gradient, in place;
         returns self."""
@@ -61,6 +69,17 @@ class Params(nn.Module):
             if p.is_floating_point():
                 p.requires_grad_(True)
         return self
+
+
+def leaf_shapes(init, cfg) -> dict:
+    """``init(cfg, generator)``'s leaves as meta tensors by
+    ``named_parameters()`` name: their shapes and dtypes, drawn from
+    nothing (``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = init(cfg, torch.Generator(device="cpu"))
+        return {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for n, p in params.named_parameters()}
 
 
 def activation(x: torch.Tensor, name: str, lut: bool = False
@@ -172,7 +191,8 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
         from .quantized import pim_dense
         out = pim_dense(x, w)
     else:
-        out = x @ w.to(x.dtype)
+        from ..distributed.tp import matmul
+        out = matmul(x, w)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -191,10 +211,15 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 def mlp(params, x: torch.Tensor, act: str = "silu", lut: bool = False,
         quantized: bool = False) -> torch.Tensor:
-    up = linear(x, params["up"], quantized=quantized)
+    from ..distributed.act_sharding import constrain
+    # the stream whole on every "model" rank before the column-parallel
+    # products (a sharded residual would make DTensor gather the weights)
+    x = constrain(x, "btd")
+    up = constrain(linear(x, params["up"], quantized=quantized), "btf")
     if "gate" in params:
-        h = activation(linear(x, params["gate"], quantized=quantized),
+        h = activation(constrain(linear(x, params["gate"],
+                                        quantized=quantized), "btf"),
                        act, lut) * up
     else:
         h = activation(up, act, lut)
-    return linear(h, params["down"], quantized=quantized)
+    return constrain(linear(h, params["down"], quantized=quantized), "btd")

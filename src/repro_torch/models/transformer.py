@@ -22,6 +22,7 @@ them and needs no extras.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -29,13 +30,16 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed.act_sharding import constrain
+from ..distributed.tp import VocabParallelNll, matmul
+from ..kernels.dispatch import is_dtensor
 from . import ssm as ssm_mod
 from .attention import (AttnSpec, _project_qkv, attend, attention,
                         attention_decode, cross_attention, cross_kv,
                         cross_queries, init_attention, init_kv_cache,
                         plan_heads, quantize_kv)
-from .layers import (Params, dense_init, embed_init, init_mlp, mlp,
-                     normal_init, rms_norm)
+from .layers import (Params, dense_init, embed_init, init_mlp, leaf_shapes,
+                     mlp, normal_init, rms_norm)
 from .moe import MoeSpec, init_moe, moe_apply, pad_experts
 
 FULL_WINDOW = 1 << 30
@@ -270,10 +274,19 @@ def _layer_windows(cfg: ArchConfig) -> list[Optional[int]]:
     return [w for row in _windows_stacked(cfg, len(unit), reps) for w in row]
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of ``table``; a DTensor table split over its vocab
+    rows looks up each rank's rows (``F.embedding``'s sharded rule) and
+    sums them."""
+    if is_dtensor(table):
+        return torch.nn.functional.embedding(tokens.long(), table)
+    return table[tokens.long()]
+
+
 def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings ``[B, S, d]``, after the meta tokens where the
     config has them (``[B, meta + S, d]``)."""
-    x = params["tok_emb"][tokens.long()]
+    x = _lookup(params["tok_emb"], tokens)
     if cfg.meta_tokens:
         meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
@@ -283,7 +296,7 @@ def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Logits of the stack's output."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    return matmul(x, params["lm_head"])
 
 
 def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
@@ -292,13 +305,14 @@ def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
     aux), aux the blocks' summed aux loss (0.0 without MoE blocks, else a
     float32 0-d tensor)."""
     extras = extras or {}
-    x = _embed(cfg, params, tokens)
+    x = constrain(_embed(cfg, params, tokens), "btd")
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = 0.0
     for p, bt, win in zip(params["layers"], cfg.layer_pattern(),
                           _layer_windows(cfg)):
+        x = constrain(x, "btd")
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 apply_block_train, p, cfg, bt, x, positions, win, extras,
@@ -306,7 +320,8 @@ def lm_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
         else:
             x, a = apply_block_train(p, cfg, bt, x, positions, win, extras)
         aux = aux + a
-    return _unembed(cfg, params, x[:, cfg.meta_tokens:]), aux
+    logits = _unembed(cfg, params, x[:, cfg.meta_tokens:])
+    return constrain(logits, "btv"), aux
 
 
 def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
@@ -323,6 +338,8 @@ def token_nll(cfg: ArchConfig, logits: torch.Tensor,
               targets: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of ``logits`` [B, S, Vpad] against ``targets`` in
     float32, the padded vocab columns at -1e30."""
+    if is_dtensor(logits):       # each rank over its vocab columns
+        return VocabParallelNll.apply(logits, targets, cfg.vocab_size)
     logits = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
@@ -353,8 +370,8 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_seq: int,
     caches = []
     for p, bt, win in zip(params["layers"], cfg.layer_pattern(),
                           _layer_windows(cfg)):
-        x, c = _prefill_block(p, cfg, bt, x, positions, win, extras,
-                              max_seq + cfg.meta_tokens)
+        x, c = _prefill_block(p, cfg, bt, constrain(x, "btd"), positions,
+                              win, extras, max_seq + cfg.meta_tokens)
         caches.append(c)
     return _unembed(cfg, params, x[:, -1:]), caches
 
@@ -409,10 +426,21 @@ def lm_decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
     """tokens [B, 1] -> (logits [B, 1, Vpad], new caches).  The caches'
     tensors are written in place (``attention_decode``); the recurrent
     states are new tensors.  No meta tokens: the cache holds them."""
-    x = params["tok_emb"][tokens.long()]
+    x = _lookup(params["tok_emb"], tokens)
     new_caches = []
     for p, bt, c, win in zip(params["layers"], cfg.layer_pattern(), caches,
                              _layer_windows(cfg)):
-        x, c = apply_block_decode(p, cfg, bt, x, c, win)
+        x, c = apply_block_decode(p, cfg, bt, constrain(x, "btd"), c, win)
         new_caches.append(c)
     return _unembed(cfg, params, x), new_caches
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """``init_lm``'s leaves as meta tensors, without allocating (the
+    reference counts every family's parameters through ``init_lm``)."""
+    return leaf_shapes(init_lm, cfg)
+
+
+@functools.cache
+def count_params(cfg: ArchConfig) -> int:
+    return sum(t.numel() for t in param_shapes(cfg).values())

@@ -42,17 +42,23 @@ def leaf_order(names) -> list:
 
 def global_norm(grads: dict) -> torch.Tensor:
     """sqrt(sum of every squared gradient element + 1e-12), float32, the
-    squares summed leaf by leaf in :func:`leaf_order`."""
+    squares summed leaf by leaf in :func:`leaf_order`.  A sharded leaf's
+    sum is reduced over its shards (one all-reduce a leaf), so every rank
+    sums the same leaf totals in the same order."""
+    from ..distributed.tp import full_tensor
     total = None
     for name in leaf_order(grads):
-        sq = torch.sum(torch.square(grads[name].to(torch.float32)))
+        sq = full_tensor(torch.sum(torch.square(
+            grads[name].to(torch.float32))))
         total = sq if total is None else total + sq
     return torch.sqrt(total + 1e-12)
 
 
 def _step_tensor(params) -> torch.Tensor:
+    """The int32 step, a plain tensor on the parameters' device."""
+    p = next(params.parameters())
     return torch.zeros((), dtype=torch.int32,
-                       device=next(params.parameters()).device)
+                       device=getattr(p, "_local_tensor", p).device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +71,21 @@ class AdamW:
     grad_clip: float = 1.0
 
     def init(self, params) -> AdamState:
-        m = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        """Zero moments laid out as the parameters (``zeros_like``: a
+        DTensor leaf's moments are DTensors of its placements)."""
+        m = {n: torch.zeros_like(p, dtype=torch.float32,
+                                 requires_grad=False)
              for n, p in params.named_parameters()}
         return AdamState(step=_step_tensor(params), m=m,
                          v={n: t.clone() for n, t in m.items()})
+
+    def init_shapes(self, param_shapes: dict) -> AdamState:
+        """The state's shapes as meta tensors, from ``param_shapes``
+        (``Model.param_shapes``)."""
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        m = {n: meta(p.shape, torch.float32) for n, p in param_shapes.items()}
+        return AdamState(step=meta((), torch.int32), m=m, v=dict(m))
 
     def update(self, grads: dict, state: AdamState, params):
         """One step: ``(params, state, grad_norm)``; params, m and v are

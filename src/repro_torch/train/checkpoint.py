@@ -17,7 +17,14 @@ sorted and sequence items named ``[i]``, as ``jax.tree_util`` names
 them.  Tensors are copied to the host.  A dtype npz cannot store
 (bfloat16, the float8 types) is saved as a bit view of the same width,
 its true name recorded in ``exotic_dtypes``, and comes back as a tensor
-of that dtype.
+of that dtype.  A module (a ``Params`` tree) is its ``named_parameters()``.
+
+A sharded state (DTensor leaves, the model on a mesh) is saved whole:
+every rank gathers each leaf in the flattened order, rank 0 writes, and
+the others wait for the write.  :func:`restore` lays each leaf out as the
+target's DTensor leaf, which may sit on another mesh (the elastic
+rescale, ``train/fault_tolerance.py::plan_rescale``), each rank keeping
+its own slice of the saved tensor.
 """
 from __future__ import annotations
 
@@ -32,6 +39,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import local_like
+from ..distributed.tp import full_tensor
+from ..kernels.dispatch import is_dtensor
+
 #: dtypes numpy cannot hold, by the name the manifest records (the
 #: reference's ml_dtypes names), and the integer type of their bit view
 _EXOTIC = {torch.bfloat16: ("bfloat16", torch.int16),
@@ -44,6 +55,8 @@ def _flatten_with_names(tree, prefix: str = "") -> dict:
     """``{"a/b/[0]": leaf}`` in ``jax.tree_util``'s leaf order."""
     def key(part: str) -> str:
         return f"{prefix}/{part}" if prefix else part
+    if hasattr(tree, "named_parameters"):
+        tree = dict(tree.named_parameters())
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -61,7 +74,7 @@ def _host_leaf(v) -> tuple[np.ndarray, Optional[str]]:
     """A leaf as a storable host array, and its exotic dtype name (None
     for a dtype npz stores as is)."""
     if isinstance(v, torch.Tensor):
-        t = v.detach().cpu()
+        t = full_tensor(v.detach()).cpu()
         if t.dtype in _EXOTIC:
             name, bits = _EXOTIC[t.dtype]
             return t.view(bits).numpy().view(
@@ -76,7 +89,24 @@ def _host_leaf(v) -> tuple[np.ndarray, Optional[str]]:
 
 def save(ckpt_dir: str, step: int, state: Any, *, keep_last: int = 3,
          extra_meta: Optional[dict] = None) -> str:
-    """Atomic save of ``state``; returns the checkpoint path."""
+    """Atomic save of ``state``; returns the checkpoint path.  With
+    DTensor leaves every rank of the default group calls it: each gathers
+    the leaves, rank 0 writes."""
+    leaves = _flatten_with_names(state)
+    host = {k: _host_leaf(v) for k, v in leaves.items()}
+    if not any(map(is_dtensor, leaves.values())):
+        return _write(ckpt_dir, step, host, keep_last, extra_meta)
+    import torch.distributed as dist
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, host, keep_last, extra_meta)
+    dist.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, step: int, host: dict, keep_last: int,
+           extra_meta: Optional[dict]) -> str:
+    """Write ``host`` (key -> (array, exotic dtype name or None))."""
     os.makedirs(ckpt_dir, exist_ok=True)
     # taken BEFORE this save publishes: the newest checkpoint a
     # concurrent reader could have selected via latest_step(), which
@@ -88,11 +118,8 @@ def save(ckpt_dir: str, step: int, state: Any, *, keep_last: int = 3,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    arrays, exotic = {}, {}
-    for k, v in _flatten_with_names(state).items():
-        arrays[k], name = _host_leaf(v)
-        if name is not None:
-            exotic[k] = name
+    arrays = {k: a for k, (a, _) in host.items()}
+    exotic = {k: name for k, (_, name) in host.items() if name is not None}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "exotic_dtypes": exotic,
@@ -209,10 +236,11 @@ def restore_raw(ckpt_dir: str, step: int) -> tuple:
 
 def restore(ckpt_dir: str, step: int, target_tree: Any,
             device: Optional[torch.device] = None) -> Any:
-    """Restore into the structure of ``target_tree``, checking every
-    leaf's shape.  A tensor leaf comes back as a tensor on ``device``
-    (default: the target leaf's device), any other leaf as a numpy
-    array."""
+    """Restore into the structure of ``target_tree`` (a module: a dict of
+    its ``named_parameters()``), checking every leaf's shape.  A tensor
+    leaf comes back as a tensor on ``device`` (default: the target leaf's
+    device), a DTensor leaf as a DTensor laid out as the target's, any
+    other leaf as a numpy array."""
     arrays, manifest = restore_raw(ckpt_dir, step)
     named = _flatten_with_names(target_tree)
     if manifest["n_arrays"] != len(named):
@@ -227,12 +255,17 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
         if isinstance(tgt, torch.Tensor):
             t = arr if isinstance(arr, torch.Tensor) \
                 else torch.from_numpy(np.array(arr))
+            if is_dtensor(tgt):
+                local = tgt.to_local()
+                return local_like(t.to(local.device), tgt)
             return t.to(device if device is not None else tgt.device)
         return arr
 
     def rebuild(tree, prefix: str = ""):
         def key(part: str) -> str:
             return f"{prefix}/{part}" if prefix else part
+        if hasattr(tree, "named_parameters"):
+            tree = dict(tree.named_parameters())
         if isinstance(tree, dict):
             return {k: rebuild(v, key(str(k))) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):

@@ -16,8 +16,14 @@ reference's explicit-DP trainer (the paper's PIM schedule applied to LM
 training): every rank of a ``("data",)`` or ``("pod", "data")`` mesh holds
 a whole replica, takes its rows of the global batch and makes ONE gradient
 reduction a step: int8 with error feedback (``compress``), two-level on a
-mesh with "pod", else the mean over "data".  Running the model itself on
-sharded parameters waits for ROADMAP queue 1 item 12d.
+mesh with "pod", else the mean over "data".
+
+On a mesh with a "model" axis the model runs on sharded parameters
+instead: ``Model.place`` lays them out (tensor-parallel), the step runs
+inside ``act_sharding.use_mesh``, and ``make_train_step`` itself trains
+them, each gradient reduced to its parameter's layout
+(:func:`to_param_layout`) before the update.  That covers the dense
+family; the others raise :data:`DP_TODO`.
 """
 from __future__ import annotations
 
@@ -32,8 +38,9 @@ from ..distributed.sharding import axis_sizes, dp_axes
 from ..models.api import stacked_groups
 from ..optim.grad_compression import ef_compress_psum_stacked
 
-#: ROADMAP item that runs the model on sharded parameters
-DP_TODO = ("tensor-parallel execution (the model on sharded parameters) is "
+#: what of the model on sharded parameters is not ported
+DP_TODO = ("tensor-parallel execution of the moe, ssm, hybrid, vlm and "
+           "audio families (sharded parameters beyond the dense family) is "
            "not ported yet: ROADMAP queue 1 item 12d")
 
 
@@ -56,6 +63,13 @@ def value_and_grad(model, params, batch: dict):
 
 
 def _split(x, k: int, i: int):
+    """Microbatch ``i`` of ``k``: a slice of the rows; a DTensor's local
+    rows sliced on each rank (its rows over the data axes stay there)."""
+    from ..kernels.dispatch import is_dtensor
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(_split(x.to_local(), k, i), x.device_mesh,
+                                  x.placements, run_check=False)
     b = x.shape[0]
     if b % k:
         raise ValueError(f"batch {b} does not split into {k} microbatches")
@@ -83,11 +97,23 @@ def make_train_step(model, optimizer, microbatches: int = 1):
                     loss_sum = loss_sum + loss
             grads = {n: g / microbatches for n, g in grads.items()}
             loss = loss_sum / microbatches
+        grads = to_param_layout(grads, params)
         params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.to(torch.float32),
                                    "grad_norm": gnorm}
 
     return train_step
+
+
+def to_param_layout(grads: dict, params) -> dict:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (partial sums over the data axes reduced: the data-parallel
+    all-reduce); plain gradients as they are."""
+    from ..kernels.dispatch import is_dtensor
+    named = dict(params.named_parameters())
+    return {n: g.redistribute(placements=named[n].placements)
+            if is_dtensor(g) and g.placements != named[n].placements else g
+            for n, g in grads.items()}
 
 
 def make_eval_step(model):
@@ -113,7 +139,8 @@ def make_dp_train_step(model, optimizer, mesh, *, compress: bool = False):
     if "data" not in mesh.mesh_dim_names or extra:
         raise ValueError(f"the data-parallel trainer runs on a ('data',) or "
                          f"('pod', 'data') mesh, not {mesh.mesh_dim_names}"
-                         f" ({DP_TODO})")
+                         f": with a 'model' axis, place the parameters "
+                         f"(Model.place) and use make_train_step")
 
     def step(params, opt_state, err, batch):
         (loss, grads), new_err = _dp_call(mesh, model, params, err, batch,

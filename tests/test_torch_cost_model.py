@@ -311,10 +311,17 @@ def test_declared_costs_are_the_kernel_bounds_counts(case):
 
 
 def test_an_op_without_a_cost_raises_under_the_counter():
+    # every kernel op declares a cost since int_matmul's: a stand-in op
+    # registered without one
     a, b = _i(4, 8, dtype=torch.int8), _i(8, 4, dtype=torch.int8)
-    dispatch.launch("int_matmul", a, b)          # no counter: runs
-    with OpCounter(), pytest.raises(NotImplementedError, match="cost"):
-        dispatch.launch("int_matmul", a, b)
+    dispatch.register_op("no_cost", cuda=None,
+                         plain=lambda x, y: x.int() @ y.int())
+    try:
+        dispatch.launch("no_cost", a, b)          # no counter: runs
+        with OpCounter(), pytest.raises(NotImplementedError, match="cost"):
+            dispatch.launch("no_cost", a, b)
+    finally:
+        dispatch._OPS.pop("no_cost")
     assert dispatch.meters == []
 
 

@@ -1908,3 +1908,23 @@ def test_pim_fit_over_ranks_on_the_card_equals_the_cpu(cuda):
             assert not got["replays"]
             assert got["digests"] == ranks[0][name]["digests"]
 
+
+
+def test_lm_kernels_on_dtensor_shards_equal_the_plain_versions(cuda):
+    """mha (heads over "model") and int_matmul (column- and
+    row-parallel) launched on the DTensor shards of two gloo ranks sharing
+    the card: whole again, equal to the kernel on the whole operands, to
+    int_matmul's plain version exactly and mha's within the bf16 and
+    float32 tolerances of chip_smoke.py (MHA_BF16_ATOL, MHA_F32_ATOL);
+    one launch a rank, on the rank's heads and weight columns or rows."""
+    for r in _card_ranks("card_tp_kernels_body"):
+        for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-5)):
+            assert r[f"mha/{dtype}/counts"] == {"mha": 1}
+            assert r[f"mha/{dtype}/placements"] == ["R", "S(1)"]
+            assert r[f"mha/{dtype}/kernel_err"] == 0.0
+            assert r[f"mha/{dtype}/plain_err"] <= tol
+        for name, local in (("column", (40, 128)), ("row", (40, 256))):
+            assert r[f"int_matmul/{name}/counts"] == {"int_matmul": 1}
+            assert r[f"int_matmul/{name}/local"] == local
+            assert r[f"int_matmul/{name}/equal"]
+            assert r[f"int_matmul/{name}/kernel_equal"]

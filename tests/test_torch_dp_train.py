@@ -254,7 +254,7 @@ def test_dp_step_refuses_what_it_cannot_run():
     not divide raise (no process group needed: a stand-in mesh)."""
     from types import SimpleNamespace
     from repro_torch.train import loop
-    with pytest.raises(ValueError, match="item 12d"):
+    with pytest.raises(ValueError, match="make_train_step"):
         loop.make_dp_train_step(None, None, SimpleNamespace(
             mesh_dim_names=("data", "model"), shape=(2, 2)))
     mesh = SimpleNamespace(mesh_dim_names=("pod", "data"), shape=(2, 2),

@@ -392,3 +392,170 @@ def pim_body(rank: int, data: dict, cases: dict, device: str = "cpu"
         rec["replays"] = dict(dispatch.graph_replays)
         out[name] = rec
     return out
+
+
+# -- the dense LM on sharded parameters (tests/test_torch_tp.py) --------------
+
+def _full(t) -> np.ndarray:
+    """A copy of a DTensor's whole value (its partial sums reduced) on
+    the host (a replicated one's full_tensor is its local shard)."""
+    from repro_torch.distributed.tp import full_tensor
+    return np.array(_np(full_tensor(t)))
+
+
+class QuantRecorder:
+    """Wraps ``models.quantized.quant_dense`` to keep, for its first
+    ``keep`` calls, the int8 activations and the int32 ``int_matmul``
+    product, whole."""
+
+    def __init__(self, keep: int = 6):
+        from repro_torch.models import quantized
+        self.module, self.orig, self.keep = quantized, quantized.quant_dense, keep
+        self.calls: list = []
+
+    def __enter__(self):
+        self.module.quant_dense = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quant_dense = self.orig
+
+    def __call__(self, x, w_q, w_scale):
+        from repro_torch.core.quantization import symmetric_quantize
+        from repro_torch.kernels import dispatch
+        if len(self.calls) < self.keep:
+            x_q, _ = symmetric_quantize(x.reshape(-1, x.shape[-1]), bits=8)
+            acc = dispatch.launch("int_matmul", x_q, w_q)
+            self.calls.append((_full(x_q), _full(acc)))
+        return self.orig(x, w_q, w_scale)
+
+
+def lm_serve_outputs(model, params, toks: np.ndarray, prompt: int,
+                     max_seq: int) -> dict:
+    """The forward's logits over ``toks``, prefill's over its first
+    ``prompt`` tokens and one decode step for each later token, whole,
+    and the int8 pieces of the quantized linears' first calls."""
+    out = {}
+    with torch.no_grad(), QuantRecorder() as rec:
+        out["forward"] = _full(model.forward(params, {"tokens": toks}))
+        logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                      max_seq=max_seq)
+        out["prefill"] = _full(logits)
+        for i in range(prompt, toks.shape[1]):
+            logits, cache = model.decode_step(params, toks[:, i:i + 1],
+                                              cache)
+            out[f"decode{i - prompt}"] = _full(logits)
+    out["quant"] = rec.calls
+    return out
+
+
+def lm_train_outputs(model, params, batch: dict, steps: int, lr: float,
+                     mesh=None) -> dict:
+    """``steps`` AdamW steps (``make_train_step``) on ``batch``: losses,
+    grad norms; with a mesh the moments laid out by ZeRO-1."""
+    from repro_torch.distributed.sharding import (opt_state_shardings,
+                                                  place_opt_state)
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train.loop import make_train_step
+    params.trainable_()
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    if mesh is not None:
+        state = place_opt_state(state, mesh, opt_state_shardings(mesh,
+                                                                 params))
+    step = make_train_step(model, opt)
+    losses, norms = [], []
+    for _ in range(steps):
+        params, state, m = step(params, state, batch)
+        losses.append(float(_full(m["loss"])))
+        norms.append(float(_full(m["grad_norm"])))
+    return {"loss": losses, "grad_norm": norms,
+            "m_placements": [str(p) for p in next(iter(
+                state.m.values())).placements] if mesh is not None else []}
+
+
+def tp_body(rank: int, arch: str, tree: dict, shape: tuple, toks, prompt,
+            max_seq, train_batch, steps, lr, serve=True, save_dir=None,
+            restore_dir=None) -> dict:
+    """The dense LM of ``arch`` (reduced) from the reference's ``tree`` on
+    a ``shape`` ("data", "model") mesh of gloo ranks: with ``serve`` the
+    serving outputs with quantize_dense off and on; ``steps`` train steps;
+    with ``save_dir`` the trained params saved (as step 1); with
+    ``restore_dir`` that step's params restored onto this mesh, then one
+    more step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model, params_from_jax
+    from repro_torch.train import checkpoint
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    res = {"jax": "jax" in sys.modules}
+    with use_mesh(mesh):
+        for quant in ((False, True) if serve else ()):
+            cfg = get_config(arch).reduced(quantize_dense=quant)
+            model = Model(cfg, "cpu")
+            params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+            res[f"serve/{quant}"] = lm_serve_outputs(model, params, toks,
+                                                     prompt, max_seq)
+            res["up_local"] = tuple(
+                params["layers"][0]["mlp"]["up"].to_local().shape)
+        cfg = get_config(arch).reduced()
+        model = Model(cfg, "cpu")
+        params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+        res["train"] = lm_train_outputs(model, params, train_batch, steps,
+                                        lr, mesh)
+        if save_dir is not None:
+            checkpoint.save(save_dir, 1, params)
+            res["saved"] = {n: _full(p) for n, p in params.named_parameters()}
+        if restore_dir is not None:
+            params.load_(checkpoint.restore(restore_dir, 1, params))
+            res["restored"] = {n: _full(p)
+                               for n, p in params.named_parameters()}
+            res["after_restore"] = lm_train_outputs(model, params,
+                                                    train_batch, 1, lr, mesh)
+    return res
+
+
+def card_tp_kernels_body(rank: int) -> dict:
+    """``mha`` (bf16 and float32) and ``int_matmul`` (column- and
+    row-parallel) on DTensor shards of a (1, 2) mesh on the card, whole
+    again, against the plain versions and the kernels on the whole
+    operands; the launches counted and the local shapes they ran at."""
+    from repro_torch.distributed.tp import full_tensor
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import mha_cuda, mha_plain
+    from repro_torch.kernels.quant_matmul import (int_matmul_cuda,
+                                                  int_matmul_plain)
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    rng = np.random.RandomState(0)
+    heads = (None, "model", None, None)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = (_tensor(rng.normal(0, 1, (2, h, 96, 64)), dtype, "cuda")
+                   for h in (16, 8, 8))
+        dispatch.reset_launch_counts()
+        got = dispatch.launch("mha", *(place(t, mesh, heads)
+                                       for t in (q, k, v)), causal=True)
+        out[f"mha/{dtype}/counts"] = dict(dispatch.launch_counts)
+        out[f"mha/{dtype}/placements"] = [str(p) for p in got.placements]
+        got = full_tensor(got)
+        out[f"mha/{dtype}/kernel_err"] = float(
+            (got.float() - mha_cuda(q, k, v, causal=True).float())
+            .abs().max())
+        out[f"mha/{dtype}/plain_err"] = float(
+            (got.float() - mha_plain(q.cpu(), k.cpu(), v.cpu(), causal=True)
+             .float().cuda()).abs().max())
+    a = torch.from_numpy(rng.randint(-128, 128, (40, 512), dtype=np.int8))
+    b = torch.from_numpy(rng.randint(-128, 128, (512, 256), dtype=np.int8))
+    want = int_matmul_plain(a, b)
+    a, b = a.cuda(), b.cuda()
+    for name, sa, sb in (("column", (None, None), (None, "model")),
+                         ("row", (None, "model"), ("model", None))):
+        dispatch.reset_launch_counts()
+        got = dispatch.launch("int_matmul", place(a, mesh, sa),
+                              place(b, mesh, sb))
+        out[f"int_matmul/{name}/counts"] = dict(dispatch.launch_counts)
+        out[f"int_matmul/{name}/local"] = tuple(got.to_local().shape)
+        got = full_tensor(got).cpu()
+        out[f"int_matmul/{name}/equal"] = bool(torch.equal(got, want))
+        out[f"int_matmul/{name}/kernel_equal"] = bool(torch.equal(
+            got, int_matmul_cuda(a, b).cpu()))
+    return out
