@@ -47,7 +47,7 @@ Phases, in order; any failure exits non-zero:
               - qwen3-8b served at full width and depth (36 layers, bf16,
                 quantize_dense on, seeded random weights) through Model
                 and ServeEngine: 8 requests over 4 slots, prompt lengths
-                drawn from 128-1024, 16 new tokens each; launch counts
+                drawn from 128-1024, 8 new tokens each; launch counts
                 exactly 3 int_matmul per layer per forward call and 1
                 flash_attention per layer per prefill; the same load with
                 quantize_dense off; the busy share over decode steps;
@@ -269,7 +269,7 @@ Phases, in order; any failure exits non-zero:
               each run.  It runs first, right after the build:
               (a) qwen3-8b at full width and depth (36 layers, bf16,
                   ~8.2 GB of weights a rank): 2 prompts of 512 tokens
-                  prefilled, then 8 greedy decode tokens, quantize_dense on
+                  prefilled, then TP_NEW greedy decode tokens, quantize_dense on
                   and off; the logits against one process on the same
                   weights fed the same tokens and, quantize_dense on, the
                   ranks' int8 activations (TP_BF16_TOL), the greedy tokens
@@ -305,6 +305,51 @@ Phases, in order; any failure exits non-zero:
                   phase runs beside it); their roofline rows printed (a
                   model of H100s); its parameter bytes a rank on (1, 2)
                   equal to what each rank of (a) holds
+ 16. MoE over ranks  the MoE family on sharded parameters, right after
+              phase 15: each rank's launch counts zeroed just before each
+              run, every launch on a rank held against its plain version
+              on the rank's operands (KernelChecks), the weights drawn a
+              layer at a time and placed (Model.init_placed):
+              (a) qwen2-moe-a2.7b at full width and depth (24 layers,
+                  bf16, 64 experts of which 60 real, 32 a rank: expert
+                  parallel over "model"; the shared expert tensor
+                  parallel) on MOE_RANKS ranks, a (data 1, model 2) mesh:
+                  2 prompts of 512 tokens, FAM_NEW greedy decode tokens,
+                  quantize_dense on and off; logits against one process
+                  on the same weights fed the same tokens and the ranks'
+                  routing (a top-k flip between the runs' bf16 streams
+                  moves which tokens a full expert drops; on: also the
+                  ranks' int8 activations) within TP_BF16_TOL, greedy
+                  tokens equal where that run's top-2 margin exceeds it,
+                  the gap of one process routing its own printed;
+                  every quantized linear's int8 activations equal to the
+                  one-process quantization of its gathered input, the
+                  first TP_INT8_CALLS int32 products to int_matmul_cuda on
+                  the gathered operands; launches a rank = one process's;
+                  each rank multiplying its own 32 experts; ms a prefill
+                  and a decode token against one process, the collectives'
+                  share of a decode run (every one synchronised and
+                  timed), the expert weight bytes a rank reads a decode
+                  token against one process's;
+              (b) one AdamW step at MOE_TRAIN_LAYERS of 24 layers on
+                  MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens: loss and grad
+                  norm against one process (TRAIN_LOSS_ATOL,
+                  TRAIN_GRAD_RTOL), launches equal; the ranks' state saved
+                  and restored into one process bit for bit;
+              (c) dbrx-132b at full width, DBRX_LAYERS of 40 layers, with
+                  FSDP (param_shardings_fsdp: each weight's widest free
+                  dim over "data", gathered a layer at a time through host
+                  memory) on a DBRX_MESH (data 2, model 2) mesh: 2 prompts
+                  of 512 tokens (8 of the 16 routing groups a data rank),
+                  DBRX_NEW decode steps (one group over both data ranks);
+                  logits against one process fed the ranks' routing within
+                  TP_BF16_TOL (its own routing's gap printed); at each
+                  decode step the expert ids and kept (token, slot) pairs
+                  equal to one process's fed the ranks' router inputs;
+                  launches equal; the FSDP gathers' bytes;
+              (d) the dry-run of qwen2-moe-a2.7b's decode_32k on both
+                  production meshes and on (1, 2), with phase 15 (e); its
+                  parameter bytes a rank on (1, 2) equal to (a)'s ranks'
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -428,8 +473,12 @@ TRAIN_BWD_BF16_RTOL, TRAIN_BWD_F32_RTOL, TRAIN_LSE_ATOL = 1e-2, 1e-4, 1e-4
 #: summed in another order flip the sign of near-zero ones, so within
 #: DP_STEP_RTOL of the leaf's update norm; the compressed run's bound is
 #: the reference's (tests/test_distributed.py).  (b)-(d) on four ranks,
-#: reduced configs; the hierarchical bound is tests/test_collectives.py's
-DP_RANKS, DP_LAYERS, DP_STEPS = 2, 4, 5
+#: reduced configs; the hierarchical bound is tests/test_collectives.py's.
+#: DP_STEPS cut from 5 to 3 beside phase 16 (the script's time limit):
+#: the checks are as before (step 1, the ranks bit-identical after every
+#: step, the compressed run's last loss below its first), but steps 4-5
+#: of each run and their timings run no more
+DP_RANKS, DP_LAYERS, DP_STEPS = 2, 4, 3
 DP_STEP_RTOL, DP_EF_LOSS_GAP, DP_POD_RTOL = 0.1, 0.35, 1e-4
 DP_SMALL_RANKS, DP_SMALL_STEPS, DP_SMALL_BATCH, DP_SMALL_SEQ = 4, 3, 8, 16
 #: the pipeline at tests/test_pipeline.py's size and bounds
@@ -461,12 +510,38 @@ DP_TIMEOUT = 600.0
 #: the dry-run's cells (TP_DRY_SHAPES on both production meshes, and
 #: decode_32k on (1, TP_RANKS)), in processes of their own beside the
 #: data's set-up before phase 14, where no timed phase runs
-TP_RANKS, TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 2, 512, 8
+#: TP_NEW cut from 8 to 4 beside phase 16 (the script's time limit): the
+#: checks are as before, on prefill and 4 decode steps, not 8
+TP_RANKS, TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 2, 512, 4
 TP_INT8_CALLS, TP_TRAIN_LAYERS, TP_TIMEOUT = 6, 4, 600.0
 TP_BF16_TOL = 0.25
 TP_DRY_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
 TP_DRY_TIMEOUT = 600.0
 TP_DIR = Path(__file__).resolve().parent / "build" / "phase15"
+
+#: phase 16, the MoE family on sharded parameters: MOE_RANKS ranks share the
+#: card over gloo on a ("data"=1, "model"=MOE_RANKS) mesh.  (a) FAM_MOE at
+#: full width and depth (its 64 experts, 60 real, 32 a rank; the shared
+#: expert tensor parallel), phase 15's TP_PROMPTS prompts of TP_PROMPT_LEN
+#: tokens, then FAM_NEW greedy decode tokens, quantize_dense on and off,
+#: within TP_BF16_TOL of one process (each rank's experts combine into a
+#: bf16 partial, summed over "model": one more bf16 rounding a layer than
+#: phase 15's wo, over 24 layers).  (b) its train step at MOE_TRAIN_LAYERS of
+#: 24 layers (~0.6B parameters a layer at 12 bytes each for training: the
+#: ranks and then the one-process check fit beside the card's other
+#: tenants), MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens.  (c) FAM_DBRX at full
+#: width with FSDP over "data" on a DBRX_MESH mesh, DBRX_LAYERS of 40 layers
+#: (cut from phase 11's 4 for time: every forward call gathers each layer's
+#: 3.2 GB of expert weights a rank over gloo through host memory, ~5 s a
+#: layer with four ranks on one card, so 4 layers took 102 s of the
+#: phase's 232 s in a trial; the card held them), DBRX_PROMPTS prompts of
+#: FAM_DBRX_PROMPT tokens (each data rank holds 8 of the 16 routing
+#: groups), then DBRX_NEW decode steps, each one routing group over both
+#: data ranks (cut from FAM_NEW for the same reason)
+MOE_RANKS, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2, 4, 1024
+DBRX_MESH, DBRX_LAYERS, DBRX_PROMPTS, DBRX_NEW = (2, 2), 2, 2, 2
+MOE_TIMEOUT = 600.0
+MOE_DIR = Path(__file__).resolve().parent / "build" / "phase16"
 
 #: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
 #: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
@@ -491,15 +566,15 @@ PIM_DATA_DIR = Path(__file__).resolve().parent / "build" / "phase14"
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
-#: by SEED from 128-1024, 16 new tokens each, greedy.  Cut from 32 (with
-#: FAM_NEW) to keep the script inside its time limit beside phase 15 (a
-#: slower host took 1170.6 s of 1200 before the cut): the launch counts,
-#: the prefill + decode check and the card against CPU check are as
-#: before, but decode steps 17-32 of a request (cache positions up to
-#: prompt + 32) run no more, and the decode medians come from 120 calls,
-#: not 248
+#: by SEED from 128-1024, 8 new tokens each, greedy.  Cut from 32 (with
+#: FAM_NEW) to 16 to keep the script inside its time limit beside phase 15
+#: (a slower host took 1170.6 s of 1200 before the cut), and to 8 beside
+#: phase 16 (a slower host took 1010.4 s with 16): the launch counts, the
+#: prefill + decode check and the card against CPU check are as before,
+#: but decode steps 9-32 of a request (cache positions up to prompt + 32)
+#: run no more, and the decode medians come from 56 calls, not 248
 LM_ARCH = "qwen3-8b"
-LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 16, 2048
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 8, 2048
 LM_PROMPT_MIN, LM_PROMPT_MAX = 128, 1024
 LM_PROFILE_STEPS = 8
 #: qwen3-8b's MLP linears as (K, N): up and gate, then down
@@ -4115,7 +4190,7 @@ def tp_serve(torch, dispatch, model, params, prompts, tokens=None,
     t0 = time.perf_counter()
     with torch.no_grad():
         logits, cache = model.prefill(params, {"tokens": prompts},
-                                      max_seq=TP_PROMPT_LEN + TP_NEW)
+                                      max_seq=prompts.shape[1] + new)
         out = [whole(logits)]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -4315,17 +4390,20 @@ def tp_train_batch(vocab: int) -> dict:
 
 
 def tp_dryrun_start(out_dir: Path) -> list:
-    """Start phase 15 (e)'s dry-run, qwen3-8b's TP_DRY_SHAPES on fake CUDA
-    tensors, in two processes of their own (each owns a fake process
-    group), one a production mesh: 1pod, then decode_32k on (1, TP_RANKS);
-    2pod.  Each writes its own results."""
+    """Start phase 15 (e)'s and 16 (d)'s dry-run, qwen3-8b's TP_DRY_SHAPES
+    and qwen2-moe-a2.7b's decode_32k on fake CUDA tensors, in two processes
+    of their own (each owns a fake process group), one a production mesh:
+    1pod, then both decode_32k cells on (1, TP_RANKS); 2pod.  Each writes
+    its own results."""
     out_dir.mkdir(parents=True, exist_ok=True)
     code = ("import sys; from repro_torch.launch import dryrun; "
-            "a = ['--arch', sys.argv[1], '--device', 'cuda', '--results', "
-            "sys.argv[2], sys.argv[3]]; "
-            "[dryrun.main(a + ['--shape', s]) for s in sys.argv[5:]]; "
-            "sys.argv[4] and dryrun.main(a + ['--shape', 'decode_32k', "
-            "'--mesh-shape', sys.argv[4]])")
+            "res, flag, mesh, lm, moe = sys.argv[1:6]; "
+            "run = lambda arch, shape, *x: dryrun.main(['--arch', arch, "
+            "'--shape', shape, '--device', 'cuda', '--results', res, flag, "
+            "*x]); "
+            "[run(lm, s) for s in sys.argv[6:]]; run(moe, 'decode_32k'); "
+            "mesh and [run(a, 'decode_32k', '--mesh-shape', mesh) "
+            "for a in (lm, moe)]")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     started = []
@@ -4336,14 +4414,16 @@ def tp_dryrun_start(out_dir: Path) -> list:
             results.unlink()
         log = open(out_dir / f"dryrun_{pods}.log", "w")
         proc = subprocess.Popen(
-            [sys.executable, "-c", code, LM_ARCH, str(results), flag, extra,
-             *TP_DRY_SHAPES], env=env, stdout=log, stderr=subprocess.STDOUT)
+            [sys.executable, "-c", code, str(results), flag, extra, LM_ARCH,
+             FAM_MOE, *TP_DRY_SHAPES], env=env, stdout=log,
+            stderr=subprocess.STDOUT)
         started.append((proc, results, log))
     return started
 
 
-def tp_dryrun_finish(started: list, tp: dict, smi: str) -> dict:
-    """Wait for (e), check its cells and print their roofline rows."""
+def tp_dryrun_finish(started: list, tp: dict, moe: dict, smi: str) -> dict:
+    """Wait for phase 15 (e) and 16 (d), check their cells and print their
+    roofline rows."""
     from repro_torch.launch import roofline
     t0 = time.perf_counter()
     entries = {}
@@ -4376,14 +4456,15 @@ def tp_dryrun_finish(started: list, tp: dict, smi: str) -> dict:
     for mesh in ("1pod", "2pod"):
         say(roofline.render_markdown(roofline.build_table(entries, mesh),
                                      mesh))
-    key = f"{LM_ARCH}|decode_32k|1pod|mesh1x{TP_RANKS}"
-    measured = [r["param_bytes"] for r in tp["ranks"]]
-    want = entries[key]["param_bytes"]
-    say(f"tp (e): parameter bytes a rank on (1, {TP_RANKS}): dry-run "
-        f"{want:,}, measured {measured} on {smi}")
-    if any(b != want for b in measured):
-        fail(f"tp (e): the dry-run's {want:,} parameter bytes a rank != "
-             f"the ranks' {measured}")
+    for arch, ranks in ((LM_ARCH, tp["ranks"]), (FAM_MOE, moe["ranks"])):
+        key = f"{arch}|decode_32k|1pod|mesh1x{TP_RANKS}"
+        measured = [r["param_bytes"] for r in ranks]
+        want = entries[key]["param_bytes"]
+        say(f"tp (e) / moe (d): {arch}'s parameter bytes a rank on (1, "
+            f"{TP_RANKS}): dry-run {want:,}, measured {measured} on {smi}")
+        if any(b != want for b in measured):
+            fail(f"tp (e) / moe (d): {arch}: the dry-run's {want:,} "
+                 f"parameter bytes a rank != the ranks' {measured}")
     return {"cells": len(entries)}
 
 
@@ -4634,6 +4715,605 @@ def tp_kernel_errs(tp: dict) -> dict:
     for part in (r0["serve", True], r0["serve", False], r0["train"]):
         add_counts(checked, part["kernel_checked"])
     return {"errs": errs, "checked": checked}
+
+
+# -- phase 16: the MoE family on sharded parameters -----------------------------
+
+class ExpertShapes:
+    """Records every expert-parallel product on a rank (``tp.ExpertMatmul``,
+    which ``models/moe.py`` looks up at each call): the rank's local
+    experts and the bytes of the local weight it reads."""
+
+    def __enter__(self):
+        from repro_torch.distributed import tp
+        self.tp, self.orig, self.calls = tp, tp.ExpertMatmul, []
+        rec = self.calls
+
+        class Recorded(self.orig):
+            @staticmethod
+            def forward(ctx, x, w):
+                wl = w.to_local()
+                rec.append((x.to_local().shape[0],
+                            wl.numel() * wl.element_size()))
+                return self.orig.forward(ctx, x, w)
+        tp.ExpertMatmul = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.tp.ExpertMatmul = self.orig
+
+
+class RouteRecord:
+    """Wraps the MoE routers (one process's ``moe._route``, a rank's
+    ``moe._route_sharded``): for every call the expert ids ``[tokens, k]``
+    of the tokens it routes (a rank: its data rank's rows) and which
+    (token, slot) pairs its capacity keeps, on the host.  On a rank,
+    ``inputs`` also keeps the router's input rows and ``decisions`` its
+    gates, expert ids and positions.  In one process, ``feed`` routes call
+    i's inputs ``feed[i]`` (the ranks' rows, whole) in place of its own,
+    and ``decide`` takes call i's ``(gates, ids, positions)`` as its
+    router's: the bf16 rounding of one run then cannot move the other's
+    top-k (a flip changes which tokens a full expert drops)."""
+
+    def __init__(self, inputs: bool = False, decisions: bool = False,
+                 feed=None, decide=None):
+        self.inputs, self.decisions = inputs, decisions
+        self.feed, self.decide = feed, decide
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls, self.rows, self.made = moe, [], [], []
+        self.orig = (moe._route, moe._route_sharded)
+
+        def one(params, spec, xg):
+            i = len(self.calls)
+            if self.feed is not None:
+                xg = self.feed[i].to(xg).reshape(xg.shape)
+            out = self.orig[0](params, spec, xg)
+            if self.decide is not None:
+                out = tuple(t.to(o.device).reshape(o.shape)
+                            for t, o in zip(self.decide[i], out[:3])) \
+                    + (out[3],)
+            cap = moe._capacity(spec, xg.shape[0] * xg.shape[1])[2]
+            self.keep(out[1], out[2] < cap)
+            return out
+
+        def ranks(params, spec, x, sp):
+            out = self.orig[1](params, spec, x, sp)
+            self.keep(out[1], (out[2] >= 0) & (out[2] < sp.cap))
+            if self.inputs:
+                self.rows.append(x.to_local().detach().reshape(
+                    -1, x.shape[-1]).cpu())
+            if self.decisions:
+                self.made.append(tuple(t.detach().cpu() for t in out[:3]))
+            return out
+        moe._route, moe._route_sharded = one, ranks
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._route_sharded = self.orig
+
+    def keep(self, gidx, kept) -> None:
+        k = gidx.shape[-1]
+        self.calls.append((gidx.reshape(-1, k).cpu().numpy(),
+                           kept.reshape(-1, k).cpu().numpy()))
+
+
+class MoeCollectiveTimer(CollectiveTimer):
+    """:class:`CollectiveTimer`, and also the port's own collectives that
+    the MoE path calls beside DTensor's redistributions (the router's
+    gathers, FSDP's gathers)."""
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives
+        self.coll = collectives
+        self.saved = {n: getattr(collectives, n) for n in
+                      ("gather_over", "reduce_scatter_over")}
+        for name, real in self.saved.items():
+            def timed(*args, _real=real, **kwargs):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kwargs)    # staged: returns when done
+                self.torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            setattr(collectives, name, timed)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.coll, name, real)
+        return super().__exit__(*exc)
+
+
+def moe_train_batch(vocab: int) -> dict:
+    rng = np.random.RandomState(SEED + 2)
+    return {k: rng.randint(0, vocab, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ))
+            .astype(np.int32) for k in ("tokens", "targets")}
+
+
+def moe_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
+    """Phase 16 (a)-(b) on one of MOE_RANKS ranks of a ("data"=1,
+    "model"=2) mesh: qwen2-moe-a2.7b at full width and depth served with
+    quantize_dense on and off (every kernel launch and quantized linear
+    checked, the experts' products recorded; rank 0 writes the int8
+    activations for the one-process run), off once more with the
+    collectives timed; its train step at MOE_TRAIN_LAYERS layers,
+    its kernels checked, its params saved."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    mesh = make_mesh((1, MOE_RANKS), ("data", "model"), "cuda")
+    res = {"jax": "jax" in sys.modules}
+    cfg = get_config(FAM_MOE)
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        params = Model(cfg, "cuda").init_placed(mesh, torch.Generator(
+            device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["param_bytes"] = _local_param_bytes(params)
+        res["init_peak"] = torch.cuda.max_memory_allocated()
+        prompts = tp_prompts(cfg.vocab_size)
+        for quant in (True, False):
+            m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+            tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
+            with KernelChecks(torch, dispatch, ("mha", "int_matmul")) as kc, \
+                    Int8Check(TP_INT8_CALLS, record=quant and rank == 0) \
+                    as i8, ExpertShapes() as es, \
+                    RouteRecord(decisions=rank == 0) as rr:
+                run = tp_serve(torch, dispatch, m, params, prompts,
+                               new=FAM_NEW)
+            if i8.records:
+                torch.save(i8.records, int8_path)
+            if rr.made:
+                torch.save(rr.made, f"{int8_path}.route{int(quant)}")
+            prefill_calls = 3 * cfg.n_layers
+            run.update(kc.report(), int8_calls=i8.calls, int8_diff=i8.diff,
+                       int8_elements=i8.elements, int8_gathered=i8.gathered,
+                       int8_gathered_diff=i8.gathered_diff,
+                       local_experts=sorted({e for e, _ in es.calls}),
+                       expert_calls=len(es.calls),
+                       expert_bytes_a_token=sum(
+                           b for _, b in es.calls[prefill_calls:]) / FAM_NEW)
+            del i8
+            if not quant:
+                with MoeCollectiveTimer(torch) as ct:
+                    t0 = time.perf_counter()
+                    tp_serve(torch, dispatch, m, params, prompts,
+                             tokens=run["tokens"], new=FAM_NEW)
+                    wall = time.perf_counter() - t0
+                run["coll_share"] = ct.seconds / wall
+                run["coll_calls"] = ct.calls
+            res["serve", quant] = run
+        res["peak_serve"] = torch.cuda.max_memory_allocated()
+        del params
+        torch.cuda.empty_cache()
+
+        tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+        tmodel = Model(tcfg, "cuda")
+        params = tmodel.init_placed(mesh, torch.Generator(
+            device="cuda").manual_seed(SEED)).trainable_()
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(tmodel, opt)
+        batch = moe_train_batch(tcfg.vocab_size)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        with KernelChecks(torch, dispatch, ("mha", "mha_bwd")) as kc:
+            params, state, m = step(params, state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+        res["train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                        "counts": dict(dispatch.launch_counts),
+                        "step_ms": (time.perf_counter() - t0) * 1e3,
+                        **kc.report()}
+        checkpoint.save(ckpt_dir, 1, params)
+        res["saved"] = _digest_params(params)
+        res["peak_train"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def dbrx_prompts(vocab: int) -> np.ndarray:
+    return np.random.RandomState(SEED + 3).randint(
+        0, vocab, (DBRX_PROMPTS, FAM_DBRX_PROMPT)).astype(np.int32)
+
+
+def dbrx_rank(rank: int) -> dict:
+    """Phase 16 (c) on one of the ranks of a DBRX_MESH ("data", "model")
+    mesh: dbrx-132b at full width and DBRX_LAYERS layers, its weights
+    placed by param_shardings_fsdp (two ranks drawing at a time: each
+    holds one whole layer while it draws), 2 prompts prefilled and DBRX_NEW
+    greedy decode steps; every mha launch checked, the routers' keep sets
+    and the FSDP gathers' bytes recorded."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import Model
+    mesh = make_mesh(DBRX_MESH, ("data", "model"), "cuda")
+    res = {"jax": "jax" in sys.modules, "coord": mesh.get_coordinate()}
+    cfg = dataclasses.replace(get_config(FAM_DBRX), n_layers=DBRX_LAYERS)
+    model = Model(cfg, "cuda")
+    with use_mesh(mesh):
+        t0 = time.perf_counter()
+        for r in range(0, dist.get_world_size(), 2):     # two at a time
+            if rank in (r, r + 1):
+                params = model.init_placed(mesh, torch.Generator(
+                    device="cuda").manual_seed(SEED))
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res["init_s"] = time.perf_counter() - t0
+        res["param_bytes"] = _local_param_bytes(params)
+        w = params["layers"][0]["moe"]["w_gate"]
+        res["w_gate"] = (tuple(w.to_local().shape),
+                         [str(p) for p in w.placements])
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_traffic()
+        with KernelChecks(torch, dispatch, ("mha",)) as kc, \
+                RouteRecord(inputs=True, decisions=True) as rr:
+            run = tp_serve(torch, dispatch, model, params,
+                           dbrx_prompts(cfg.vocab_size), new=DBRX_NEW)
+        run.update(kc.report(), traffic=dict(collectives.traffic),
+                   routes=rr.calls, route_rows=rr.rows, route_made=rr.made,
+                   peak_serve=torch.cuda.max_memory_allocated())
+        res["serve"] = run
+    return res
+
+
+def moe_one_process(torch, dispatch, moe: dict, ckpt_dir: str,
+                    int8_path: str) -> dict:
+    """The one-process runs phase 16 (a)-(b) hold the ranks against:
+    qwen2-moe-a2.7b fed the ranks' tokens (quantize_dense on: also fed
+    their int8 activations), its train step, the checkpoint restored."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    r0 = moe["ranks"][0]
+    cfg = get_config(FAM_MOE)
+    params = Model(cfg, "cuda").init(torch.Generator(
+        device="cuda").manual_seed(SEED))
+    out = {"param_bytes": _local_param_bytes(params)}
+    prompts = tp_prompts(cfg.vocab_size)
+    records = torch.load(int8_path, weights_only=True)
+    for quant in (True, False):
+        m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+        tokens = r0["serve", quant]["tokens"]
+        decide = torch.load(f"{int8_path}.route{int(quant)}",
+                            weights_only=True)
+        tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
+        out["own", quant] = tp_serve(torch, dispatch, m, params, prompts,
+                                     tokens=tokens, new=FAM_NEW)
+        with Int8Feed(records, quant) as f8, RouteRecord(decide=decide):
+            run = tp_serve(torch, dispatch, m, params, prompts,
+                           tokens=tokens, new=FAM_NEW)
+        run["flips"] = f8.flips if quant else []
+        out["serve", quant] = run
+        Path(f"{int8_path}.route{int(quant)}").unlink()
+    del params, records
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    tmodel = Model(tcfg, "cuda")
+    params = tmodel.init(torch.Generator(device="cuda").manual_seed(SEED)) \
+        .trainable_()
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(tmodel, opt)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, m = step(params, opt.init(params), moe_train_batch(tcfg.vocab_size))
+    loss = float(m["loss"])
+    out["train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                    "counts": dict(dispatch.launch_counts),
+                    "step_ms": (time.perf_counter() - t0) * 1e3}
+    params.load_(checkpoint.restore(ckpt_dir, 1, params))
+    out["restored"] = _digest_params(params)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del params, tmodel, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def dbrx_one_process(torch, dispatch, ranks: list) -> dict:
+    """dbrx-132b at DBRX_LAYERS layers in one process fed the ranks'
+    tokens: routing its own activations; fed the ranks' routing (their
+    gates, expert ids and positions, whole: data rank 0's rows, then
+    1's); and with its routers fed the ranks' router inputs, their keep
+    sets recorded."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    cfg = dataclasses.replace(get_config(FAM_DBRX), n_layers=DBRX_LAYERS)
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompts, tokens = (dbrx_prompts(cfg.vocab_size),
+                       ranks[0]["serve"]["tokens"])
+    by_data = {}
+    for r in ranks:                      # model rank 0 of each data rank
+        by_data.setdefault(r["coord"][0], r["serve"])
+    runs = [by_data[d] for d in sorted(by_data)]
+
+    def whole(i, pick):
+        return torch.cat([pick(r, i).reshape(-1, pick(r, i).shape[-1])
+                          for r in runs])
+    calls = range(len(runs[0]["route_rows"]))
+    feed = [whole(i, lambda r, i: r["route_rows"][i]) for i in calls]
+    decide = [tuple(whole(i, lambda r, i, j=j: r["route_made"][i][j])
+                    for j in range(3)) for i in calls]
+    own = tp_serve(torch, dispatch, model, params, prompts, tokens=tokens,
+                   new=DBRX_NEW)
+    with RouteRecord(decide=decide):
+        run = tp_serve(torch, dispatch, model, params, prompts,
+                       tokens=tokens, new=DBRX_NEW)
+    with RouteRecord(feed=feed) as rr:
+        fed = tp_serve(torch, dispatch, model, params, prompts,
+                       tokens=tokens, new=DBRX_NEW)
+    run["routes"], run["fed_logits"] = rr.calls, fed["logits"]
+    run["own_logits"] = own["logits"]
+    run["param_bytes"] = _local_param_bytes(params)
+    del params, model
+    torch.cuda.empty_cache()
+    return run
+
+
+def moe_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 16, checks (a)-(c) (the module docstring); (d) runs with
+    phase 15 (e)."""
+    import shutil
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    t_phase = time.perf_counter()
+    ckpt, int8_path = MOE_DIR / "ckpt", MOE_DIR / "int8.pt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    MOE_DIR.mkdir(parents=True, exist_ok=True)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    marks = {}
+    try:
+        say(f"moe: {MOE_RANKS} ranks share the card over "
+            f"{backend_for('cuda', MOE_RANKS)}, a (data=1, model="
+            f"{MOE_RANKS}) mesh")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(moe_rank, MOE_RANKS, device="cuda",
+                            timeout=MOE_TIMEOUT,
+                            args=(str(ckpt), str(int8_path)))
+        marks["ranks (a)-(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db = spawn_ranks(dbrx_rank, DBRX_MESH[0] * DBRX_MESH[1],
+                         device="cuda", timeout=MOE_TIMEOUT)
+        marks["ranks (c)"] = time.perf_counter() - t0
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    moe = {"ranks": ranks, "dbrx": db}
+    t0 = time.perf_counter()
+    one = moe_one_process(torch, dispatch, moe, str(ckpt), str(int8_path))
+    one["dbrx"] = dbrx_one_process(torch, dispatch, db)
+    marks["one process"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    int8_path.unlink()
+    check_moe(moe, one, smi)
+    moe["wall_s"] = time.perf_counter() - t_phase
+    say(f"moe: phase 16 (a)-(c) in {moe['wall_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in marks.items())}) on "
+        f"{smi}")
+    return moe
+
+
+def check_moe(moe: dict, one: dict, smi: str) -> None:
+    """Phase 16 (a)-(c) against the one-process runs: every number
+    printed, then every failed check listed at once."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import moe_spec
+    ranks, db, bad = moe["ranks"], moe["dbrx"], []
+    cfg = get_config(FAM_MOE)
+    spec = moe_spec(cfg)
+    if any(r["jax"] for r in ranks + db):
+        bad.append("moe: a rank imported JAX")
+    for r in ranks:
+        for part in (r["serve", True], r["serve", False], r["train"]):
+            bad += [f"moe kernels: {o}" for o in part["kernel_over"]]
+    for r in db:
+        bad += [f"moe (c) kernels: {o}" for o in r["serve"]["kernel_over"]]
+    for quant in (True, False):
+        mode = "quantize_dense on" if quant else "off"
+        got, want = ranks[0]["serve", quant], one["serve", quant]
+        for r in ranks[1:]:
+            if not np.array_equal(r["serve", quant]["logits"], got["logits"]):
+                bad.append(f"moe (a) {mode}: the ranks' logits differ")
+        err = float(np.abs(got["logits"] - want["logits"]).max())
+        sure, agree = _greedy(want["logits"][:FAM_NEW], got["tokens"],
+                              TP_BF16_TOL)
+        own = one["own", quant]
+        gap = float(np.abs(got["logits"] - own["logits"]).max())
+        osure, oagree = _greedy(own["logits"][:FAM_NEW], got["tokens"],
+                                TP_BF16_TOL)
+        say(f"moe (a) {FAM_MOE} {mode}: logits (prefill + {FAM_NEW} decode "
+            f"steps) max |sharded - one process fed their routing"
+            f"{' and int8' if quant else ''}| {err:.4g} (tolerance "
+            f"{TP_BF16_TOL}); greedy tokens equal at "
+            f"{int((agree & sure).sum())} of {int(sure.sum())} positions "
+            f"whose top-2 margin exceeds it ({int(agree.sum())} of "
+            f"{agree.size} in all).  One process routing its own "
+            f"activations (not bounded: a top-k flip moves which tokens a "
+            f"full expert drops, capacity factor {spec.capacity_factor}): "
+            f"{gap:.4g}, greedy tokens equal at "
+            f"{int((oagree & osure).sum())} of {int(osure.sum())} sure "
+            f"positions")
+        if err > TP_BF16_TOL or not np.all(agree[sure]):
+            bad.append(f"moe (a) {mode}: sharded serving disagrees with one "
+                       f"process")
+        for r in ranks:
+            c = r["serve", quant]
+            if c["counts"] != want["counts"]:
+                bad.append(f"moe (a) {mode}: rank launches {c['counts']} != "
+                           f"one process {want['counts']}")
+            if c["local_experts"] != [spec.n_experts // MOE_RANKS]:
+                bad.append(f"moe (a) {mode}: a rank multiplied "
+                           f"{c['local_experts']} experts, not its "
+                           f"{spec.n_experts // MOE_RANKS}")
+        say(f"moe (a) {mode}: every launch on a rank against its plain "
+            f"version on the rank's operands: {got['kernel_checked']}, "
+            f"errors {got['kernel_errs']} (int_matmul exact, mha <= "
+            f"{TRAIN_BWD_BF16_RTOL} of max |plain|); shapes {got['shapes']}; "
+            f"launches a rank {got['counts']} (= one process); each rank "
+            f"multiplied its own {got['local_experts']} experts in "
+            f"{got['expert_calls']} expert products")
+    on, off = ranks[0]["serve", True], ranks[0]["serve", False]
+    calls = one["serve", True]["counts"]["int_matmul"]
+    say(f"moe (a) quantize_dense on: int8 activations of all "
+        f"{on['int8_calls']} quantized linears ({on['int8_elements']:,} "
+        f"elements) against one-process quantization of the gathered "
+        f"inputs: {on['int8_diff']} differ; int32 products of the first "
+        f"{on['int8_gathered']} against int_matmul on the gathered operands: "
+        f"{on['int8_gathered_diff']} differ; the one-process run fed them "
+        f"({len(one['serve', True]['flips'])} calls)")
+    if on["int8_calls"] != calls or on["int8_diff"] \
+            or on["int8_gathered"] != TP_INT8_CALLS \
+            or on["int8_gathered_diff"] \
+            or len(one["serve", True]["flips"]) != calls:
+        bad.append("moe (a): sharded int8 activations or int_matmul outputs "
+                   "differ from one process on the same inputs")
+    whole = 3 * spec.n_experts * spec.d_model * spec.d_ff * 2 * cfg.n_layers
+    own = one["own", False]
+    say(f"moe (a): {FAM_MOE} prefill {off['prefill_ms']:.1f} ms against "
+        f"{own['prefill_ms']:.1f} ms in one process; {off['decode_ms']:.1f} "
+        f"ms a decode token against {own['decode_ms']:.1f} ms (quantize_dense "
+        f"off, its mha launches checked; on: {on['prefill_ms']:.1f} / "
+        f"{on['decode_ms']:.1f} ms with every launch checked); the "
+        f"collectives {off['coll_share']:.1%} of a decode run "
+        f"({off['coll_calls']} timed, every one synchronised); expert weight "
+        f"bytes read a rank a decode token {off['expert_bytes_a_token'] / 1e9:.2f}"
+        f" GB (capacity >= 1 in every local expert) against {whole / 1e9:.2f} "
+        f"GB in one process; parameter bytes a rank "
+        f"{[r['param_bytes'] for r in ranks]} against {one['param_bytes']:,}"
+        f" in one process; peaks a rank {[r['peak_serve'] / 2 ** 30 for r in ranks]}"
+        f" GiB, drawn in {[round(r['init_s'], 1) for r in ranks]} s on {smi}")
+    if abs(off["expert_bytes_a_token"] * MOE_RANKS - whole) > 1:
+        bad.append(f"moe (a): expert bytes a decode token "
+                   f"{off['expert_bytes_a_token']} a rank, not half of "
+                   f"{whole}")
+    got, want = ranks[0]["train"], one["train"]
+    for r in ranks:
+        if r["train"]["counts"] != want["counts"]:
+            bad.append(f"moe (b) train: rank launches {r['train']['counts']} "
+                       f"!= one process {want['counts']}")
+    dloss = abs(got["loss"] - want["loss"])
+    dnorm = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    say(f"moe (b): {FAM_MOE} at {MOE_TRAIN_LAYERS} layers, one AdamW step on "
+        f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens: loss {got['loss']:.5f} "
+        f"against {want['loss']:.5f} (|d| {dloss:.3g}, tolerance "
+        f"{TRAIN_LOSS_ATOL}), grad norm {got['grad_norm']:.5f} against "
+        f"{want['grad_norm']:.5f} (rel {dnorm:.3g}, tolerance "
+        f"{TRAIN_GRAD_RTOL}); {got['step_ms']:.0f} ms a step (the first) "
+        f"against {want['step_ms']:.0f} ms; launches a rank {got['counts']}; "
+        f"every launch against its plain version on the rank's operands: "
+        f"{got['kernel_checked']}, errors {got['kernel_errs']}; peak "
+        f"{ranks[0]['peak_train'] / 2 ** 30:.1f} GiB a rank against "
+        f"{one['peak'] / 2 ** 30:.1f} GiB in one process on {smi}")
+    if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
+        bad.append("moe (b): the sharded step disagrees with one process")
+    differ = [n for n in one["restored"]
+              if one["restored"][n] != ranks[0]["saved"].get(n)]
+    if differ or one["restored"].keys() != ranks[0]["saved"].keys():
+        bad.append(f"moe (b): {len(differ)} leaves differ after the restore "
+                   f"(first {differ[:3]})")
+    say(f"moe (b): the ranks' state restored into one process, "
+        f"{len(one['restored'])} leaves bit for bit")
+
+    # (c) dbrx with FSDP
+    d0, d1 = db[0]["serve"], one["dbrx"]
+    for r in db[1:]:
+        if not np.array_equal(r["serve"]["logits"], d0["logits"]):
+            bad.append("moe (c): the ranks' logits differ")
+    err = float(np.abs(d0["logits"] - d1["logits"]).max())
+    gap = float(np.abs(d0["logits"] - d1["own_logits"]).max())
+    sure, agree = _greedy(d1["logits"][:DBRX_NEW], d0["tokens"], TP_BF16_TOL)
+    if err > TP_BF16_TOL or not np.all(agree[sure]):
+        bad.append("moe (c): dbrx over ranks disagrees with one process")
+    for r in db:
+        if r["serve"]["counts"] != d1["counts"]:
+            bad.append(f"moe (c): rank launches {r['serve']['counts']} != "
+                       f"one process {d1['counts']}")
+    # the routers' keep sets: a rank routes its data rank's rows, alike
+    # on every "model" rank
+    by_data = {}
+    for r in db:
+        by_data.setdefault(r["coord"][0], []).append(r["serve"]["routes"])
+    layers, drops, mismatch = DBRX_LAYERS, [], [0, 0]
+    for i, (gidx, kept) in enumerate(d1["routes"]):
+        for mr in range(DBRX_MESH[1]):
+            rows = [by_data[dr][mr][i] for dr in sorted(by_data)]
+            if not (np.array_equal(np.concatenate([g for g, _ in rows]), gidx)
+                    and np.array_equal(np.concatenate([k for _, k in rows]),
+                                       kept)):
+                mismatch[i >= layers] += 1
+        drops.append(int((~kept).sum()))
+    pairs = sum(k.size for _, k in d1["routes"][layers:])
+    fed_err = float(np.abs(d0["logits"] - d1["fed_logits"]).max())
+    say(f"moe (c): {FAM_DBRX} at {DBRX_LAYERS} of 40 layers with FSDP over a "
+        f"(data={DBRX_MESH[0]}, model={DBRX_MESH[1]}) mesh: logits (prefill + "
+        f"{DBRX_NEW} decode steps) max |ranks - one process fed their "
+        f"routing| {err:.4g} (tolerance {TP_BF16_TOL}; routing its own "
+        f"activations, not bounded: {gap:.4g}); greedy tokens equal at "
+        f"{int((agree & sure).sum())} of {int(sure.sum())} sure positions; "
+        f"router calls {len(d1['routes'])}, one process's fed the ranks' "
+        f"router inputs (its logits then {fed_err:.4g} from the ranks'): "
+        f"expert ids and kept (token, slot) pairs differ in "
+        f"{mismatch[0]} prefill and {mismatch[1]} decode calls (a rank's "
+        f"float32 logits come from a product of other width: a top-k "
+        f"near-tie may flip among the prefill's 1,024 tokens a layer, not "
+        f"checked); "
+        f"dropped pairs at "
+        f"the prefill {sum(drops[:layers])}, at the decode steps "
+        f"{sum(drops[layers:])} of {pairs}; launches a rank "
+        f"{d0['counts']} (= one process); mha against plain "
+        f"{d0['kernel_checked']}, errors {d0['kernel_errs']}, shapes "
+        f"{d0['shapes']}; w_gate a rank "
+        f"{db[0]['w_gate']}; parameter bytes a rank "
+        f"{[r['param_bytes'] for r in db]} against {d1['param_bytes']:,} in "
+        f"one process; collectives a rank {d0['traffic']} (all_gather: the "
+        f"FSDP gathers and the routers'); prefill {d0['prefill_ms']:.0f} ms "
+        f"against {d1['prefill_ms']:.0f} ms, a decode step "
+        f"{d0['decode_ms']:.0f} ms against {d1['decode_ms']:.0f} ms; peak "
+        f"{d0['peak_serve'] / 2 ** 30:.1f} GiB a rank, drawn in "
+        f"{db[0]['init_s']:.1f} s on {smi}")
+    if mismatch[1] or len(d1["routes"]) != layers * (1 + DBRX_NEW):
+        bad.append(f"moe (c): {mismatch[1]} decode router calls keep other "
+                   f"pairs than one process")
+    if bad:
+        fail("; ".join(bad))
+
+
+def moe_kernel_errs(moe: dict) -> dict:
+    """Phase 16's largest kernel-against-plain error of each op over the
+    ranks and runs, and the launches a rank (rank 0 of (a)-(b), of (c))."""
+    errs, counts = {}, {}
+    parts = [p for r in moe["ranks"] for p in (r["serve", True],
+                                                r["serve", False], r["train"])]
+    parts += [r["serve"] for r in moe["dbrx"]]
+    for part in parts:
+        for k, e in part["kernel_errs"].items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    r0 = moe["ranks"][0]
+    for part in (r0["serve", True], r0["serve", False], r0["train"],
+                 moe["dbrx"][0]["serve"]):
+        add_counts(counts, part["counts"])
+    return {"errs": errs, "counts": counts}
 
 
 # -- phase 13: data-parallel training over ranks sharing the card -------------
@@ -5474,6 +6154,10 @@ def main() -> int:
     # dry-run, runs beside phase 14's data set-up
     tp = tp_on_card(torch, dispatch, smi)
 
+    # -- 16. the MoE family on sharded parameters ---------------------------
+    # likewise while this process holds nothing on the card
+    moe = moe_on_card(torch, dispatch, smi)
+
     # -- 13. data-parallel training over ranks sharing the card -------------
     # while this process holds nothing on the card
     dp = dp_on_card(torch, smi)
@@ -5487,7 +6171,7 @@ def main() -> int:
         f"generate; taken when under half of MemAvailable)")
     dry = tp_dryrun_start(TP_DIR / "dryrun")   # 15 (e), beside set-up only
     pim_sets = pim_data(n_dtr, n_emb)
-    tp_dry = tp_dryrun_finish(dry, tp, smi)
+    tp_dry = tp_dryrun_finish(dry, tp, moe, smi)
     pim = pim_on_card(torch, pim_sets, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
@@ -6044,6 +6728,16 @@ def main() -> int:
             k["tp_launches_a_rank"] = tp0["train"]["counts"]["mha_bwd"]
             k["tp_max_abs_err"] = tpk["errs"]["mha_bwd abs"]
             k["tp_max_rel_err"] = tpk["errs"]["mha_bwd"]
+    mk = moe_kernel_errs(moe)    # phase 16's launches a rank, errors
+    for k in kernels:
+        op = {"flash_attention": "mha", "flash_attention_bwd": "mha_bwd"}.get(
+            k["name"], k["name"])
+        if op in mk["counts"]:
+            k["moe_launches_a_rank"] = mk["counts"][op]
+            k["moe_max_abs_err"] = mk["errs"].get(
+                f"{op} abs", mk["errs"].get(op))
+            if op != "int_matmul":
+                k["moe_max_rel_err"] = mk["errs"][op]
     ranked = {}     # phase 14's launches on rank 0, and its checks' errors
     for rec in pim["ranks"][0]["fits"].values():
         add_counts(ranked, rec["counts"])
@@ -6098,6 +6792,16 @@ def main() -> int:
         "coll_share": tp0["serve", False]["coll_share"],
         "train_step_ms": tp0["train"]["step_ms"],
         "dry_cells": tp_dry["cells"], "wall_s": tp["wall_s"]}))
+    r0 = moe["ranks"][0]
+    say("moe: " + json.dumps({
+        **{f"serve {'on' if q else 'off'}": {
+            k: r0["serve", q][k] for k in ("prefill_ms", "decode_ms")}
+           for q in (True, False)},
+        "coll_share": r0["serve", False]["coll_share"],
+        "train_step_ms": r0["train"]["step_ms"],
+        "dbrx": {k: moe["dbrx"][0]["serve"][k] for k in (
+            "prefill_ms", "decode_ms", "traffic")},
+        "wall_s": moe["wall_s"]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

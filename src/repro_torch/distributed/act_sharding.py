@@ -10,6 +10,8 @@ is and redistributes a DTensor to the cut point's spec.  The dense LM
 calls it at the reference's cut points (``models/layers.py``,
 ``models/attention.py``, ``models/transformer.py``), so with its
 parameters placed (``sharding.place_params``) it runs tensor-parallel.
+The MoE's expert buffers take the "egcd" spec, the reference's "gecd" in
+the port's ``[E, G * cap, d]`` layout (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -79,6 +81,9 @@ def _spec_for(kind: str, ndim: int, mesh) -> Optional[tuple]:
     if kind == "gecd":       # [G, E, cap, d] group-local moe buffers
         if ndim == 4:
             return P(dp, "model", None, None)
+    if kind == "egcd":       # [E, G * cap, d]: the port's "gecd" buffers
+        if ndim == 3:        # (models/moe.py), the experts leading
+            return P("model", dp, None)
     if kind == "btv":        # [B, S, vocab] logits
         if ndim == 3:
             return P(dp, None, "model")

@@ -64,14 +64,30 @@ def _count(op: str, tensor: torch.Tensor) -> None:
     traffic["calls"] += 1
 
 
+#: staged tensors of at least this many bytes go through page-locked
+#: host memory (the caching host allocator keeps the blocks): a pageable
+#: copy of an FSDP layer's weights ran at ~2-3 GB/s on the H100's host
+PINNED_BYTES = 1 << 20
+
+
 def _to_host(tensor: torch.Tensor) -> torch.Tensor:
-    traffic["staged"] += tensor.numel() * tensor.element_size()
-    return tensor.cpu()
+    nbytes = tensor.numel() * tensor.element_size()
+    traffic["staged"] += nbytes
+    return torch.empty(tensor.shape, dtype=tensor.dtype,
+                       pin_memory=nbytes >= PINNED_BYTES).copy_(tensor)
 
 
 def _from_host(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     traffic["staged"] += host.numel() * host.element_size()
     return host.to(like.device)
+
+
+def _empty_like_src(src: torch.Tensor, shape) -> torch.Tensor:
+    """A collective's output beside its input ``src``: page-locked where
+    ``src`` is (a staged copy)."""
+    if src.device.type == "cpu" and src.is_pinned():
+        return torch.empty(shape, dtype=src.dtype, pin_memory=True)
+    return src.new_empty(shape)
 
 
 def divide(x: torch.Tensor, n) -> torch.Tensor:
@@ -108,7 +124,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     x = x.contiguous()
     _count("reduce_scatter", x)
     src = _to_host(x) if staged("reduce_scatter", x, group) else x
-    out = src.new_empty((x.shape[0] // n, *x.shape[1:]))
+    out = _empty_like_src(src, (x.shape[0] // n, *x.shape[1:]))
     _REDUCE_SCATTER(out, src, group=group)
     return _from_host(out, x) if src is not x else out
 
@@ -119,7 +135,7 @@ def all_gather(shard: torch.Tensor, group=None) -> torch.Tensor:
     shard = shard.contiguous()
     _count("all_gather", shard)
     src = _to_host(shard) if staged("all_gather", shard, group) else shard
-    out = src.new_empty((n * shard.shape[0], *shard.shape[1:]))
+    out = _empty_like_src(src, (n * shard.shape[0], *shard.shape[1:]))
     _ALL_GATHER(out, src, group=group)
     return _from_host(out, shard) if src is not shard else out
 
@@ -224,3 +240,46 @@ def reduce_over(tensor: torch.Tensor, op: str, groups: list
     for group in groups:
         tensor = funcol.all_reduce(tensor, op, group)
     return tensor
+
+
+def _funcol(name: str, old: str):
+    """A functional collective by its name since torch 2.10 (``*_single``),
+    or by its older one (which warns where the new one exists)."""
+    from torch.distributed import _functional_collectives as funcol
+    return getattr(funcol, name, None) or getattr(funcol, old)
+
+
+def gather_over(tensor: torch.Tensor, dim: int, groups: list
+                ) -> torch.Tensor:
+    """Each group's shards of ``tensor`` concatenated along ``dim``, the
+    groups in turn (pass the innermost mesh dim's first), as functional
+    collectives (the dry-run's trace counts them), or staged through
+    (page-locked) host memory by :func:`all_gather` where the backend
+    needs it."""
+    gather = _funcol("all_gather_single", "all_gather_tensor")
+    for group in groups:
+        if staged("all_gather", tensor, group):
+            tensor = all_gather(tensor.movedim(dim, 0), group).movedim(0, dim)
+            continue
+        tensor = tensor.contiguous()
+        _count("all_gather", tensor)
+        tensor = gather(tensor, dim, group)
+    return tensor.contiguous()
+
+
+def reduce_scatter_over(tensor: torch.Tensor, dim: int, groups: list
+                        ) -> torch.Tensor:
+    """The sum over each group of ``tensor``'s block along ``dim`` this
+    rank owns, the groups in turn (pass the outermost mesh dim's first;
+    ``dim`` divisible by each group's size), as functional collectives,
+    or staged by :func:`reduce_scatter` where the backend needs it."""
+    scatter = _funcol("reduce_scatter_single", "reduce_scatter_tensor")
+    for group in groups:
+        if staged("reduce_scatter", tensor, group):
+            tensor = reduce_scatter(tensor.movedim(dim, 0), group) \
+                .movedim(0, dim)
+            continue
+        tensor = tensor.contiguous()
+        _count("reduce_scatter", tensor)
+        tensor = scatter(tensor, "sum", dim, group)
+    return tensor.contiguous()

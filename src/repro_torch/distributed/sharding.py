@@ -300,10 +300,15 @@ def place_params(params, mesh, specs: dict):
     """Replace every leaf of the :class:`Params` tree ``params`` (the same
     on every rank) by its DTensor on ``mesh`` laid out by ``specs[name]``
     (:func:`param_shardings`' names), in place; returns ``params``.  A
-    leaf keeps whether it requires a gradient."""
+    leaf keeps whether it requires a gradient; a leaf already placed stays
+    as it is."""
     from torch import nn
+
+    from ..kernels.dispatch import is_dtensor
     for prefix, module in params.named_modules():
         for name, p in list(module._parameters.items()):
+            if is_dtensor(p):
+                continue
             full = f"{prefix}.{name}" if prefix else name
             module._parameters[name] = nn.Parameter(
                 place(p.detach(), mesh, specs[full]),

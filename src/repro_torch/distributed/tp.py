@@ -20,6 +20,15 @@ so the only collectives are the activations' (and the gradients'
 reductions, which ``train/loop.py::to_param_layout`` makes).
 :class:`VocabParallelNll` is the loss on vocab-split logits, likewise
 shard by shard.
+
+The MoE adds :class:`ExpertMatmul` (each rank multiplies its own
+experts' buffers), :class:`GatherSame` and :class:`SumGrad` (a
+replicated computation's gather and a local one's gradient sum), and
+FSDP (:func:`gathered`, :class:`FsdpGather`: a weight split over the
+data axes gathered for its use, its gradient reduced and scattered
+back).  :func:`redistribute` moves a DTensor between layouts through
+``collectives``' functional collectives (staged through host memory
+where gloo needs it), in place of DTensor's own ``redistribute``.
 """
 from __future__ import annotations
 
@@ -163,21 +172,194 @@ class VocabParallelNll(torch.autograd.Function):
 
 def full_tensor(t):
     """A DTensor's whole value on every rank, a plain tensor outside
-    autograd (a plain tensor as it is): each split mesh dim gathered (innermost first),
-    each partial one reduced, through ``collectives.all_gather`` and
-    :func:`reduce_over`, which copy a CUDA tensor through host memory
-    under gloo (DTensor's own ``full_tensor`` gathers on the device, and
-    torch 2.11's gloo killed the process gathering bf16 CUDA tensors)."""
+    autograd (a plain tensor as it is), through :func:`redistribute`,
+    which copies a CUDA tensor through host memory under gloo (DTensor's
+    own ``full_tensor`` gathers on the device, and torch 2.11's gloo
+    killed the process gathering bf16 CUDA tensors)."""
+    from torch.distributed.tensor import Replicate
     from ..kernels.dispatch import is_dtensor
-    from .collectives import all_gather
     if not is_dtensor(t):
         return t
-    mesh, local = t.device_mesh, t.to_local().detach()
+    t = t.detach()
+    return redistribute(t, [Replicate()] * t.device_mesh.ndim) \
+        .to_local().contiguous()
+
+
+def redistribute(t, placements):
+    """The DTensor ``t`` laid out by ``placements``, through
+    ``collectives``' functional collectives, each staged through host
+    memory where the backend needs it (DTensor's own ``redistribute``
+    calls gloo's reduce-scatter and all-gather on CUDA tensors, which
+    its backend table does not list).  On each mesh dim: a split
+    gathered (innermost mesh dim first), a partial sum reduced, or
+    reduced and scattered, to a split (outermost first), a replicated
+    dim sliced to its split.  Not differentiable: the autograd functions
+    below call it.  Replicate to Partial is refused."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from .collectives import gather_over, reduce_scatter_over
+    mesh, want = t.device_mesh, list(placements)
+    cur, local = list(t.placements), t.to_local()
+    if cur == want:
+        return t
+    coord = mesh.get_coordinate()
     for i in reversed(range(mesh.ndim)):
-        p, group = t.placements[i], mesh.get_group(i)
-        if p.is_shard():
-            local = all_gather(local.movedim(p.dim, 0), group) \
-                .movedim(0, p.dim)
-        elif p.is_partial():
-            local = reduce_over(local, p.reduce_op, [group])
-    return local.contiguous()
+        if cur[i].is_shard() and cur[i] != want[i]:
+            local = gather_over(local, cur[i].dim, [mesh.get_group(i)])
+            cur[i] = Replicate()
+    for i in range(mesh.ndim):
+        if cur[i] == want[i]:
+            continue
+        group = mesh.get_group(i)
+        if cur[i].is_partial() and want[i].is_shard():
+            local = reduce_scatter_over(local, want[i].dim, [group])
+        elif cur[i].is_partial() and want[i].is_replicate():
+            local = reduce_over(local, cur[i].reduce_op, [group])
+        elif cur[i].is_replicate() and want[i].is_shard():
+            local = local.chunk(mesh.size(i), dim=want[i].dim)[coord[i]] \
+                .clone()
+        else:
+            raise ValueError(f"cannot lay {t.placements} out as {want}")
+    return DTensor.from_local(local, mesh, want, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def data_split(w) -> list:
+    """The mesh dims of the data axes ("pod", "data") that the DTensor
+    ``w`` is split over: FSDP's."""
+    names = w.device_mesh.mesh_dim_names
+    return [i for i, p in enumerate(w.placements)
+            if p.is_shard() and names[i] in ("pod", "data")]
+
+
+class FsdpGather(torch.autograd.Function):
+    """A weight split over the data axes (FSDP, ``param_shardings_fsdp``)
+    gathered over them for its use, its other placements kept; the
+    gradient reduced and scattered back to the weight's own layout
+    (ZeRO-3)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        from torch.distributed.tensor import Replicate
+        ctx.placements = list(w.placements)
+        split = data_split(w)
+        return redistribute(w, [Replicate() if i in split else p
+                                for i, p in enumerate(w.placements)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return redistribute(grad, ctx.placements)
+
+
+class _Gathered:
+    """A read view of a :class:`~repro_torch.models.layers.Params` group
+    whose leaves split over the data axes are gathered (:class:`FsdpGather`)
+    when first read, once for the view; sub-groups are views too, layer
+    lists are returned as they are."""
+
+    __slots__ = ("_group", "_memo")
+
+    def __init__(self, group):
+        self._group, self._memo = group, {}
+
+    def __getitem__(self, name: str):
+        if name not in self._memo:
+            from ..kernels.dispatch import is_dtensor
+            value = self._group[name]
+            if isinstance(value, torch.nn.Module) and \
+                    not isinstance(value, torch.nn.ModuleList):
+                value = _Gathered(value)
+            elif is_dtensor(value) and data_split(value):
+                value = FsdpGather.apply(value)
+            self._memo[name] = value
+        return self._memo[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._group
+
+
+def gathered(group):
+    """``group`` to read inside ``use_mesh`` on a mesh with data axes: a
+    view that gathers each FSDP leaf as it is first read (one layer's
+    weights at a time, when a block takes its own group), the
+    gradients reduce-scattered back; ``group`` itself otherwise."""
+    from .act_sharding import current_mesh
+    mesh = current_mesh()
+    if mesh is None or not ({"pod", "data"} & set(mesh.mesh_dim_names)):
+        return group
+    return _Gathered(group)
+
+
+class ExpertMatmul(torch.autograd.Function):
+    """The experts' batched product ``x @ w`` of DTensors, shard by shard:
+    ``x [E, T, d_in]`` each expert's buffer rows, ``w [E, d_in, d_out]``
+    the stacked expert weights.  On each mesh dim ``w`` is split on its
+    experts (expert parallel: x must be split alike, a rank multiplies its
+    own experts' buffers) or replicated (x's rows split, as over the data
+    axes, or replicated); ``w`` never moves.  The output keeps x's
+    placements; the weight's gradient is partial where x's rows are
+    split."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        from torch.distributed.tensor import DTensor
+        for px, pw in zip(x.placements, w.placements):
+            if (pw.is_shard(0) and not px.is_shard(0)) or (
+                    pw.is_replicate() and not (px.is_replicate()
+                                               or px.is_shard(1))) or (
+                    not pw.is_shard(0) and not pw.is_replicate()):
+                raise ValueError(f"expert product of x {x.placements} and "
+                                 f"w {w.placements}")
+        xl, wl = x.to_local(), w.to_local()
+        ctx.save_for_backward(xl, wl)
+        ctx.meta = (x.device_mesh, list(x.placements), list(w.placements),
+                    w.dtype)
+        return DTensor.from_local(torch.matmul(xl, wl.to(xl.dtype)),
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        xl, wl = ctx.saved_tensors
+        mesh, xp, wp, w_dtype = ctx.meta
+        gl = redistribute(grad, xp).to_local()
+        gx = torch.matmul(gl, wl.to(gl.dtype).transpose(1, 2))
+        gw = torch.matmul(xl.transpose(1, 2), gl)
+        gwp = [pw if pw.is_shard() else Partial() if px.is_shard()
+               else Replicate() for px, pw in zip(xp, wp)]
+        return (DTensor.from_local(gx, mesh, xp, run_check=False),
+                DTensor.from_local(gw.to(w_dtype), mesh, gwp,
+                                   run_check=False))
+
+
+class SumGrad(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``groups`` (Megatron's
+    ``f``): for a replicated tensor each rank uses in a computation of its
+    own shards, whose gradient is then a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_over(grad.contiguous(), "sum", ctx.groups), None
+
+
+class GatherSame(torch.autograd.Function):
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``, for a
+    computation every rank of the group then runs alike: the gradient,
+    the same on each of them, is cut back to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        import torch.distributed as dist
+        from .collectives import gather_over
+        ctx.meta = (dim, dist.get_world_size(group), dist.get_rank(group))
+        return gather_over(x, dim, [group])
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, n, rank = ctx.meta
+        return grad.chunk(n, dim)[rank].contiguous(), None, None

@@ -40,8 +40,9 @@ from ..systems.base import resolve_device
 from . import encdec, transformer
 from .layers import Params, leaf_shapes
 
-#: the families that run on parameters sharded over "model"
-TP_FAMILIES = ("dense",)
+#: the families that run on parameters sharded over "model" (the MoE's
+#: experts split over it: expert parallel; dbrx's FSDP over the data axes)
+TP_FAMILIES = ("dense", "moe")
 
 
 class Model:
@@ -95,6 +96,25 @@ class Model:
         ``params_from_jax``) laid out on ``mesh`` by :meth:`param_specs`,
         in place, each rank keeping its shards."""
         return place_params(params, mesh, self.param_specs(mesh, params))
+
+    def init_placed(self, mesh,
+                    generator: Optional[torch.Generator] = None) -> Params:
+        """``place(init(generator), mesh)``, each layer laid out as soon as
+        it is drawn: a rank holds the whole of one layer at a time beside
+        its shards (dbrx-132b's 264 GB never whole), and the values are
+        ``init``'s."""
+        if self.is_encdec:
+            return self.place(self.init(generator), mesh)
+        gen = generator or torch.Generator(device=self.device).manual_seed(0)
+        specs = self.param_specs(mesh, self.param_shapes())
+
+        def place_layer(i: int, group: Params) -> Params:
+            pre = f"layers.{i}."
+            return place_params(group, mesh, {
+                n[len(pre):]: s for n, s in specs.items()
+                if n.startswith(pre)})
+        return place_params(transformer.init_lm(self.cfg, gen, place_layer),
+                            mesh, specs)
 
     def _on_device(self, a) -> torch.Tensor:
         """``a`` on the model's device; inside ``use_mesh`` a DTensor with

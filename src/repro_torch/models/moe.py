@@ -20,15 +20,25 @@ Two dispatch modes, as the reference's:
 The expert products are plain batched matmuls (no Pallas kernel computes
 them in the reference).  At decode a token sees capacity 1 in every
 expert, so each step computes all E experts' buffers, as the reference's.
+
+On sharded parameters (a DTensor input inside ``use_mesh``) the gather
+mode runs expert parallel over "model" (:func:`_moe_sharded`): each rank
+multiplies only its own experts' buffers, and the dense mode raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tp
+from ..distributed.act_sharding import _spec_for, constrain
+from ..distributed.sharding import placements
+from ..distributed.tp import GatherSame, SumGrad, matmul
+from ..kernels.dispatch import is_dtensor
 from .layers import Params, activation, dense_init, normal_init
 
 
@@ -95,18 +105,27 @@ def _experts(params, spec: MoeSpec, xe: torch.Tensor, lut: bool
     return torch.matmul(g * u, params["w_down"].to(dt))
 
 
+def _capacity(spec: MoeSpec, t: int) -> tuple[int, int, int]:
+    """(routing groups, tokens a group, capacity an expert a group) of
+    ``t`` tokens: one group when ``spec.groups`` does not divide them."""
+    groups = spec.groups if t % max(spec.groups, 1) == 0 else 1
+    tg = t // groups
+    cap = int(max(spec.top_k * tg / spec.n_experts * spec.capacity_factor,
+                  1))
+    return groups, tg, min(cap, spec.top_k * tg)   # <= the assignments
+
+
 def moe_apply(params, spec: MoeSpec, x: torch.Tensor, lut: bool = False
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> ``(out [B, S, d], aux_loss)``, aux a float32
     0-d tensor."""
+    if is_dtensor(x):
+        return _moe_sharded(params, spec, x, lut)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     e, k = spec.n_experts, spec.top_k
-    groups = spec.groups if t % max(spec.groups, 1) == 0 else 1
-    tg = t // groups
-    cap = int(max(k * tg / e * spec.capacity_factor, 1))
-    cap = min(cap, k * tg)             # never above the assignment count
+    groups, tg, cap = _capacity(spec, t)
 
     if spec.dispatch == "dense":
         gates, gidx, pos, aux = _route(params, spec, xt)
@@ -149,3 +168,164 @@ def moe_apply(params, spec: MoeSpec, x: torch.Tensor, lut: bool = False
     yk = yk.reshape(groups, tg, k, d) * keep[..., None].to(x.dtype)
     out = torch.einsum("gtk,gtkd->gtd", gates.to(x.dtype), yk)
     return out.reshape(b, s, d), aux
+
+
+# -- expert parallel, on sharded parameters -----------------------------------
+
+def _pieces(groups: int, n: int) -> tuple[int, int]:
+    """(groups a data rank holds whole, data ranks a group spans): the
+    routing groups split along the ``n`` data ranks' rows, or each group
+    over consecutive ranks."""
+    if groups % n == 0:
+        return groups // n, 1
+    if n % groups == 0:
+        return 1, n // groups
+    raise ValueError(f"{groups} routing groups over {n} data ranks: neither "
+                     f"divides the other")
+
+
+class _Split(NamedTuple):
+    """Where a rank's tokens lie: ``ddims`` the data mesh dims the rows are
+    split over (``n`` ranks, this one ``r``, pod-major); the global
+    routing ``groups``, tokens a group ``tg`` and capacity ``cap``; the
+    rank's ``gl`` pieces of ``tl`` tokens, each a whole group or, where a
+    group spans ``span`` data ranks, its rank's part."""
+
+    ddims: list
+    n: int
+    r: int
+    groups: int
+    tg: int
+    cap: int
+    gl: int
+    tl: int
+    span: int
+
+
+def _route_sharded(params, spec: MoeSpec, x, sp: _Split):
+    """The router on this rank's tokens, alike on every "model" rank:
+    ``(gates, gidx, pos [gl, tl, k], aux)``, ``pos`` each (token, slot)'s
+    position in its expert's buffer of its whole group (after the
+    group's earlier data ranks' counts of that expert), ``aux`` the
+    load-balancing loss over every group, the same on every rank.  The
+    logits are column-parallel over "model" and gathered before top-k;
+    the per-expert statistics are gathered over the data ranks."""
+    mesh = x.device_mesh
+    e, k = spec.n_experts, spec.top_k
+    logits = matmul(x.to(torch.float32), params["router"])
+    ll = logits.to_local()
+    for i in reversed(range(mesh.ndim)):
+        if logits.placements[i].is_shard(2):
+            ll = GatherSame.apply(ll, 2, mesh.get_group(i))
+    ll = ll.reshape(sp.gl, sp.tl, e)
+    if spec.n_experts_real < e:
+        pad = torch.arange(e, device=ll.device) >= spec.n_experts_real
+        ll = ll.masked_fill(pad, -1e30)
+    gval, gidx = torch.topk(ll, k, dim=-1)
+    onehot = F.one_hot(gidx, e)                       # [gl, tl, k, e]
+    stats = torch.cat([torch.softmax(ll, dim=-1).sum(dim=-2),
+                       onehot.sum(dim=(-3, -2)).to(torch.float32)], dim=-1)
+    for i in reversed(sp.ddims):                      # [n * gl, 2e]
+        stats = GatherSame.apply(stats, 0, mesh.get_group(i))
+    per_group = stats.reshape(sp.groups, -1, 2 * e).sum(dim=1) / sp.tg
+    aux = torch.mean(torch.sum(per_group[:, :e] * per_group[:, e:],
+                               dim=-1) * (e / k))
+    pos = torch.gather(torch.cumsum(onehot.reshape(sp.gl, sp.tl * k, e),
+                                    dim=-2), -1,
+                       gidx.reshape(sp.gl, sp.tl * k, 1)) - 1
+    pos = pos.reshape(sp.gl, sp.tl, k)
+    if sp.span > 1:
+        counts = stats.detach()[:, e:].round().long()
+        first = sp.r - sp.r % sp.span
+        pos = pos + counts[first:sp.r].sum(dim=0)[gidx]
+    return torch.softmax(gval, dim=-1), gidx, pos, aux
+
+
+def _moe_sharded(params, spec: MoeSpec, x, lut: bool):
+    """:func:`moe_apply` inside ``use_mesh`` on a DTensor ``x [B, S, d]``
+    (rows over the data axes, whole over "model") with the expert weights
+    split over "model" (expert parallel; FSDP's data split gathered by the
+    block's :func:`~repro_torch.distributed.tp.gathered` view).
+
+    Every rank routes its data rank's tokens alike
+    (:func:`_route_sharded`); groups, tokens a group and capacity come
+    from the global token count, so the drop set is one process's.  A rank
+    fills only its own experts' capacity buffers (a local slice of the
+    dispatch: the tokens are already on every "model" rank), multiplies
+    them (``tp.ExpertMatmul``) and combines its experts' contributions
+    into a partial ``[B, S, d]``; one sum over "model" completes it.  No
+    all-to-all.  Where a group spans data ranks (one group at decode),
+    each rank's buffers hold its own tokens' rows alone and zeros in the
+    others' (an expert maps a zero row to zero)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if spec.dispatch != "gather":
+        raise NotImplementedError(f"moe dispatch {spec.dispatch!r} on "
+                                  f"sharded parameters (gather only)")
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [Shard(0) if p.is_shard(0) and names[i] in ("pod", "data")
+            else Replicate() for i, p in enumerate(x.placements)]
+    if list(x.placements) != rows:
+        x = x.redistribute(placements=rows)
+    coord = mesh.get_coordinate()
+    ddims = [i for i, p in enumerate(rows) if p.is_shard()]
+    n, r = 1, 0
+    for i in ddims:                       # pod-major, as the rows lie
+        n, r = n * mesh.size(i), r * mesh.size(i) + coord[i]
+    b, s, d = x.shape
+    e, k = spec.n_experts, spec.top_k
+    groups, tg, cap = _capacity(spec, b * s)
+    gl, span = _pieces(groups, n)
+    sp = _Split(ddims, n, r, groups, tg, cap, gl, (b * s) // n // gl, span)
+    tl = sp.tl
+    edims = [i for i, p in enumerate(params["w_gate"].placements)
+             if p.is_shard(0)]
+    el, e0 = e, 0
+    for i in edims:
+        el //= mesh.size(i)
+        e0 = e0 * mesh.size(i) + coord[i]
+    e0 *= el
+
+    gates, gidx, pos, aux = _route_sharded(params, spec, x, sp)
+    mine = (pos >= 0) & (pos < cap) & (gidx >= e0) & (gidx < e0 + el)
+
+    # -- this rank's experts' buffers of its tokens -------------------------
+    slot = (gidx - e0).clamp(0, el - 1) * cap + pos.clamp(0, cap - 1)
+    spilled = torch.where(mine, slot, el * cap).reshape(gl, tl * k)
+    tok = torch.arange(tl, device=x.device).repeat_interleave(k)
+    token_src = torch.zeros((gl, el * cap + 1), dtype=torch.int64,
+                            device=x.device)
+    token_src.scatter_(1, spilled, tok.expand(gl, -1))
+    filled = torch.zeros((gl, el * cap + 1), dtype=torch.bool,
+                         device=x.device)
+    filled.scatter_(1, spilled, True)
+    token_src, filled = token_src[:, :el * cap], filled[:, :el * cap]
+    # the tokens' gradient from this rank's experts is a partial sum
+    xl = x.to_local(grad_placements=[Partial() if i in edims else p
+                                     for i, p in enumerate(rows)])
+    xl = xl.reshape(gl, tl, d)
+    xe = torch.gather(xl, 1, token_src[..., None].expand(-1, -1, d))
+    xe = xe * filled[..., None].to(xe.dtype)
+    xe = xe.reshape(gl, el, cap, d).transpose(0, 1).reshape(el, -1, d)
+    # the reference's "gecd" cut point in the port's layout ("egcd"), on
+    # the mesh dims this run splits
+    lay = placements(_spec_for("egcd", 3, mesh), mesh)
+    lay = [p if (i in edims or i in ddims) else Replicate()
+           for i, p in enumerate(lay)]
+    xe = DTensor.from_local(xe, mesh, lay, run_check=False)
+    g = tp.ExpertMatmul.apply(xe, params["w_gate"])
+    u = tp.ExpertMatmul.apply(xe, params["w_up"])
+    h = DTensor.from_local(activation(g.to_local(), spec.activation, lut)
+                           * u.to_local(), mesh, lay, run_check=False)
+    ye = tp.ExpertMatmul.apply(h, params["w_down"]).to_local()
+    ye = ye.reshape(el, gl, cap, d).transpose(0, 1).reshape(gl, el * cap, d)
+    yk = torch.gather(ye, 1, slot.reshape(gl, tl * k, 1).expand(-1, -1, d))
+    yk = yk.reshape(gl, tl, k, d) * mine[..., None].to(x.dtype)
+    gates = SumGrad.apply(gates, [mesh.get_group(i) for i in edims])
+    out = torch.einsum("gtk,gtkd->gtd", gates.to(x.dtype), yk)
+    out = DTensor.from_local(out.reshape(-1, s, d), mesh,
+                             [Partial() if i in edims else p
+                              for i, p in enumerate(rows)],
+                             run_check=False, shape=x.shape,
+                             stride=x.stride())
+    return constrain(out, "btd"), aux

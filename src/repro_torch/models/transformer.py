@@ -14,6 +14,10 @@ reference checkpoints each scanned unit): its activations are recomputed
 in the backward.  Hymba's meta tokens are prepended to the prompt (and
 its cache holds them), then stripped after the stack.
 
+On sharded parameters (inside ``use_mesh``) each block reads its group
+through ``tp.gathered``: a leaf split over the data axes (FSDP) is
+gathered when first read, one layer at a time.
+
 ``extras`` carries the inputs beside the tokens: ``cross_states``, the
 VLM's vision states [B, vision_tokens, vision_dim].  A ``cross`` block's
 cache holds their keys and values, computed once at prefill and stored
@@ -31,7 +35,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..distributed.act_sharding import constrain
-from ..distributed.tp import VocabParallelNll, matmul
+from ..distributed.tp import VocabParallelNll, gathered, matmul
 from ..kernels.dispatch import is_dtensor
 from . import ssm as ssm_mod
 from .attention import (AttnSpec, _project_qkv, attend, attention,
@@ -161,6 +165,7 @@ def apply_block_train(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                       positions: torch.Tensor, window: Optional[int],
                       extras: dict):
     """-> (x, aux_loss)."""
+    p = gathered(p)
     if bt == "cross":
         h = cross_attention(p["cross"], attn_spec(cfg),
                             rms_norm(x, p["norm1"]), extras["cross_states"])
@@ -204,6 +209,7 @@ def apply_block_decode(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                        cache: dict, window: Optional[int]
                        ) -> tuple[torch.Tensor, dict]:
     """Single-token step.  -> (x, new_cache)."""
+    p = gathered(p)
     if bt == "cross":        # attends to the cached keys and values
         q = cross_queries(p["cross"], attn_spec(cfg),
                           rms_norm(x, p["norm1"]))
@@ -245,8 +251,11 @@ def unit_pattern(cfg: ArchConfig) -> tuple[tuple[str, ...], int]:
     return pattern, 1
 
 
-def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Params:
-    """Random weights drawn from ``gen`` on its device."""
+def init_lm(cfg: ArchConfig, gen: torch.Generator,
+            place_layer=None) -> Params:
+    """Random weights drawn from ``gen`` on its device; each layer's group,
+    once drawn, handed to ``place_layer(i, group)`` (``Model.init_placed``
+    keeps a rank's shards of it) before the next is drawn."""
     dt = _dtype(cfg)
     p = {"tok_emb": embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
          "final_norm": torch.ones((cfg.d_model,), dtype=dt,
@@ -255,8 +264,10 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Params:
     if cfg.meta_tokens:
         p["meta"] = normal_init(gen, (cfg.meta_tokens, cfg.d_model), 0.02,
                                 dt)
-    return Params(**p, layers=nn.ModuleList(init_block(gen, cfg, bt)
-                                            for bt in cfg.layer_pattern()))
+    place_layer = place_layer or (lambda i, group: group)
+    return Params(**p, layers=nn.ModuleList(
+        place_layer(i, init_block(gen, cfg, bt))
+        for i, bt in enumerate(cfg.layer_pattern())))
 
 
 def _windows_stacked(cfg: ArchConfig, unit_len: int,
@@ -286,6 +297,7 @@ def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings ``[B, S, d]``, after the meta tokens where the
     config has them (``[B, meta + S, d]``)."""
+    params = gathered(params)
     x = _lookup(params["tok_emb"], tokens)
     if cfg.meta_tokens:
         meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
@@ -295,6 +307,7 @@ def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Logits of the stack's output."""
+    params = gathered(params)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return matmul(x, params["lm_head"])
 
@@ -380,6 +393,7 @@ def _prefill_block(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
                    extras: dict, cache_max: int) -> tuple[torch.Tensor, dict]:
     """Forward one block while materializing its decode cache."""
+    p = gathered(p)
     if bt == "cross":        # the cache keeps the keys without their norm
         spec = attn_spec(cfg)
         ck, cv = cross_kv(p["cross"], spec, extras["cross_states"], x.dtype)
@@ -426,7 +440,7 @@ def lm_decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
     """tokens [B, 1] -> (logits [B, 1, Vpad], new caches).  The caches'
     tensors are written in place (``attention_decode``); the recurrent
     states are new tensors.  No meta tokens: the cache holds them."""
-    x = _lookup(params["tok_emb"], tokens)
+    x = _lookup(gathered(params)["tok_emb"], tokens)
     new_caches = []
     for p, bt, c, win in zip(params["layers"], cfg.layer_pattern(), caches,
                              _layer_windows(cfg)):

@@ -6,6 +6,10 @@ new arrays; in place saves a copy of the model).  Gradients are a dict from
 the tree's ``named_parameters()`` names to tensors.  Moments are float32
 whatever the parameter dtype, and the update casts back to it.
 
+On sharded parameters each leaf's update is computed where its moments
+lie (ZeRO-1: the parameter's split plus the data axes) and gathered back
+through ``tp.redistribute``.
+
 The global-norm clip sums the squared gradients in the reference's leaf
 order (``jax.tree_util.tree_leaves``: dict keys sorted, the scanned layers
 stacked into one leaf per name), layer by layer within a leaf.
@@ -52,6 +56,18 @@ def global_norm(grads: dict) -> torch.Tensor:
             grads[name].to(torch.float32))))
         total = sq if total is None else total + sq
     return torch.sqrt(total + 1e-12)
+
+
+def _laid_out(t, like):
+    """``t`` laid out as the DTensor ``like`` (``tp.redistribute``: ZeRO-1
+    moments split over the data axes where the parameter is not take a
+    local slice of it, and the update gathers back through the port's
+    collectives); as it is otherwise."""
+    from ..distributed.tp import redistribute
+    from ..kernels.dispatch import is_dtensor
+    if is_dtensor(t) and is_dtensor(like) and t.placements != like.placements:
+        return redistribute(t, like.placements)
+    return t
 
 
 def _step_tensor(params) -> torch.Tensor:
@@ -109,16 +125,17 @@ class AdamW:
             # one leaf at a time: float32 copies of every gradient at once
             # would hold twice the moments' memory
             for name, p in params.named_parameters():
-                g = grads[name].to(torch.float32)
+                m, v = state.m[name], state.v[name]
+                g = _laid_out(grads[name], m).to(torch.float32)
                 if scale is not None:
                     g = g * scale
-                m, v = state.m[name], state.v[name]
                 m.mul_(self.b1).add_((1 - self.b1) * g)
                 v.mul_(self.b2).add_((1 - self.b2) * g * g)
                 u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+                w = _laid_out(p.detach(), m).to(torch.float32)
                 if self.weight_decay:
-                    u = u + self.weight_decay * p.to(torch.float32)
-                p.copy_((p.to(torch.float32) - self.lr * u).to(p.dtype))
+                    u = u + self.weight_decay * w
+                p.copy_(_laid_out((w - self.lr * u).to(p.dtype), p))
         return params, AdamState(step=step, m=state.m, v=state.v), gnorm
 
 

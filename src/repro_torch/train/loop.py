@@ -23,7 +23,8 @@ instead: ``Model.place`` lays them out (tensor-parallel), the step runs
 inside ``act_sharding.use_mesh``, and ``make_train_step`` itself trains
 them, each gradient reduced to its parameter's layout
 (:func:`to_param_layout`) before the update.  That covers the dense
-family; the others raise :data:`DP_TODO`.
+and moe families (the MoE's experts over "model", dbrx's FSDP leaves over
+the data axes); the others raise :data:`DP_TODO`.
 """
 from __future__ import annotations
 
@@ -39,9 +40,9 @@ from ..models.api import stacked_groups
 from ..optim.grad_compression import ef_compress_psum_stacked
 
 #: what of the model on sharded parameters is not ported
-DP_TODO = ("tensor-parallel execution of the moe, ssm, hybrid, vlm and "
-           "audio families (sharded parameters beyond the dense family) is "
-           "not ported yet: ROADMAP queue 1 item 12d")
+DP_TODO = ("tensor-parallel execution of the ssm, hybrid, vlm and audio "
+           "families (sharded parameters beyond the dense and moe families) "
+           "is not ported yet: ROADMAP queue 1 item 12d")
 
 
 def value_and_grad(model, params, batch: dict):
@@ -76,17 +77,32 @@ def _split(x, k: int, i: int):
     return x[i * (b // k):(i + 1) * (b // k)]
 
 
+def _microbatches(batch: dict, k: int) -> int:
+    """``k``; or, where a DTensor batch holds fewer rows a rank than ``k``
+    and they divide it (dbrx's 16 microbatches of train_4k's 8 rows a rank
+    on the 512-rank mesh), one microbatch a local row: microbatches of
+    equal size, whose mean gradient is the batch's, as ``k``'s is (the
+    MoE's routing groups and capacity then follow the larger
+    microbatch)."""
+    from ..kernels.dispatch import is_dtensor
+    rows = [v.to_local().shape[0] for v in batch.values() if is_dtensor(v)]
+    if rows and rows[0] % k and k % rows[0] == 0:
+        return rows[0]
+    return k
+
+
 def make_train_step(model, optimizer, microbatches: int = 1):
     """Returns ``train_step(params, opt_state, batch)``; metrics hold the
     float32 ``loss`` and ``grad_norm`` (0-d tensors on the device)."""
 
     def train_step(params, opt_state, batch: dict):
-        if microbatches == 1:
+        k_mb = _microbatches(batch, microbatches)
+        if k_mb == 1:
             loss, grads = value_and_grad(model, params, batch)
         else:
             grads, loss_sum = None, None
-            for i in range(microbatches):
-                mb = {k: _split(v, microbatches, i) for k, v in batch.items()}
+            for i in range(k_mb):
+                mb = {k: _split(v, k_mb, i) for k, v in batch.items()}
                 loss, g = value_and_grad(model, params, mb)
                 if grads is None:
                     grads = {n: gg.to(torch.float32) for n, gg in g.items()}
@@ -95,8 +111,8 @@ def make_train_step(model, optimizer, microbatches: int = 1):
                     for n, gg in g.items():
                         grads[n].add_(gg.to(torch.float32))
                     loss_sum = loss_sum + loss
-            grads = {n: g / microbatches for n, g in grads.items()}
-            loss = loss_sum / microbatches
+            grads = {n: g / k_mb for n, g in grads.items()}
+            loss = loss_sum / k_mb
         grads = to_param_layout(grads, params)
         params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.to(torch.float32),
@@ -106,13 +122,14 @@ def make_train_step(model, optimizer, microbatches: int = 1):
 
 
 def to_param_layout(grads: dict, params) -> dict:
-    """Each DTensor gradient redistributed to its parameter's placements
-    (partial sums over the data axes reduced: the data-parallel
-    all-reduce); plain gradients as they are."""
+    """Each DTensor gradient laid out as its parameter (partial sums over
+    the data axes reduced: the data-parallel all-reduce, or reduced and
+    scattered onto an FSDP split), through ``tp.redistribute``'s
+    collectives; plain gradients as they are."""
+    from ..distributed.tp import redistribute
     from ..kernels.dispatch import is_dtensor
     named = dict(params.named_parameters())
-    return {n: g.redistribute(placements=named[n].placements)
-            if is_dtensor(g) and g.placements != named[n].placements else g
+    return {n: redistribute(g, named[n].placements) if is_dtensor(g) else g
             for n, g in grads.items()}
 
 

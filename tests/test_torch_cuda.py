@@ -1928,3 +1928,28 @@ def test_lm_kernels_on_dtensor_shards_equal_the_plain_versions(cuda):
             assert r[f"int_matmul/{name}/local"] == local
             assert r[f"int_matmul/{name}/equal"]
             assert r[f"int_matmul/{name}/kernel_equal"]
+
+
+def test_moe_products_and_fsdp_gather_on_the_card_equal_the_cpu(cuda):
+    """The expert-parallel product and the FSDP gather (forward and
+    backward) on two gloo ranks sharing the card, on CUDA tensors and on
+    CPU tensors: the products within float32's reordering (the card's
+    batched GEMM against the CPU's), the gathers exact; each rank
+    multiplies its own 4 of 8 experts, the gather goes through host
+    memory and its gradient comes back reduced and scattered."""
+    for r in _card_ranks("card_moe_body"):
+        for name, local in (("ep", (4, 96, 32)), ("rows", (8, 48, 32))):
+            card, cpu = r[name, "cuda"], r[name, "cpu"]
+            assert card["local"] == cpu["local"] == local
+            assert card["gw_placements"] == cpu["gw_placements"]
+            for key in ("y", "gx", "gw"):
+                np.testing.assert_allclose(card[key], cpu[key], rtol=1e-5,
+                                           atol=1e-4, err_msg=key)
+        card, cpu = r["fsdp", "cuda"], r["fsdp", "cpu"]
+        assert card["placements"] == cpu["placements"] == ["R", "R"]
+        assert card["gw_placements"] == ["S(2)", "R"]
+        np.testing.assert_array_equal(card["full"], cpu["full"])
+        np.testing.assert_array_equal(card["gw"], cpu["gw"])
+        np.testing.assert_allclose(card["gw"], card["want_gw"], rtol=1e-6)
+        assert card["staged"]["staged"] > 0 and not cpu["staged"].get(
+            "staged")

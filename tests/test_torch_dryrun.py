@@ -10,8 +10,8 @@
   a row-parallel one's all-reduce bytes equal to its output's; and what
   the dry-run takes from ``MemTracker`` (a private API): the peak of live
   storages;
-* ``launch/dryrun.py``: the 80 cells' statuses (24 traced, 16 skipped,
-  40 not ported), and the CLI in a subprocess on a fake (2, 2) mesh with
+* ``launch/dryrun.py``: the 80 cells' statuses (36 traced, 16 skipped,
+  28 not ported), and the CLI in a subprocess on a fake (2, 2) mesh with
   the reduced configs: ``ok``, ``skipped`` and ``not_ported`` entries with
   the reference's keys, rendered by the roofline CLI.
 
@@ -103,8 +103,8 @@ def test_cell_statuses():
             counts[entry["status"] if entry else "ok"] += 1
             if entry and entry["status"] == "not_ported":
                 assert "item 12d" in entry["reason"]
-    # x 2 meshes: 24 ok, 16 skipped, 40 not ported
-    assert counts == {"ok": 12, "skipped": 8, "not_ported": 20}
+    # x 2 meshes: 36 ok, 16 skipped, 28 not ported
+    assert counts == {"ok": 18, "skipped": 8, "not_ported": 14}
 
 
 OPTRACE = r"""

@@ -427,6 +427,15 @@ def _sidecars(spool) -> dict:
     return out
 
 
+def _publish(path, doc: dict) -> None:
+    """Write a manifest into a watched spool whole: under another name,
+    then renamed (a watcher polling every 20 ms read a half-written file
+    under load)."""
+    part = path.with_name(path.name + ".part")
+    part.write_text(json.dumps(doc))
+    part.rename(path)
+
+
 def test_serve_manifests_mid_flight(tmp_path, lin_data):
     def scenario(P):
         s = P.scheduler()
@@ -439,8 +448,8 @@ def test_serve_manifests_mid_flight(tmp_path, lin_data):
 
         def drop_late():
             time.sleep(0.3)
-            (spool / "m2.json").write_text(
-                json.dumps(_manifest_doc(n_iters=10, name="third")))
+            _publish(spool / "m2.json",
+                     _manifest_doc(n_iters=10, name="third"))
 
         t = threading.Thread(target=drop_late)
         t.start()
@@ -554,8 +563,8 @@ def test_cli_serve_accepts_manifest_mid_flight(tmp_path, lin_data):
 
         def drop_late():
             time.sleep(0.3)
-            (spool / "late.json").write_text(
-                json.dumps(_manifest_doc(n_iters=10, name="late")))
+            _publish(spool / "late.json",
+                     _manifest_doc(n_iters=10, name="late"))
 
         t = threading.Thread(target=drop_late)
         t.start()

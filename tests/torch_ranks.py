@@ -406,12 +406,14 @@ def _full(t) -> np.ndarray:
 class QuantRecorder:
     """Wraps ``models.quantized.quant_dense`` to keep, for its first
     ``keep`` calls, the int8 activations and the int32 ``int_matmul``
-    product, whole."""
+    product, whole (``calls``), and the float input and int8 weight,
+    whole (``inputs``)."""
 
     def __init__(self, keep: int = 6):
         from repro_torch.models import quantized
         self.module, self.orig, self.keep = quantized, quantized.quant_dense, keep
         self.calls: list = []
+        self.inputs: list = []
 
     def __enter__(self):
         self.module.quant_dense = self
@@ -427,6 +429,8 @@ class QuantRecorder:
             x_q, _ = symmetric_quantize(x.reshape(-1, x.shape[-1]), bits=8)
             acc = dispatch.launch("int_matmul", x_q, w_q)
             self.calls.append((_full(x_q), _full(acc)))
+            self.inputs.append((_full(x.reshape(-1, x.shape[-1])),
+                                _full(w_q)))
         return self.orig(x, w_q, w_scale)
 
 
@@ -445,7 +449,7 @@ def lm_serve_outputs(model, params, toks: np.ndarray, prompt: int,
             logits, cache = model.decode_step(params, toks[:, i:i + 1],
                                               cache)
             out[f"decode{i - prompt}"] = _full(logits)
-    out["quant"] = rec.calls
+    out["quant"], out["quant_inputs"] = rec.calls, rec.inputs
     return out
 
 
@@ -558,4 +562,179 @@ def card_tp_kernels_body(rank: int) -> dict:
         out[f"int_matmul/{name}/equal"] = bool(torch.equal(got, want))
         out[f"int_matmul/{name}/kernel_equal"] = bool(torch.equal(
             got, int_matmul_cuda(a, b).cpu()))
+    return out
+
+
+# -- the MoE on sharded parameters (tests/test_torch_moe_tp.py) ---------------
+
+class RouteRecorder:
+    """Wraps the MoE routers (one process's ``moe._route``, a rank's
+    ``moe._route_sharded``) to keep, for every call, the expert ids
+    ``[tokens, k]`` of the tokens it routes and which (token, slot) pairs
+    its capacity keeps (a rank: its own rows')."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = (self.moe._route, self.moe._route_sharded)
+
+        def one(params, spec, xg):
+            out = self.orig[0](params, spec, xg)
+            cap = self.moe._capacity(spec, xg.shape[0] * xg.shape[1])[2]
+            self.keep(out[1], out[2] < cap)
+            return out
+
+        def ranks(params, spec, x, sp):
+            out = self.orig[1](params, spec, x, sp)
+            self.keep(out[1], (out[2] >= 0) & (out[2] < sp.cap))
+            return out
+        self.moe._route, self.moe._route_sharded = one, ranks
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._route_sharded = self.orig
+
+    def keep(self, gidx, kept) -> None:
+        k = gidx.shape[-1]
+        self.calls.append((_np(gidx.reshape(-1, k)),
+                           _np(kept.reshape(-1, k))))
+
+
+def moe_serve_outputs(model, params, toks: np.ndarray, prompt: int,
+                      max_seq: int) -> dict:
+    """:func:`lm_serve_outputs` and the forward's aux loss."""
+    from repro_torch.models.transformer import lm_forward
+    out = lm_serve_outputs(model, params, toks, prompt, max_seq)
+    with torch.no_grad():
+        _, aux = lm_forward(model.cfg, params, model._on_device(toks))
+    out["aux"] = float(_np(aux))
+    return out
+
+
+def moe_routes(model, params, toks: np.ndarray, prompt: int,
+               max_seq: int) -> list:
+    """The routers' calls of a prefill over ``toks[:, :prompt]`` and one
+    decode step a later token."""
+    with torch.no_grad(), RouteRecorder() as rec:
+        _, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                 max_seq=max_seq)
+        for i in range(prompt, toks.shape[1]):
+            _, cache = model.decode_step(params, toks[:, i:i + 1], cache)
+    return rec.calls
+
+
+def moe_tp_body(rank: int, cases: dict, shape: tuple, toks, prompt, max_seq,
+                train_batch, steps, lr, save_dir=None,
+                restore_dir=None, timeout: float = 300.0) -> dict:
+    """Each MoE arch of ``cases`` (name -> (reduced overrides, the
+    reference's tree, quantize_dense modes, drop-case overrides)) on a
+    ``shape`` ("data", "model") mesh of gloo ranks: serving in each mode,
+    the routers' keep sets at the drop case's capacity, ``steps`` AdamW
+    steps; with ``save_dir`` the trained params saved under the arch's
+    name (as step 1); with ``restore_dir`` that step restored onto this
+    mesh, once another group has published it (``timeout`` seconds)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model, params_from_jax
+    from repro_torch.train import checkpoint
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    res = {"jax": "jax" in sys.modules}
+    with use_mesh(mesh):
+        for arch, (over, tree, quants, drop) in cases.items():
+            out = res[arch] = {}
+            for quant in quants:
+                cfg = get_config(arch).reduced(quantize_dense=quant, **over)
+                model = Model(cfg, "cpu")
+                params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+                out[f"serve/{quant}"] = moe_serve_outputs(
+                    model, params, toks, prompt, max_seq)
+            gen = torch.Generator().manual_seed(3)
+            drawn = model.place(model.init(gen), mesh)
+            placed = dict(model.init_placed(
+                mesh, torch.Generator().manual_seed(3)).named_parameters())
+            out["init_placed"] = [
+                n for n, p in drawn.named_parameters()
+                if p.placements != placed[n].placements
+                or not torch.equal(p.to_local(), placed[n].to_local())]
+            moe = params["layers"][0]["moe"]
+            out["local"] = {n: (tuple(moe[n].to_local().shape),
+                                [str(p) for p in moe[n].placements])
+                            for n in ("router", "w_gate", "w_down")}
+            cfg = get_config(arch).reduced(**over, **drop)
+            model = Model(cfg, "cpu")
+            params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+            out["routes"] = moe_routes(model, params, toks, prompt, max_seq)
+            cfg = get_config(arch).reduced(**over)
+            model = Model(cfg, "cpu")
+            params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+            out["train"] = lm_train_outputs(model, params, train_batch,
+                                            steps, lr, mesh)
+            path = None if save_dir is None else f"{save_dir}/{arch}"
+            if path is not None:
+                checkpoint.save(path, 1, params)
+                out["saved"] = {n: _full(p)
+                                for n, p in params.named_parameters()}
+            if restore_dir is not None:
+                path = f"{restore_dir}/{arch}"
+                deadline = time.monotonic() + timeout
+                while checkpoint.latest_step(path) != 1:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"no checkpoint under {path}")
+                    time.sleep(0.2)
+                params.load_(checkpoint.restore(path, 1, params))
+                out["restored"] = {n: _full(p)
+                                   for n, p in params.named_parameters()}
+                out["restored_placements"] = {
+                    n: [str(q) for q in p.placements]
+                    for n, p in params.named_parameters()}
+    return res
+
+
+def card_moe_body(rank: int) -> dict:
+    """The expert-parallel product (``tp.ExpertMatmul``: experts over
+    "model" on a (1, 2) mesh, rows over "data" on a (2, 1) one) and the
+    FSDP gather (``tp.FsdpGather``, a weight split over "data"), forward
+    and backward, on CUDA tensors and on the same ranks' CPU tensors: the
+    outputs and gradients whole, on the host."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.distributed.tp import ExpertMatmul, FsdpGather
+    rng = np.random.RandomState(1)
+    x = rng.normal(0, 1, (8, 96, 64)).astype(np.float32)   # [E, T, d]
+    w = rng.normal(0, 1, (8, 64, 32)).astype(np.float32)   # [E, d, f]
+    gy = rng.normal(0, 1, (8, 96, 32)).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        for name, shape, xs, ws in (
+                ("ep", (1, 2), ("model", None, None), ("model", None, None)),
+                ("rows", (2, 1), (None, "data", None), ())):
+            mesh = make_mesh(shape, ("data", "model"), device)
+            xd = place(torch.from_numpy(x).to(device), mesh, xs)
+            wd = place(torch.from_numpy(w).to(device), mesh, ws) \
+                .requires_grad_(True)
+            xd.requires_grad_(True)
+            y = ExpertMatmul.apply(xd, wd)
+            y.backward(DTensor.from_local(
+                torch.from_numpy(gy).to(device), mesh, [Replicate()] * 2,
+                run_check=False).redistribute(placements=y.placements))
+            out[name, device] = {
+                "y": _full(y), "gx": _full(xd.grad), "gw": _full(wd.grad),
+                "gw_placements": [str(p) for p in wd.grad.placements],
+                "local": tuple(y.to_local().shape)}
+        mesh = make_mesh((2, 1), ("data", "model"), device)
+        wd = place(torch.from_numpy(w).to(device), mesh,
+                   (None, None, "data")).requires_grad_(True)
+        full = FsdpGather.apply(wd)
+        # each data rank's own gradient of the whole weight: partial sums
+        g = torch.from_numpy(gy[:, :64] * (rank + 1)).to(device)
+        (full.to_local(grad_placements=[Partial(), Replicate()]) * g) \
+            .sum().backward()
+        out["fsdp", device] = {
+            "full": _np(full.to_local()),
+            "placements": [str(p) for p in full.placements],
+            "gw": _np(wd.grad.to_local()),
+            "gw_placements": [str(p) for p in wd.grad.placements],
+            "staged": dict(collectives.traffic),
+            "want_gw": 3 * gy[:, :64][..., rank * 16:(rank + 1) * 16]}
+        collectives.reset_traffic()
     return out
