@@ -350,6 +350,42 @@ Phases, in order; any failure exits non-zero:
               (d) the dry-run of qwen2-moe-a2.7b's decode_32k on both
                   production meshes and on (1, 2), with phase 15 (e); its
                   parameter bytes a rank on (1, 2) equal to (a)'s ranks'
+ 17. recurrent over ranks  the ssm and hybrid families on sharded
+              parameters, right after phase 16: SSM_RANKS ranks share the
+              card (gloo) on a (data 1, model 2) mesh, the weights drawn a
+              layer at a time and placed (Model.init_placed), each rank's
+              launch counts zeroed just before each run and every launch
+              on a rank held against its plain version on the rank's
+              operands (KernelChecks):
+              (a) hymba-1.5b at full width and depth (32 layers, bf16,
+                  ~1.9 GB of weights a rank; the SSM's channels, 16 of 32
+                  query and 8 of 16 KV heads a rank): phase 15's 2 prompts
+                  of 512 tokens (640 with the meta tokens), SSM_NEW greedy
+                  decode tokens, quantize_dense on and off; logits within
+                  TP_BF16_TOL of one process on the same weights fed the
+                  same tokens (on: and the ranks' int8 activations),
+                  greedy tokens equal where that run's top-2 margin
+                  exceeds it; every quantized linear's int8 activations
+                  equal to the one-process quantization of its gathered
+                  input; launches a rank = one process's (1 mha a layer a
+                  prefill, 3 int_matmul a layer a forward call with
+                  quantize_dense on); ms a prefill and a decode token
+                  (the checked runs') against one process, the
+                  collectives' ms and share of a quantize-off serve run
+                  (every one synchronised and timed);
+              (b) xlstm-350m at full width and depth (21 mLSTM and 3 sLSTM
+                  layers) the same way, quantize_dense off (no dense MLP
+                  to quantize), no kernel launched;
+              (c) one AdamW step of each at SSM_TRAIN_LAYERS (hymba 4 of
+                  32 layers, xlstm its first 7 + 1 unit of 24: the
+                  script's time limit) on SSM_TRAIN_BATCH x SSM_TRAIN_SEQ
+                  tokens: loss and grad norm against one process
+                  (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL), launches equal; the
+                  ranks' state restored into one process bit for bit;
+              (d) the dry-run of xlstm-350m's long_500k and hymba-1.5b's
+                  decode_32k on both production meshes and on (1, 2), with
+                  phase 15 (e); their parameter bytes a rank on (1, 2)
+                  equal to (a)'s and (b)'s ranks'
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -537,11 +573,37 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "phase15"
 #: phase's 232 s in a trial; the card held them), DBRX_PROMPTS prompts of
 #: FAM_DBRX_PROMPT tokens (each data rank holds 8 of the 16 routing
 #: groups), then DBRX_NEW decode steps, each one routing group over both
-#: data ranks (cut from FAM_NEW for the same reason)
+#: data ranks (cut from FAM_NEW for the same reason).  DBRX_LAYERS cut from
+#: 2 to 1 beside phase 17 (the script took 1329.9 s on a slower host, its
+#: phases before 17 ~1200 s of it): every check runs as before on the one
+#: layer's routers, gathers and logits; the second layer's no longer run
 MOE_RANKS, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2, 4, 1024
-DBRX_MESH, DBRX_LAYERS, DBRX_PROMPTS, DBRX_NEW = (2, 2), 2, 2, 2
+DBRX_MESH, DBRX_LAYERS, DBRX_PROMPTS, DBRX_NEW = (2, 2), 1, 2, 2
 MOE_TIMEOUT = 600.0
 MOE_DIR = Path(__file__).resolve().parent / "build" / "phase16"
+
+#: phase 17, the recurrent families on sharded parameters: SSM_RANKS ranks
+#: share the card over gloo on a ("data"=1, "model"=SSM_RANKS) mesh.  (a)
+#: FAM_HYMBA and (b) FAM_XLSTM at full width and depth, phase 15's
+#: TP_PROMPTS prompts of TP_PROMPT_LEN tokens, then SSM_NEW greedy decode
+#: tokens, within TP_BF16_TOL of one process (the row-parallel products'
+#: bf16 partial sums summed over "model", as phase 15's wo); (c) one AdamW
+#: step of each at SSM_TRAIN_LAYERS on SSM_TRAIN_BATCH x SSM_TRAIN_SEQ
+#: tokens (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL).  Cut for the script's time
+#: limit (phase 17 took 268.6 s at full training depth and 4 decode tokens
+#: with a separate timed serve run a mode, then 130.1 s with the cuts
+#: below but 4 tokens and 8 hymba layers, in a run of 1329.9 s): the steps
+#: run at 4 of hymba's 32 layers and at xlstm's first 7 + 1 unit of 24
+#: (its sLSTM loops over the 1,024 tokens three times a step: 25.0 s a step
+#: at full depth over ranks, 22.1 s in one process), SSM_NEW decode tokens
+#: (4 before), and the serve ms come from the checked runs (quantize on:
+#: every int8 activation gathered and checked inside them), so the other
+#: 28 and 16 layers no longer train here, decode steps 3-4 no longer run
+#: and no serve run goes unchecked
+SSM_RANKS, SSM_NEW, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 2, 2, 2, 1024
+SSM_TRAIN_LAYERS = {"hymba-1.5b": 4, "xlstm-350m": 8}
+SSM_TIMEOUT = 600.0
+SSM_DIR = Path(__file__).resolve().parent / "build" / "phase17"
 
 #: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
 #: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
@@ -606,10 +668,11 @@ LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
 #: phase 11, the decoder-only families at full width, bf16, seeded random
 #: weights: qwen2-moe-a2.7b and hymba-1.5b served as qwen3-8b is (LM_REQUESTS
 #: over LM_SLOTS, prompts drawn from LM_PROMPT_MIN-MAX, FAM_NEW new tokens:
-#: half of LM_NEW, to keep the script inside its time limit; 16 until
-#: then, so decode steps 9-16 of a request, in phases 11 and 12, run no
-#: more: hymba's window of 1024 is passed either way, its meta tokens
-#: included),
+#: cut from 16 to 8, then to 4 beside phase 17 (the script took 1329.9 s on
+#: a slower host, its phases before 17 ~1200 s of it), to keep the script
+#: inside its time limit, so decode steps 5-16 of a request, in phases 11,
+#: 12 and 16 (a), run no more: hymba's window of 1024 is passed either way,
+#: its meta tokens included, and every check runs as before),
 #: xlstm-350m on prompts of 64-token multiples (its mLSTM's chunk contract:
 #: a prompt longer than 64 tokens must be a multiple of 64), dbrx-132b cut
 #: to FAM_DBRX_LAYERS of 40 layers (40 would be 264 GB of bf16) on one
@@ -618,7 +681,7 @@ FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_DBRX = ("qwen2-moe-a2.7b", "hymba-1.5b",
                                            "xlstm-350m", "dbrx-132b")
 FAM_DBRX_LAYERS, FAM_DBRX_PROMPT, FAM_DBRX_NEW = 4, 512, 8
 FAM_XLSTM_CHUNK = 64
-FAM_NEW = 8
+FAM_NEW = 4
 #: (e), card against CPU on each family reduced to float32: hymba with 4
 #: layers (layer 1 slides its 32-token window; both layers of the default
 #: 2 are global), batches of 2 x 64 tokens so the window bites.  One
@@ -4389,21 +4452,29 @@ def tp_train_batch(vocab: int) -> dict:
             .astype(np.int32) for k in ("tokens", "targets")}
 
 
+#: phase 15 (e)'s, 16 (d)'s and 17 (d)'s dry-run cells beside qwen3-8b's
+#: TP_DRY_SHAPES: (arch, shape), each also on (1, TP_RANKS)
+DRY_CELLS = ((FAM_MOE, "decode_32k"), (FAM_XLSTM, "long_500k"),
+             (FAM_HYMBA, "decode_32k"))
+
+
 def tp_dryrun_start(out_dir: Path) -> list:
-    """Start phase 15 (e)'s and 16 (d)'s dry-run, qwen3-8b's TP_DRY_SHAPES
-    and qwen2-moe-a2.7b's decode_32k on fake CUDA tensors, in two processes
+    """Start phase 15 (e)'s, 16 (d)'s and 17 (d)'s dry-run, qwen3-8b's
+    TP_DRY_SHAPES and DRY_CELLS on fake CUDA tensors, in two processes
     of their own (each owns a fake process group), one a production mesh:
-    1pod, then both decode_32k cells on (1, TP_RANKS); 2pod.  Each writes
-    its own results."""
+    1pod, then qwen3-8b's decode_32k and DRY_CELLS on (1, TP_RANKS); 2pod.
+    Each writes its own results."""
     out_dir.mkdir(parents=True, exist_ok=True)
     code = ("import sys; from repro_torch.launch import dryrun; "
-            "res, flag, mesh, lm, moe = sys.argv[1:6]; "
+            "res, flag, mesh, lm, cells = sys.argv[1:6]; "
+            "cells = [c.split(':') for c in cells.split(',')]; "
             "run = lambda arch, shape, *x: dryrun.main(['--arch', arch, "
             "'--shape', shape, '--device', 'cuda', '--results', res, flag, "
             "*x]); "
-            "[run(lm, s) for s in sys.argv[6:]]; run(moe, 'decode_32k'); "
-            "mesh and [run(a, 'decode_32k', '--mesh-shape', mesh) "
-            "for a in (lm, moe)]")
+            "[run(lm, s) for s in sys.argv[6:]]; [run(*c) for c in cells]; "
+            "mesh and [run(*c, '--mesh-shape', mesh) "
+            "for c in [(lm, 'decode_32k'), *cells]]")
+    cells = ",".join(f"{a}:{s}" for a, s in DRY_CELLS)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     started = []
@@ -4415,15 +4486,16 @@ def tp_dryrun_start(out_dir: Path) -> list:
         log = open(out_dir / f"dryrun_{pods}.log", "w")
         proc = subprocess.Popen(
             [sys.executable, "-c", code, str(results), flag, extra, LM_ARCH,
-             FAM_MOE, *TP_DRY_SHAPES], env=env, stdout=log,
+             cells, *TP_DRY_SHAPES], env=env, stdout=log,
             stderr=subprocess.STDOUT)
         started.append((proc, results, log))
     return started
 
 
-def tp_dryrun_finish(started: list, tp: dict, moe: dict, smi: str) -> dict:
-    """Wait for phase 15 (e) and 16 (d), check their cells and print their
-    roofline rows."""
+def tp_dryrun_finish(started: list, tp: dict, moe: dict, ssm: dict,
+                     smi: str) -> dict:
+    """Wait for phase 15 (e), 16 (d) and 17 (d), check their cells and
+    print their roofline rows."""
     from repro_torch.launch import roofline
     t0 = time.perf_counter()
     entries = {}
@@ -4456,15 +4528,20 @@ def tp_dryrun_finish(started: list, tp: dict, moe: dict, smi: str) -> dict:
     for mesh in ("1pod", "2pod"):
         say(roofline.render_markdown(roofline.build_table(entries, mesh),
                                      mesh))
-    for arch, ranks in ((LM_ARCH, tp["ranks"]), (FAM_MOE, moe["ranks"])):
-        key = f"{arch}|decode_32k|1pod|mesh1x{TP_RANKS}"
-        measured = [r["param_bytes"] for r in ranks]
+    measured = {LM_ARCH: [r["param_bytes"] for r in tp["ranks"]],
+                FAM_MOE: [r["param_bytes"] for r in moe["ranks"]],
+                **{a: [r[a, "param_bytes"] for r in ssm["ranks"]]
+                   for a in (FAM_XLSTM, FAM_HYMBA)}}
+    for arch, shape in ((LM_ARCH, "decode_32k"), *DRY_CELLS):
+        key = f"{arch}|{shape}|1pod|mesh1x{TP_RANKS}"
         want = entries[key]["param_bytes"]
-        say(f"tp (e) / moe (d): {arch}'s parameter bytes a rank on (1, "
-            f"{TP_RANKS}): dry-run {want:,}, measured {measured} on {smi}")
-        if any(b != want for b in measured):
-            fail(f"tp (e) / moe (d): {arch}: the dry-run's {want:,} "
-                 f"parameter bytes a rank != the ranks' {measured}")
+        say(f"tp (e) / moe (d) / ssm (d): {arch}'s parameter bytes a rank on "
+            f"(1, {TP_RANKS}): dry-run {want:,}, measured {measured[arch]} "
+            f"on {smi}")
+        if any(b != want for b in measured[arch]):
+            fail(f"tp (e) / moe (d) / ssm (d): {arch}: the dry-run's "
+                 f"{want:,} parameter bytes a rank != the ranks' "
+                 f"{measured[arch]}")
     return {"cells": len(entries)}
 
 
@@ -4804,11 +4881,12 @@ class MoeCollectiveTimer(CollectiveTimer):
     the MoE path calls beside DTensor's redistributions (the router's
     gathers, FSDP's gathers)."""
 
+    NAMES = ("gather_over", "reduce_scatter_over")
+
     def __enter__(self):
         from repro_torch.distributed import collectives
         self.coll = collectives
-        self.saved = {n: getattr(collectives, n) for n in
-                      ("gather_over", "reduce_scatter_over")}
+        self.saved = {n: getattr(collectives, n) for n in self.NAMES}
         for name, real in self.saved.items():
             def timed(*args, _real=real, **kwargs):
                 self.torch.cuda.synchronize()
@@ -5317,6 +5395,368 @@ def moe_kernel_errs(moe: dict) -> dict:
 
 
 # -- phase 13: data-parallel training over ranks sharing the card -------------
+
+# -- phase 17: the recurrent families on sharded parameters ---------------------
+
+
+class SsmCollectiveTimer(MoeCollectiveTimer):
+    """:class:`MoeCollectiveTimer`, and also the all-reduces the recurrent
+    mixers call themselves (``tp.Reduce``: the SSM's ``bc``)."""
+
+    NAMES = ("gather_over", "reduce_scatter_over", "reduce_over")
+
+
+#: phase 17's archs and the quantize_dense modes each serves
+SSM_ARCHS = ((FAM_HYMBA, (True, False)), (FAM_XLSTM, (False,)))
+
+
+def ssm_train_batch(vocab: int) -> dict:
+    rng = np.random.RandomState(SEED + 4)
+    return {k: rng.randint(0, vocab, (SSM_TRAIN_BATCH, SSM_TRAIN_SEQ))
+            .astype(np.int32) for k in ("tokens", "targets")}
+
+
+def ssm_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
+    """Phase 17 (a)-(c) on one of SSM_RANKS ranks of a ("data"=1,
+    "model"=2) mesh: hymba-1.5b served with quantize_dense on and off and
+    xlstm-350m with it off, each once checked (every kernel launch and
+    quantized linear; rank 0 writes hymba's int8 activations for the
+    one-process run), once timed, and off once more with the collectives
+    timed; then one AdamW step of each, its kernels checked, its params
+    saved."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    mesh = make_mesh((1, SSM_RANKS), ("data", "model"), "cuda")
+    res = {"jax": "jax" in sys.modules}
+    with use_mesh(mesh):
+        for arch, quants in SSM_ARCHS:
+            cfg = get_config(arch)
+            t0 = time.perf_counter()
+            params = Model(cfg, "cuda").init_placed(mesh, torch.Generator(
+                device="cuda").manual_seed(SEED))
+            torch.cuda.synchronize()
+            res[arch, "init_s"] = time.perf_counter() - t0
+            res[arch, "param_bytes"] = _local_param_bytes(params)
+            prompts = tp_prompts(cfg.vocab_size)
+            for quant in quants:
+                m = Model(dataclasses.replace(cfg, quantize_dense=quant),
+                          "cuda")
+                tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
+                with KernelChecks(torch, dispatch, ("mha", "int_matmul")) \
+                        as kc, Int8Check(TP_INT8_CALLS,
+                                         record=quant and rank == 0) as i8:
+                    run = tp_serve(torch, dispatch, m, params, prompts,
+                                   new=SSM_NEW)
+                if i8.records:
+                    torch.save(i8.records, int8_path)
+                run.update(kc.report(), int8_calls=i8.calls,
+                           int8_diff=i8.diff, int8_elements=i8.elements,
+                           int8_gathered=i8.gathered,
+                           int8_gathered_diff=i8.gathered_diff)
+                del i8
+                if not quant:
+                    with SsmCollectiveTimer(torch) as ct:
+                        t0 = time.perf_counter()
+                        tp_serve(torch, dispatch, m, params, prompts,
+                                 tokens=run["tokens"], new=SSM_NEW)
+                        wall = time.perf_counter() - t0
+                    run["coll_s"], run["coll_wall_s"] = ct.seconds, wall
+                    run["coll_share"] = ct.seconds / wall
+                    run["coll_calls"] = ct.calls
+                    run["timed_counts"] = dict(dispatch.launch_counts)
+                res[arch, "serve", quant] = run
+            del params, m
+            torch.cuda.empty_cache()
+        res["peak_serve"] = torch.cuda.max_memory_allocated()
+
+        for arch, _ in SSM_ARCHS:
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=SSM_TRAIN_LAYERS[arch])
+            model = Model(cfg, "cuda")
+            params = model.init_placed(mesh, torch.Generator(
+                device="cuda").manual_seed(SEED)).trainable_()
+            opt = AdamW(lr=TRAIN_LR)
+            step = make_train_step(model, opt)
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            with KernelChecks(torch, dispatch, ("mha", "mha_bwd")) as kc:
+                params, _, m = step(params, opt.init(params),
+                                    ssm_train_batch(cfg.vocab_size))
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+            res[arch, "train"] = {
+                "loss": loss, "grad_norm": float(m["grad_norm"]),
+                "counts": dict(dispatch.launch_counts),
+                "step_ms": (time.perf_counter() - t0) * 1e3, **kc.report()}
+            checkpoint.save(f"{ckpt_dir}/{arch}", 1, params)
+            res[arch, "saved"] = _digest_params(params)
+            del params, opt, step
+            torch.cuda.empty_cache()
+        res["peak_train"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def ssm_one_process(torch, dispatch, ranks: list, ckpt_dir: str,
+                    int8_path: str) -> dict:
+    """The one-process runs phase 17 holds the ranks against: each arch
+    fed the ranks' tokens (hymba with quantize_dense on also fed their
+    int8 activations), its AdamW step, the ranks' checkpoint restored."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    r0, out = ranks[0], {}
+    records = torch.load(int8_path, weights_only=True)
+    for arch, quants in SSM_ARCHS:
+        cfg = get_config(arch)
+        params = Model(cfg, "cuda").init(torch.Generator(
+            device="cuda").manual_seed(SEED))
+        out[arch, "param_bytes"] = _local_param_bytes(params)
+        prompts = tp_prompts(cfg.vocab_size)
+        for quant in quants:
+            m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+            tokens = r0[arch, "serve", quant]["tokens"]
+            tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
+            out[arch, "serve", quant] = tp_serve(
+                torch, dispatch, m, params, prompts, tokens=tokens,
+                new=SSM_NEW)
+            if quant:
+                with Int8Feed(records, True) as f8:
+                    run = tp_serve(torch, dispatch, m, params, prompts,
+                                   tokens=tokens, new=SSM_NEW)
+                run["flips"] = f8.flips
+                out[arch, "int8"] = run
+        del params, m
+        torch.cuda.empty_cache()
+    del records
+    for arch, _ in SSM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=SSM_TRAIN_LAYERS[arch])
+        model = Model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            SEED)).trainable_()
+        opt = AdamW(lr=TRAIN_LR)
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt.init(params),
+                       ssm_train_batch(cfg.vocab_size))
+        loss = float(m["loss"])
+        out[arch, "train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                              "counts": dict(dispatch.launch_counts),
+                              "step_ms": (time.perf_counter() - t0) * 1e3}
+        params.load_(checkpoint.restore(f"{ckpt_dir}/{arch}", 1, params))
+        out[arch, "restored"] = _digest_params(params)
+        del params, opt, step, model
+        torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def ssm_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 17, checks (a)-(c) (the module docstring); (d) runs with
+    phase 15 (e)."""
+    import shutil
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    t_phase = time.perf_counter()
+    ckpt, int8_path = SSM_DIR / "ckpt", SSM_DIR / "int8.pt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    SSM_DIR.mkdir(parents=True, exist_ok=True)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        say(f"ssm: {SSM_RANKS} ranks share the card over "
+            f"{backend_for('cuda', SSM_RANKS)}, a (data=1, model="
+            f"{SSM_RANKS}) mesh")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(ssm_rank, SSM_RANKS, device="cuda",
+                            timeout=SSM_TIMEOUT,
+                            args=(str(ckpt), str(int8_path)))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    ssm = {"ranks": ranks}
+    t0 = time.perf_counter()
+    one = ssm_one_process(torch, dispatch, ranks, str(ckpt), str(int8_path))
+    one_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    int8_path.unlink()
+    check_ssm(ssm, one, smi)
+    ssm["wall_s"] = time.perf_counter() - t_phase
+    say(f"ssm: phase 17 (a)-(c) in {ssm['wall_s']:.1f} s (ranks "
+        f"{ranks_s:.1f} s, one process {one_s:.1f} s) on {smi}")
+    return ssm
+
+
+def check_ssm(ssm: dict, one: dict, smi: str) -> None:
+    """Phase 17 (a)-(c) against the one-process runs: every number
+    printed, then every failed check listed at once."""
+    from repro_torch.configs.base import get_config
+    ranks, bad = ssm["ranks"], []
+    if any(r["jax"] for r in ranks):
+        bad.append("ssm: a rank imported JAX")
+    for r in ranks:
+        for arch, quants in SSM_ARCHS:
+            for part in [r[arch, "serve", q] for q in quants] + [
+                    r[arch, "train"]]:
+                bad += [f"ssm kernels: {o}" for o in part["kernel_over"]]
+    for arch, quants in SSM_ARCHS:
+        cfg = get_config(arch)
+        tag = "(a)" if arch == FAM_HYMBA else "(b)"
+        for quant in quants:
+            mode = "quantize_dense on" if quant else "off"
+            got = ranks[0][arch, "serve", quant]
+            # quantize_dense on: the one-process run fed the ranks' int8
+            want = one[arch, "int8"] if quant else one[arch, "serve", quant]
+            for r in ranks[1:]:
+                if not np.array_equal(r[arch, "serve", quant]["logits"],
+                                      got["logits"]):
+                    bad.append(f"ssm {tag} {mode}: the ranks' logits differ")
+            err = float(np.abs(got["logits"] - want["logits"]).max())
+            sure, agree = _greedy(want["logits"][:SSM_NEW], got["tokens"],
+                                  TP_BF16_TOL)
+            say(f"ssm {tag} {arch} {mode}: logits (prefill + {SSM_NEW} "
+                f"decode steps) max |sharded - one process"
+                f"{' fed their int8' if quant else ''}| {err:.4g} "
+                f"(tolerance {TP_BF16_TOL}); greedy tokens equal at "
+                f"{int((agree & sure).sum())} of {int(sure.sum())} "
+                f"positions whose top-2 margin exceeds it "
+                f"({int(agree.sum())} of {agree.size} in all)")
+            if err > TP_BF16_TOL or not np.all(agree[sure]):
+                bad.append(f"ssm {tag} {arch} {mode}: sharded serving "
+                           f"disagrees with one process")
+            ref = one[arch, "serve", quant]
+            for r in ranks:
+                c = r[arch, "serve", quant]
+                if c["counts"] != ref["counts"] \
+                        or c.get("timed_counts", c["counts"]) != c["counts"]:
+                    bad.append(f"ssm {tag} {mode}: rank launches "
+                               f"{c['counts']} (collective-timed run "
+                               f"{c.get('timed_counts')}) != one process "
+                               f"{ref['counts']}")
+            prefill_mha = cfg.n_layers if arch == FAM_HYMBA else 0
+            want_counts = {"mha": prefill_mha} if prefill_mha else {}
+            if quant:
+                want_counts["int_matmul"] = 3 * cfg.n_layers * (1 + SSM_NEW)
+            if got["counts"] != want_counts:
+                bad.append(f"ssm {tag} {mode}: launches {got['counts']}, "
+                           f"not {want_counts}")
+            line = (f"ssm {tag} {arch} {mode}: prefill "
+                    f"{got['prefill_ms']:.1f} ms against "
+                    f"{ref['prefill_ms']:.1f} ms in one process; "
+                    f"{got['decode_ms']:.1f} ms a decode token against "
+                    f"{ref['decode_ms']:.1f} ms (the ranks' checked run"
+                    f"{', every int8 activation gathered' if quant else ''}"
+                    f"); launches a rank "
+                    f"{got['counts']} (= one process); every launch against "
+                    f"its plain version on the rank's operands: "
+                    f"{got['kernel_checked']}, errors {got['kernel_errs']} "
+                    f"(int_matmul exact, mha <= {TRAIN_BWD_BF16_RTOL} of max "
+                    f"|plain|); shapes {got['shapes']}")
+            if not quant:
+                line += (f"; the collectives {got['coll_s'] * 1e3:.1f} ms "
+                         f"of a {got['coll_wall_s'] * 1e3:.1f} ms serve run "
+                         f"({got['coll_share']:.1%}, {got['coll_calls']} "
+                         f"timed, every one synchronised)")
+            say(line + f" on {smi}")
+        if arch == FAM_HYMBA:
+            on = ranks[0][arch, "serve", True]
+            calls = one[arch, "serve", True]["counts"].get("int_matmul", 0)
+            flips = one[arch, "int8"]["flips"]
+            say(f"ssm (a) quantize_dense on: int8 activations of all "
+                f"{on['int8_calls']} quantized linears "
+                f"({on['int8_elements']:,} elements) against one-process "
+                f"quantization of the gathered inputs: {on['int8_diff']} "
+                f"differ; int32 products of the first {on['int8_gathered']} "
+                f"against int_matmul on the gathered operands: "
+                f"{on['int8_gathered_diff']} differ; the one-process run "
+                f"quantizing its own activations differs from the ranks' in "
+                f"{sum(flips):,} int8 elements over {len(flips)} calls, and "
+                f"is fed theirs")
+            if on["int8_calls"] != calls or on["int8_diff"] \
+                    or on["int8_gathered"] != TP_INT8_CALLS \
+                    or on["int8_gathered_diff"] or len(flips) != calls:
+                bad.append("ssm (a): sharded int8 activations or int_matmul "
+                           "outputs differ from one process on the same "
+                           "inputs")
+            for shapes in on["shapes"].get("mha", ()):
+                if shapes[0][1] != 32 // SSM_RANKS:
+                    bad.append(f"ssm (a): mha ran on {shapes}, not on the "
+                               f"rank's heads")
+            for (_, b) in on["shapes"].get("int_matmul", ()):
+                if b not in ((cfg.d_model, cfg.d_ff // SSM_RANKS),
+                             (cfg.d_ff // SSM_RANKS, cfg.d_model)):
+                    bad.append(f"ssm (a): int_matmul ran on a weight {b}, "
+                               f"not a shard")
+        got, want = ranks[0][arch, "train"], one[arch, "train"]
+        for r in ranks:
+            if r[arch, "train"]["counts"] != want["counts"]:
+                bad.append(f"ssm (c) {arch}: rank launches "
+                           f"{r[arch, 'train']['counts']} != one process "
+                           f"{want['counts']}")
+        dloss = abs(got["loss"] - want["loss"])
+        dnorm = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        say(f"ssm (c) {arch} at {SSM_TRAIN_LAYERS[arch]} of "
+            f"{cfg.n_layers} layers, one AdamW step on "
+            f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens: loss "
+            f"{got['loss']:.5f} against {want['loss']:.5f} (|d| {dloss:.3g}, "
+            f"tolerance {TRAIN_LOSS_ATOL}), grad norm {got['grad_norm']:.5f} "
+            f"against {want['grad_norm']:.5f} (rel {dnorm:.3g}, tolerance "
+            f"{TRAIN_GRAD_RTOL}); {got['step_ms']:.0f} ms a step (the first) "
+            f"against {want['step_ms']:.0f} ms; launches a rank "
+            f"{got['counts']}; every launch against its plain version on the "
+            f"rank's operands: {got['kernel_checked']}, errors "
+            f"{got['kernel_errs']} on {smi}")
+        if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
+            bad.append(f"ssm (c) {arch}: the sharded step disagrees with one "
+                       f"process")
+        saved, restored = ranks[0][arch, "saved"], one[arch, "restored"]
+        differ = [n for n in restored if restored[n] != saved.get(n)]
+        if differ or restored.keys() != saved.keys():
+            bad.append(f"ssm (c) {arch}: {len(differ)} leaves differ after "
+                       f"the restore (first {differ[:3]})")
+        say(f"ssm (c) {arch}: the ranks' state restored into one process, "
+            f"{len(restored)} leaves bit for bit; parameter bytes a rank "
+            f"{[r[arch, 'param_bytes'] for r in ranks]} against "
+            f"{one[arch, 'param_bytes']:,} in one process, drawn in "
+            f"{[round(r[arch, 'init_s'], 1) for r in ranks]} s")
+    say(f"ssm: peaks a rank serving {[r['peak_serve'] / 2 ** 30 for r in ranks]}"
+        f" GiB, training {[r['peak_train'] / 2 ** 30 for r in ranks]} GiB; "
+        f"one process {one['peak'] / 2 ** 30:.1f} GiB on {smi}")
+    if bad:
+        fail("; ".join(bad))
+
+
+def ssm_kernel_errs(ssm: dict) -> dict:
+    """Phase 17's launches on rank 0 (serving and training) and the
+    largest kernel-against-plain errors over the ranks."""
+    errs, counts = {}, {}
+    for r in ssm["ranks"]:
+        for arch, quants in SSM_ARCHS:
+            for part in [r[arch, "serve", q] for q in quants] + [
+                    r[arch, "train"]]:
+                for k, e in part["kernel_errs"].items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+    r0 = ssm["ranks"][0]
+    for arch, quants in SSM_ARCHS:
+        for part in [r0[arch, "serve", q] for q in quants] + [
+                r0[arch, "train"]]:
+            add_counts(counts, part["counts"])
+    return {"errs": errs, "counts": counts}
+
 
 def _sync(torch, device) -> None:
     if torch.device(device).type == "cuda":
@@ -5937,12 +6377,35 @@ def pim_small_rank(rank: int) -> dict:
     return {"fits": fits, "jax": "jax" in sys.modules}
 
 
-def pim_data(n_dtr: int, n_emb: int) -> dict:
+def dtr_data(n_dtr: int, out_dir: str) -> float:
+    """Phase 4's DTR dataset written as ``dtr_x.npy`` and ``dtr_y.npy``
+    under ``out_dir`` (in a process of its own, beside the other
+    datasets); its generation's seconds."""
+    from repro_torch.data.synthetic import make_classification
+    t0 = time.perf_counter()
+    X, y = make_classification(n_dtr, N_FEATURES, seed=SEED, class_sep=1.4)
+    np.save(Path(out_dir) / "dtr_x.npy", X)
+    np.save(Path(out_dir) / "dtr_y.npy", y)
+    return time.perf_counter() - t0
+
+
+def pim_data(n_dtr: int, n_emb: int, mem_avail: int) -> dict:
     """Phases 4-5's datasets, made once here for them and for phase 14,
-    and written as .npy files under PIM_DATA_DIR for phase 14's ranks."""
+    and written as .npy files under PIM_DATA_DIR for phase 14's ranks.
+    The DTR set is made in a process of its own beside the others when
+    both generations' peaks fit 80% of ``mem_avail`` together (each alone
+    fits half of it: ``host_samples``)."""
+    import concurrent.futures
+    import multiprocessing
     from repro_torch.data.synthetic import (make_blobs, make_classification,
                                             make_linear_dataset,
                                             make_recsys)
+    PIM_DATA_DIR.mkdir(parents=True, exist_ok=True)
+    apart = (n_dtr * DTR_HOST_BYTES_PER_SAMPLE + n_emb
+             * EMB_HOST_BYTES_PER_SAMPLE) <= 0.8 * mem_avail
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn")) if apart else None
+    dtr = pool.submit(dtr_data, n_dtr, str(PIM_DATA_DIR)) if apart else None
     t0 = time.perf_counter()
     data = {"lin": make_linear_dataset(N_SAMPLES, N_FEATURES, seed=SEED)[:2],
             "log": make_classification(N_SAMPLES, N_FEATURES, seed=SEED)}
@@ -5953,20 +6416,31 @@ def pim_data(n_dtr: int, n_emb: int) -> dict:
                               seed=SEED)[0], None)
     say(f"data: {KME_SAMPLES}x{N_FEATURES} KME blobs in "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    data["dtr"] = make_classification(n_dtr, N_FEATURES, seed=SEED,
-                                      class_sep=1.4)
-    say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if not apart:
+        t0 = time.perf_counter()
+        dtr_data(n_dtr, str(PIM_DATA_DIR))
+        say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     data["emb"] = make_recsys(n_emb, n_users=EMB_USERS, n_items=EMB_ITEMS,
                               dim=EMB_DIM, seed=SEED)
     say(f"data: {n_emb:,} EMB ratings ({EMB_USERS:,} users x "
         f"{EMB_ITEMS:,} items) in {time.perf_counter() - t0:.1f} s")
+    if apart:
+        t0 = time.perf_counter()
+        seconds = dtr.result()
+        pool.shutdown()
+        say(f"data: {n_dtr}x{N_FEATURES} DTR classification in "
+            f"{seconds:.1f} s in a process of its own, beside the others "
+            f"(waited {time.perf_counter() - t0:.1f} s for it after them)")
+    data["dtr"] = tuple(np.load(PIM_DATA_DIR / f"dtr_{part}.npy")
+                        for part in ("x", "y"))
     t0 = time.perf_counter()
-    PIM_DATA_DIR.mkdir(parents=True, exist_ok=True)
-    files = {}
+    files = {f"dtr_{part}": str(PIM_DATA_DIR / f"dtr_{part}.npy")
+             for part in ("x", "y")}
     for key, (X, y) in data.items():
+        if key == "dtr":
+            continue
         for part, a in (("x", X), ("y", y)):
             if a is not None:
                 path = PIM_DATA_DIR / f"{key}_{part}.npy"
@@ -6158,6 +6632,10 @@ def main() -> int:
     # likewise while this process holds nothing on the card
     moe = moe_on_card(torch, dispatch, smi)
 
+    # -- 17. the recurrent families on sharded parameters -------------------
+    # likewise while this process holds nothing on the card
+    ssm = ssm_on_card(torch, dispatch, smi)
+
     # -- 13. data-parallel training over ranks sharing the card -------------
     # while this process holds nothing on the card
     dp = dp_on_card(torch, smi)
@@ -6170,8 +6648,8 @@ def main() -> int:
         f"~{EMB_SIZES[0] * EMB_HOST_BYTES_PER_SAMPLE / 2 ** 30:.0f} GiB to "
         f"generate; taken when under half of MemAvailable)")
     dry = tp_dryrun_start(TP_DIR / "dryrun")   # 15 (e), beside set-up only
-    pim_sets = pim_data(n_dtr, n_emb)
-    tp_dry = tp_dryrun_finish(dry, tp, moe, smi)
+    pim_sets = pim_data(n_dtr, n_emb, mem_avail)
+    tp_dry = tp_dryrun_finish(dry, tp, moe, ssm, smi)
     pim = pim_on_card(torch, pim_sets, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
@@ -6738,6 +7216,16 @@ def main() -> int:
                 f"{op} abs", mk["errs"].get(op))
             if op != "int_matmul":
                 k["moe_max_rel_err"] = mk["errs"][op]
+    sk = ssm_kernel_errs(ssm)    # phase 17's launches on rank 0, errors
+    for k in kernels:
+        op = {"flash_attention": "mha", "flash_attention_bwd": "mha_bwd"}.get(
+            k["name"], k["name"])
+        if op in sk["counts"]:
+            k["ssm_launches_a_rank"] = sk["counts"][op]
+            k["ssm_max_abs_err"] = sk["errs"].get(f"{op} abs",
+                                                  sk["errs"].get(op))
+            if op != "int_matmul":
+                k["ssm_max_rel_err"] = sk["errs"][op]
     ranked = {}     # phase 14's launches on rank 0, and its checks' errors
     for rec in pim["ranks"][0]["fits"].values():
         add_counts(ranked, rec["counts"])
@@ -6802,6 +7290,16 @@ def main() -> int:
         "dbrx": {k: moe["dbrx"][0]["serve"][k] for k in (
             "prefill_ms", "decode_ms", "traffic")},
         "wall_s": moe["wall_s"]}))
+    s0 = ssm["ranks"][0]
+    say("ssm: " + json.dumps({
+        **{f"{arch} serve {'on' if q else 'off'}": {
+            k: s0[arch, "serve", q][k] for k in ("prefill_ms", "decode_ms")}
+           for arch, quants in SSM_ARCHS for q in quants},
+        **{f"{arch} coll_share": s0[arch, "serve", False]["coll_share"]
+           for arch, _ in SSM_ARCHS},
+        **{f"{arch} train_step_ms": s0[arch, "train"]["step_ms"]
+           for arch, _ in SSM_ARCHS},
+        "wall_s": ssm["wall_s"]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -257,6 +257,7 @@ def gather_over(tensor: torch.Tensor, dim: int, groups: list
     (page-locked) host memory by :func:`all_gather` where the backend
     needs it."""
     gather = _funcol("all_gather_single", "all_gather_tensor")
+    dim %= tensor.ndim        # the functional gather's reshape needs dim >= 0
     for group in groups:
         if staged("all_gather", tensor, group):
             tensor = all_gather(tensor.movedim(dim, 0), group).movedim(0, dim)
@@ -274,6 +275,7 @@ def reduce_scatter_over(tensor: torch.Tensor, dim: int, groups: list
     ``dim`` divisible by each group's size), as functional collectives,
     or staged by :func:`reduce_scatter` where the backend needs it."""
     scatter = _funcol("reduce_scatter_single", "reduce_scatter_tensor")
+    dim %= tensor.ndim
     for group in groups:
         if staged("reduce_scatter", tensor, group):
             tensor = reduce_scatter(tensor.movedim(dim, 0), group) \

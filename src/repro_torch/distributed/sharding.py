@@ -221,21 +221,56 @@ def _cache_spec(name: str, shape, mesh, stacked: bool) -> tuple:
     return spec[1:] if stacked else spec
 
 
+#: the port's layout of the recurrent decode states, after their batch
+#: dim (over the data axes), by (block group, state field): each laid out
+#: as the mixer that reads it (``models/ssm.py``), the conv states and the
+#: SSM's ``h`` split over their channels, the mLSTM's ``c``, ``n`` and
+#: ``m`` over its heads (whole where "model" does not divide them, as the
+#: heads then run), the sLSTM's whole.  The reference lays every state out
+#: ``(dp, ...)``, whole over "model" (a difference by design: ROADMAP
+#: queue 3).
+_STATE_RULES: dict[tuple, tuple] = {
+    ("mlstm", "c"): ("model", None, None), ("mlstm", "n"): ("model", None),
+    ("mlstm", "m"): ("model",), ("mlstm", "conv"): (None, "model"),
+    ("ssm", "h"): ("model", None), ("ssm", "conv"): (None, "model"),
+}
+
+
+def state_spec(group: str, field: str, shape, mesh) -> tuple:
+    """The port's spec of a recurrent state ``group.field`` ``[B, ...]``
+    (:data:`_STATE_RULES`; the sLSTM's states and unknown fields: rows
+    over the data axes alone), axes that do not divide dropped."""
+    rule = _STATE_RULES.get((group, field), ())
+    spec = (dp_axes(mesh), *rule, *(None,) * (len(shape) - 1 - len(rule)))
+    return validate_divisibility(P(*spec), tuple(shape), mesh)
+
+
 def cache_shardings(mesh, caches):
     """Specs for the port's decode caches, in their structure: a decoder
     LM's list of per-layer dicts, or the encoder-decoder's dict of
     per-layer lists (``k``, ``v``, ``ck``, ``cv``) beside its ``length``
-    and ``pos`` table.  Falls back to replication when sizes don't
+    and ``pos`` table.  A layer's ``KVCache`` or recurrent state (a named
+    tuple under its block group's name: ``kv``, ``mlstm``, ``slstm``,
+    ``ssm``) gets a dict of its fields' specs, the states' by
+    :func:`state_spec`.  Falls back to replication when sizes don't
     divide."""
     def leaf(name: str, value, stacked: bool):
         shape = tuple(getattr(value, "shape", ()))
         return _cache_spec(name, shape, mesh, stacked)
+
+    def entry(name: str, value):
+        if not hasattr(value, "_fields"):
+            return leaf(name, value, True)
+        if name == "kv":
+            return {f: leaf(f, v, True) for f, v in zip(value._fields, value)}
+        return {f: state_spec(name, f, tuple(v.shape), mesh)
+                for f, v in zip(value._fields, value)}
     if isinstance(caches, dict):
         return {name: ([leaf(name, v, True) for v in value]
                        if isinstance(value, list) else leaf(name, value,
                                                             False))
                 for name, value in caches.items()}
-    return [{name: leaf(name, v, True) for name, v in layer.items()}
+    return [{name: entry(name, v) for name, v in layer.items()}
             for layer in caches]
 
 
@@ -354,3 +389,16 @@ def cache_tensor(shape: tuple, fill: float, dtype, device, mesh=None):
     spec = _cache_spec("k", tuple(shape), mesh, True)
     return full(shape, fill, dtype=dtype, device_mesh=mesh,
                 placements=placements(spec, mesh))
+
+
+def state_tensor(group: str, field: str, shape: tuple, fill: float, dtype,
+                 device, mesh=None):
+    """A recurrent state ``group.field`` filled with ``fill``: plain on
+    ``device``, or on ``mesh`` a DTensor laid out by :func:`state_spec`, of
+    which each rank allocates its shard alone."""
+    if mesh is None:
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import full
+    return full(shape, fill, dtype=dtype, device_mesh=mesh,
+                placements=placements(state_spec(group, field, shape, mesh),
+                                      mesh))

@@ -29,6 +29,10 @@ data axes gathered for its use, its gradient reduced and scattered
 back).  :func:`redistribute` moves a DTensor between layouts through
 ``collectives``' functional collectives (staged through host memory
 where gloo needs it), in place of DTensor's own ``redistribute``.
+The recurrent mixers (``models/ssm.py``) run on local shards between
+:class:`Gather`, :class:`Scatter` and :class:`Reduce`: the same
+collectives, differentiable, for work of which each rank does its own
+share.
 """
 from __future__ import annotations
 
@@ -363,3 +367,60 @@ class GatherSame(torch.autograd.Function):
     def backward(ctx, grad):
         dim, n, rank = ctx.meta
         return grad.chunk(n, dim)[rank].contiguous(), None, None
+
+
+class Gather(torch.autograd.Function):
+    """Every rank's ``x`` of ``groups`` concatenated along ``dim`` (the
+    innermost mesh dim's group first), for work of which each rank then
+    does its own share (its heads, its channels, its rows of a
+    row-parallel product): the gradient, a partial sum on each rank, is
+    summed and scattered back to this rank's block (reduce-scatter).
+    :class:`GatherSame` is the form for work every rank repeats alike."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, groups: list):
+        from .collectives import gather_over
+        ctx.meta = (dim, groups)
+        return gather_over(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .collectives import reduce_scatter_over
+        dim, groups = ctx.meta
+        return reduce_scatter_over(grad, dim, groups[::-1]), None, None
+
+
+class Scatter(torch.autograd.Function):
+    """``x``, a partial sum over ``groups``, summed and cut to this rank's
+    block along ``dim`` (reduce-scatter; the outermost mesh dim's group
+    first); the gradient gathered (:class:`Gather`'s mirror)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, groups: list):
+        from .collectives import reduce_scatter_over
+        ctx.meta = (dim, groups)
+        return reduce_scatter_over(x, dim, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .collectives import gather_over
+        dim, groups = ctx.meta
+        return gather_over(grad, dim, groups[::-1]), None, None
+
+
+class Reduce(torch.autograd.Function):
+    """``x``, a partial sum over ``groups``, summed on every rank, for work
+    of which each rank then does its own share: the gradient, a partial
+    sum too, is summed the same way (an all-reduce each way)."""
+
+    @staticmethod
+    def forward(ctx, x, groups: list):
+        from . import collectives
+        ctx.groups = groups
+        return collectives.reduce_over(x.contiguous(), "sum", groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from . import collectives
+        return collectives.reduce_over(grad.contiguous(), "sum",
+                                       ctx.groups), None

@@ -138,8 +138,8 @@ def build_step(arch: str, shape_name: str, mesh, cfg_overrides=None,
         return prefill_fn, (params, batch)
 
     # decode: one new token against a full seq_len KV cache
-    cache = [{**c, "kv": c["kv"]._replace(length=s - 1)}
-             for c in model.init_cache(b, s)]
+    cache = [{**c, "kv": c["kv"]._replace(length=s - 1)} if "kv" in c
+             else c for c in model.init_cache(b, s)]
 
     def serve_step(params, toks, cache):
         with torch.no_grad():

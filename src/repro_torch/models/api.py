@@ -41,8 +41,9 @@ from . import encdec, transformer
 from .layers import Params, leaf_shapes
 
 #: the families that run on parameters sharded over "model" (the MoE's
-#: experts split over it: expert parallel; dbrx's FSDP over the data axes)
-TP_FAMILIES = ("dense", "moe")
+#: experts split over it: expert parallel; dbrx's FSDP over the data axes;
+#: the recurrent mixers on their channels and heads, ``models/ssm.py``)
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class Model:
@@ -178,7 +179,8 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int):
         """Empty decode caches on the model's device; inside ``use_mesh``
-        a dense LM's are laid out by ``cache_shardings``."""
+        a decoder LM's are laid out by ``cache_shardings`` (the recurrent
+        states by ``state_spec``)."""
         if self.is_encdec:
             return encdec.init_dec_cache(self.cfg, batch, max_seq,
                                          self.device)

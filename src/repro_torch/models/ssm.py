@@ -15,6 +15,36 @@ scan's last ``(c, n, m)`` and the scan's last ``h``.
 :func:`linear_scan` stands in for ``jax.lax.associative_scan`` over
 ``h_t = a_t h_{t-1} + b_t``: a log-depth (Hillis-Steele) scan, the same
 recurrence in another product order.
+
+On sharded parameters (inside ``use_mesh``, the block's input a DTensor
+``[B, S, d]``, rows over the data axes, whole over "model") each mixer
+runs on its rank's shards (:class:`_Shards`; the one-process path reads
+the same code through :class:`_Whole`, whose collectives are nothing).
+Each rank does its own share of the work, so every gradient inside is a
+partial sum over "model" (``tp.Gather``, ``tp.Scatter``, ``tp.Reduce``):
+
+* mLSTM: ``w_up``, ``w_gate`` and ``conv_w`` split ``d_inner``
+  (column-parallel; the depthwise conv on the local channels); ``u`` is
+  gathered once and feeds ``wq``, ``wk``, ``wv`` (column-parallel: q, k and
+  v split by heads) and the replicated ``w_if`` (the gates whole, no
+  reduction; a rank keeps its heads').  The chunkwise scan runs on the
+  rank's heads, whose hidden columns are ``g``'s; ``w_down`` is
+  row-parallel, one sum.  Where "model" does not divide the heads (xlstm's
+  4 over 16 ranks: a rank would hold a quarter of a head), q, k and v are
+  gathered to whole heads, the cell runs whole on every rank, and its
+  hidden is cut to ``g``'s columns;
+* sLSTM: ``w_x`` splits the gate blocks, not the heads, so ``xp`` is
+  gathered once, before the loop (once a step in decode); the cell runs
+  whole on every rank with no collective inside; ``w_out`` is
+  row-parallel on the hidden's local rows, one sum;
+* selective SSM: ``w_in`` and ``conv_w`` split ``d_inner``, ``a_log`` and
+  ``d_skip`` with it (``dt_bias`` is replicated and cut locally);
+  ``w_bc`` and ``w_dt`` are row-parallel: ``bc`` (2N wide) is summed,
+  ``dt`` summed and scattered to the rank's channels, so the scan runs
+  on ``[B, S, Di / model, N]``; ``w_out`` is row-parallel, one sum.
+
+The decode states are laid out as these computations read them
+(``sharding.state_spec``).
 """
 from __future__ import annotations
 
@@ -25,10 +55,148 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_sharding import constrain
+from ..distributed.sharding import state_tensor
+from ..distributed.tp import Gather, Reduce, Scatter
+from ..kernels.dispatch import is_dtensor
 from .layers import Params, dense_init, normal_init, rms_norm
 
 #: the mLSTM's chunk length (``mlstm_chunkwise``'s default)
 MLSTM_CHUNK = 64
+
+
+# ---------------------------------------------------------------------------
+# A mixer's parameters on one process, or on a rank's shards.
+# ---------------------------------------------------------------------------
+
+class _Whole:
+    """The one-process view of a mixer call: ``x`` and the parameters as
+    they are, no collective (each of :class:`_Shards`' moves the
+    identity)."""
+
+    n, index = 1, 0
+
+    def __init__(self, params, x):
+        self.params, self.x = params, x
+
+    def __getitem__(self, name: str):
+        return self.params[name]
+
+    def gather(self, t):
+        return t
+
+    reduce = scatter = block = gather
+
+    def out(self, t):
+        return t
+
+    def state(self, t, dim=None):
+        return t
+
+    @staticmethod
+    def local(t):
+        return t
+
+
+class _Shards:
+    """A mixer call on a rank: ``x`` (a DTensor ``[B, S, d]``, rows over the
+    data axes, whole over "model") as its local rows, each parameter as its
+    local shard, and the moves between the rank's shares of the work.
+
+    ``splits`` names the weights split over "model" with the tensor dim
+    each splits; they must split over the same mesh dims (``mdims``, whose
+    ``n`` ranks this one is ``index`` of), or none.  A parameter's
+    gradient keeps its layout and is a partial sum over the mesh dims
+    where the rank's use of it is its share: x's row split, and ``mdims``
+    where the parameter is whole (every rank's work downstream is its
+    own channels' or heads')."""
+
+    def __init__(self, params, x, splits: dict):
+        from torch.distributed.tensor import Partial
+        mesh = x.device_mesh
+        dims = {tuple(i for i, p in enumerate(params[name].placements)
+                      if p.is_shard(d)) if is_dtensor(params[name]) else ()
+                for name, d in splits.items()}
+        if len(dims) > 1:
+            raise ValueError(f"the mixer's weights split over different mesh "
+                             f"dims {sorted(dims)}")
+        self.params, self.mesh, self.memo = params, mesh, {}
+        self.mdims = list(dims.pop())
+        self.rows = [i for i, p in enumerate(x.placements) if p.is_shard(0)]
+        if any(p.is_partial() or (p.is_shard() and i not in self.rows)
+               for i, p in enumerate(x.placements)):
+            raise ValueError(f"mixer input placed {x.placements}: rows over "
+                             f"the data axes, whole over 'model' expected")
+        coord = mesh.get_coordinate()
+        self.n, self.index = 1, 0
+        for i in self.mdims:
+            self.n = self.n * mesh.size(i)
+            self.index = self.index * mesh.size(i) + coord[i]
+        # gathers take the innermost mesh dim first, scatters the outermost
+        self.inner = [mesh.get_group(i) for i in reversed(self.mdims)]
+        self.outer = self.inner[::-1]
+        self.x = x.to_local(grad_placements=[
+            Partial() if i in self.mdims else p
+            for i, p in enumerate(x.placements)])
+        self.shape = x.shape
+
+    def __getitem__(self, name: str):
+        if name not in self.memo:
+            from torch.distributed.tensor import Partial, Replicate
+            w = self.params[name]
+            self.memo[name] = w.to_local(grad_placements=[
+                p if p.is_shard() else Partial()
+                if i in self.rows or i in self.mdims else Replicate()
+                for i, p in enumerate(w.placements)]) if is_dtensor(w) else w
+        return self.memo[name]
+
+    def gather(self, t):
+        """Every rank's ``t`` concatenated along its last dim."""
+        return Gather.apply(t, -1, self.inner)
+
+    def reduce(self, t):
+        """The sum over "model" of the partial sums ``t``."""
+        return Reduce.apply(t, self.outer)
+
+    def scatter(self, t):
+        """The sum over "model" of the partial sums ``t``, this rank's
+        block of its last dim."""
+        return Scatter.apply(t, -1, self.outer)
+
+    def block(self, t):
+        """This rank's block of a whole ``t``'s last dim (the columns a
+        column-parallel weight gives it)."""
+        return t.chunk(self.n, dim=-1)[self.index] if self.n > 1 else t
+
+    def out(self, t):
+        """The row-parallel product's partial sums ``t [B_local, S, d]``,
+        summed over "model" (the residual stream's cut point)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        pl = [Partial() if i in self.mdims else Shard(0) if i in self.rows
+              else Replicate() for i in range(self.mesh.ndim)]
+        shape = torch.Size((self.shape[0], *t.shape[1:]))
+        return constrain(DTensor.from_local(
+            t, self.mesh, pl, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride()), "btd")
+
+    def state(self, t, dim=None):
+        """A decode state's local shard ``t`` as a DTensor: rows as x's,
+        dim ``dim`` over "model" (None: whole on every rank)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = [Shard(dim) if dim is not None and i in self.mdims else
+              Shard(0) if i in self.rows else Replicate()
+              for i in range(self.mesh.ndim)]
+        return DTensor.from_local(t, self.mesh, pl, run_check=False)
+
+    @staticmethod
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+
+def _view(params, x, splits: dict):
+    """:class:`_Shards` for a DTensor ``x``, else :class:`_Whole`."""
+    return _Shards(params, x, splits) if is_dtensor(x) else _Whole(params, x)
 
 
 # ---------------------------------------------------------------------------
@@ -116,19 +284,31 @@ def init_mlstm(gen: torch.Generator, spec: MlstmSpec,
         w_down=dense_init(gen, di, d, dtype))
 
 
-def _mlstm_qkv_gates(params, spec: MlstmSpec, u: torch.Tensor):
-    """u ``[B, S, Di]`` (the post-conv branch) -> per-head q, k, v
-    ``[B, S, H, Dh]`` and the log gates ``[B, S, H]``."""
-    b, s, _ = u.shape
+#: the mLSTM's weights split over "model" and the dim each splits
+_MLSTM_SPLITS = {"w_up": 1, "w_gate": 1, "conv_w": 1, "wq": 1, "wk": 1,
+                 "wv": 1, "w_down": 0}
+
+
+def _mlstm_qkv_gates(p, spec: MlstmSpec, u: torch.Tensor):
+    """u ``[B, S, Di]`` (the post-conv branch; a rank's channels) -> q, k,
+    v ``[B, S, H, Dh]`` and the log gates ``[B, S, H]`` of the heads the
+    view ``p`` runs (a rank's, or every head where "model" does not divide
+    them), and whether the rank runs its own heads."""
     h, dh = spec.n_heads, spec.head_dim
-    q = (u @ params["wq"].to(u.dtype)).reshape(b, s, h, dh)
-    k = (u @ params["wk"].to(u.dtype)).reshape(b, s, h, dh)
-    v = (u @ params["wv"].to(u.dtype)).reshape(b, s, h, dh)
+    own = h % p.n == 0                 # whole heads a rank
+    hn = h // p.n if own else h
+    h0 = p.index * hn if own else 0
+    u = p.gather(u)                    # once: wq, wk, wv and w_if read it
+    b, s, _ = u.shape
+    qkv = [u @ p[n].to(u.dtype) for n in ("wq", "wk", "wv")]
+    if not own:                        # a rank holds part of a head
+        qkv = [p.gather(t) for t in qkv]
+    q, k, v = (t.reshape(b, s, hn, dh) for t in qkv)
     k = k / torch.sqrt(torch.tensor(float(dh))).to(k.dtype)   # f32 sqrt
-    gates = u.to(torch.float32) @ params["w_if"] + params["b_if"]
-    logi = gates[..., :h]                          # exponential input gate
-    logf = F.logsigmoid(gates[..., h:])            # sigmoid forget gate
-    return q, k, v, logi, logf
+    gates = u.to(torch.float32) @ p["w_if"] + p["b_if"]
+    logi = gates[..., h0:h0 + hn]                  # exponential input gate
+    logf = F.logsigmoid(gates[..., h + h0:h + h0 + hn])   # sigmoid forget
+    return q, k, v, logi, logf, own
 
 
 def _mlstm_chunks(q, k, v, logi, logf, chunk: int):
@@ -189,13 +369,20 @@ def _mlstm_forward(params, spec: MlstmSpec, x: torch.Tensor,
         raise ValueError(f"mlstm_chunkwise: sequence length {s} is not a "
                          f"multiple of the chunk {chunk} (the reference's "
                          f"contract)")
-    u0 = x @ params["w_up"].to(x.dtype)
-    g = x @ params["w_gate"].to(x.dtype)
-    u = F.silu(causal_conv1d(u0, params["conv_w"]))
-    hseq, (c, n, m) = _mlstm_chunks(*_mlstm_qkv_gates(params, spec, u),
-                                    chunk)
-    out = (hseq.to(x.dtype) * F.silu(g)) @ params["w_down"].to(x.dtype)
-    return out, MlstmState(c, n, m, conv_state_of(u0, spec.conv_width))
+    p = _view(params, x, _MLSTM_SPLITS)
+    x = p.x
+    u0 = x @ p["w_up"].to(x.dtype)
+    g = x @ p["w_gate"].to(x.dtype)
+    u = F.silu(causal_conv1d(u0, p["conv_w"]))
+    q, k, v, logi, logf, own = _mlstm_qkv_gates(p, spec, u)
+    hseq, (c, n, m) = _mlstm_chunks(q, k, v, logi, logf, chunk)
+    if not own:                        # g's columns of the whole heads
+        hseq = p.block(hseq)
+    out = (hseq.to(x.dtype) * F.silu(g)) @ p["w_down"].to(x.dtype)
+    hd = 1 if own else None
+    return p.out(out), MlstmState(
+        p.state(c, hd), p.state(n, hd), p.state(m, hd),
+        p.state(conv_state_of(u0, spec.conv_width), 2))
 
 
 def mlstm_chunkwise(params, spec: MlstmSpec, x: torch.Tensor,
@@ -207,43 +394,60 @@ def mlstm_chunkwise(params, spec: MlstmSpec, x: torch.Tensor,
 
 
 def mlstm_state_init(batch: int, spec: MlstmSpec, dtype: torch.dtype,
-                     device) -> MlstmState:
+                     device, mesh=None) -> MlstmState:
+    """The zero state; on ``mesh`` DTensors (``sharding.state_spec``)."""
     h, dh = spec.n_heads, spec.head_dim
     f32 = torch.float32
+
+    def make(field, shape, fill, dt=f32):
+        return state_tensor("mlstm", field, shape, fill, dt, device, mesh)
     return MlstmState(
-        c=torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
-        n=torch.zeros((batch, h, dh), dtype=f32, device=device),
-        m=torch.full((batch, h), -1e30, dtype=f32, device=device),
-        conv=conv_state_init(batch, spec.conv_width, spec.d_inner, dtype,
-                             device))
+        c=make("c", (batch, h, dh, dh), 0.0),
+        n=make("n", (batch, h, dh), 0.0),
+        m=make("m", (batch, h), -1e30),
+        conv=make("conv", (batch, spec.conv_width - 1, spec.d_inner), 0.0,
+                  dtype))
+
+
+def _mlstm_step(q, k, v, li, lf, c, n, m):
+    """The recurrent update of one token: q, k, v ``[B, H, dh]`` float32,
+    the log gates ``[B, H]``, the state -> (hidden ``[B, H, dh]``, new c,
+    n, m)."""
+    m_new = torch.maximum(lf + m, li)
+    fp = torch.exp(lf + m - m_new)
+    ip = torch.exp(li - m_new)
+    c_new = fp[..., None, None] * c + ip[..., None, None] * \
+        torch.einsum("bhd,bhe->bhde", v, k)
+    n_new = fp[..., None] * n + ip[..., None] * k
+    num = torch.einsum("bhde,bhe->bhd", c_new, q)
+    qn = torch.abs(torch.einsum("bhd,bhd->bh", q, n_new))
+    denom = torch.maximum(qn, torch.exp(-torch.clamp(m_new, -30.0, 30.0)))
+    return num / denom[..., None], c_new, n_new, m_new
 
 
 def mlstm_decode_step(params, spec: MlstmSpec, x: torch.Tensor,
                       state: MlstmState) -> tuple[torch.Tensor, MlstmState]:
     """x ``[B, 1, d]`` -> ``([B, 1, d], new state)``: the recurrent
     update."""
+    p = _view(params, x, _MLSTM_SPLITS)
+    x = p.x
     b = x.shape[0]
-    h, dh = spec.n_heads, spec.head_dim
     f32 = torch.float32
-    u0 = x @ params["w_up"].to(x.dtype)
-    g = x @ params["w_gate"].to(x.dtype)
-    conv_out, conv_new = causal_conv1d_step(u0, state.conv,
-                                            params["conv_w"])
-    q, k, v, logi, logf = _mlstm_qkv_gates(params, spec, F.silu(conv_out))
+    c, n, m, conv = (p.local(t) for t in state)
+    u0 = x @ p["w_up"].to(x.dtype)
+    g = x @ p["w_gate"].to(x.dtype)
+    conv_out, conv_new = causal_conv1d_step(u0, conv, p["conv_w"])
+    q, k, v, logi, logf, own = _mlstm_qkv_gates(p, spec, F.silu(conv_out))
     q, k, v = (t[:, 0].to(f32) for t in (q, k, v))          # [B, H, dh]
-    li, lf = logi[:, 0], logf[:, 0]                          # [B, H]
-    m_new = torch.maximum(lf + state.m, li)
-    fp = torch.exp(lf + state.m - m_new)
-    ip = torch.exp(li - m_new)
-    c_new = fp[..., None, None] * state.c + ip[..., None, None] * \
-        torch.einsum("bhd,bhe->bhde", v, k)
-    n_new = fp[..., None] * state.n + ip[..., None] * k
-    num = torch.einsum("bhde,bhe->bhd", c_new, q)
-    qn = torch.abs(torch.einsum("bhd,bhd->bh", q, n_new))
-    denom = torch.maximum(qn, torch.exp(-torch.clamp(m_new, -30.0, 30.0)))
-    hid = (num / denom[..., None]).reshape(b, 1, h * dh).to(x.dtype)
-    out = (hid * F.silu(g)) @ params["w_down"].to(x.dtype)
-    return out, MlstmState(c_new, n_new, m_new, conv_new)
+    hid, c_new, n_new, m_new = _mlstm_step(q, k, v, logi[:, 0], logf[:, 0],
+                                           c, n, m)
+    hid = hid.reshape(b, 1, -1)
+    if not own:                        # g's columns of the whole heads
+        hid = p.block(hid)
+    out = (hid.to(x.dtype) * F.silu(g)) @ p["w_down"].to(x.dtype)
+    hd = 1 if own else None
+    return p.out(out), MlstmState(p.state(c_new, hd), p.state(n_new, hd),
+                                  p.state(m_new, hd), p.state(conv_new, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -281,12 +485,25 @@ def init_slstm(gen: torch.Generator, spec: SlstmSpec,
         norm=torch.ones((d,), dtype=f32, device=gen.device))
 
 
-def slstm_state_init(batch: int, spec: SlstmSpec, device) -> SlstmState:
-    d = spec.d_model
-    z = torch.zeros((batch, d), dtype=torch.float32, device=device)
-    return SlstmState(z, z, z, torch.full((batch, d), -1e30,
-                                          dtype=torch.float32,
-                                          device=device))
+def slstm_state_init(batch: int, spec: SlstmSpec, device,
+                     mesh=None) -> SlstmState:
+    """The zero state; on ``mesh`` DTensors (``sharding.state_spec``: whole
+    over "model")."""
+    shape = (batch, spec.d_model)
+
+    def make(field, fill):
+        return state_tensor("slstm", field, shape, fill, torch.float32,
+                            device, mesh)
+    if mesh is None:
+        z = make("c", 0.0)
+        return SlstmState(z, z, z, make("m", -1e30))
+    return SlstmState(make("c", 0.0), make("n", 0.0), make("h", 0.0),
+                      make("m", -1e30))
+
+
+#: the sLSTM's weights split over "model" and the dim each splits (``w_x``
+#: its four gate blocks' columns, not its heads)
+_SLSTM_SPLITS = {"w_x": 1, "w_out": 0}
 
 
 def _slstm_cell(params, spec: SlstmSpec, xt: torch.Tensor,
@@ -309,15 +526,18 @@ def _slstm_cell(params, spec: SlstmSpec, xt: torch.Tensor,
 def _slstm_forward(params, spec: SlstmSpec, x: torch.Tensor):
     """(out ``[B, S, d]``, the state after the sequence): a loop over
     time."""
+    p = _view(params, x, _SLSTM_SPLITS)
+    x = p.x
     b, s, _ = x.shape
-    xp = x.to(torch.float32) @ params["w_x"]
+    xp = p.gather(x.to(torch.float32) @ p["w_x"])      # once, before the loop
     st = slstm_state_init(b, spec, x.device)
     hs = []
     for i in range(s):
-        h, st = _slstm_cell(params, spec, xp[:, i], st)
+        h, st = _slstm_cell(p, spec, xp[:, i], st)
         hs.append(h)
-    hs = rms_norm(torch.stack(hs, dim=1), params["norm"])
-    return hs.to(x.dtype) @ params["w_out"].to(x.dtype), st
+    hs = p.block(rms_norm(torch.stack(hs, dim=1), p["norm"]))
+    return (p.out(hs.to(x.dtype) @ p["w_out"].to(x.dtype)),
+            SlstmState(*(p.state(t) for t in st)))
 
 
 def slstm_apply(params, spec: SlstmSpec, x: torch.Tensor) -> torch.Tensor:
@@ -327,10 +547,14 @@ def slstm_apply(params, spec: SlstmSpec, x: torch.Tensor) -> torch.Tensor:
 
 def slstm_decode_step(params, spec: SlstmSpec, x: torch.Tensor,
                       state: SlstmState):
-    xt = x[:, 0].to(torch.float32) @ params["w_x"]
-    h, st = _slstm_cell(params, spec, xt, state)
-    h = rms_norm(h[:, None, :], params["norm"])
-    return h.to(x.dtype) @ params["w_out"].to(x.dtype), st
+    p = _view(params, x, _SLSTM_SPLITS)
+    x = p.x
+    xt = p.gather(x[:, 0].to(torch.float32) @ p["w_x"])
+    h, st = _slstm_cell(p, spec, xt, SlstmState(*(p.local(t)
+                                                  for t in state)))
+    h = p.block(rms_norm(h[:, None, :], p["norm"]))
+    return (p.out(h.to(x.dtype) @ p["w_out"].to(x.dtype)),
+            SlstmState(*(p.state(t) for t in st)))
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +590,21 @@ def init_ssm(gen: torch.Generator, spec: SsmSpec,
         w_out=dense_init(gen, di, d, dtype))
 
 
-def _ssm_inputs(params, spec: SsmSpec, u: torch.Tensor):
-    """u ``[B, S, Di]`` post-conv -> (dA ``[B, S, Di, N]``, dBu ``[B, S,
-    Di, N]``, C ``[B, S, N]``), float32."""
+#: the selective SSM's weights split over "model" and the dim each splits
+_SSM_SPLITS = {"w_in": 1, "conv_w": 1, "w_bc": 0, "w_dt": 0, "a_log": 0,
+               "d_skip": 0, "w_out": 0}
+
+
+def _ssm_inputs(p, spec: SsmSpec, u: torch.Tensor):
+    """u ``[B, S, Di]`` post-conv (a rank's channels) -> (dA ``[B, S, Di,
+    N]``, dBu ``[B, S, Di, N]``, C ``[B, S, N]``), float32, on the view
+    ``p``'s channels: ``bc`` and ``dt`` are row-parallel partial sums over
+    "model", ``bc`` summed, ``dt`` summed and scattered to the channels."""
     uf = u.to(torch.float32)
-    bc = uf @ params["w_bc"]
+    bc = p.reduce(uf @ p["w_bc"])
     bmat, cmat = torch.chunk(bc, 2, dim=-1)
-    dt = F.softplus(uf @ params["w_dt"] + params["dt_bias"])    # [B, S, Di]
-    a = -torch.exp(params["a_log"])                              # [Di, N]
+    dt = F.softplus(p.scatter(uf @ p["w_dt"]) + p.block(p["dt_bias"]))
+    a = -torch.exp(p["a_log"])                                   # [Di, N]
     da = torch.exp(dt[..., None] * a)
     dbu = dt[..., None] * bmat[:, :, None, :] * uf[..., None]
     return da, dbu, cmat
@@ -400,14 +631,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
 
 def _ssm_forward(params, spec: SsmSpec, x: torch.Tensor):
     """(out ``[B, S, d]``, the state after the sequence)."""
-    u0 = x @ params["w_in"].to(x.dtype)
-    u = F.silu(causal_conv1d(u0, params["conv_w"]))
-    da, dbu, cmat = _ssm_inputs(params, spec, u)
+    p = _view(params, x, _SSM_SPLITS)
+    x = p.x
+    u0 = x @ p["w_in"].to(x.dtype)
+    u = F.silu(causal_conv1d(u0, p["conv_w"]))
+    da, dbu, cmat = _ssm_inputs(p, spec, u)
     hh = linear_scan(da, dbu, dim=1)                          # [B, S, Di, N]
     y = torch.einsum("bsdn,bsn->bsd", hh, cmat)
-    y = y + params["d_skip"] * u.to(torch.float32)
-    out = y.to(x.dtype) @ params["w_out"].to(x.dtype)
-    return out, SsmState(hh[:, -1], conv_state_of(u0, spec.conv_width))
+    y = y + p["d_skip"] * u.to(torch.float32)
+    out = y.to(x.dtype) @ p["w_out"].to(x.dtype)
+    return p.out(out), SsmState(
+        p.state(hh[:, -1], 1), p.state(conv_state_of(u0, spec.conv_width),
+                                       2))
 
 
 def ssm_apply(params, spec: SsmSpec, x: torch.Tensor) -> torch.Tensor:
@@ -416,23 +651,27 @@ def ssm_apply(params, spec: SsmSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_state_init(batch: int, spec: SsmSpec, dtype: torch.dtype,
-                   device) -> SsmState:
+                   device, mesh=None) -> SsmState:
+    """The zero state; on ``mesh`` DTensors (``sharding.state_spec``)."""
     return SsmState(
-        h=torch.zeros((batch, spec.d_inner, spec.d_state),
-                      dtype=torch.float32, device=device),
-        conv=conv_state_init(batch, spec.conv_width, spec.d_inner, dtype,
-                             device))
+        h=state_tensor("ssm", "h", (batch, spec.d_inner, spec.d_state), 0.0,
+                       torch.float32, device, mesh),
+        conv=state_tensor("ssm", "conv",
+                          (batch, spec.conv_width - 1, spec.d_inner), 0.0,
+                          dtype, device, mesh))
 
 
 def ssm_decode_step(params, spec: SsmSpec, x: torch.Tensor,
                     state: SsmState) -> tuple[torch.Tensor, SsmState]:
-    u0 = x @ params["w_in"].to(x.dtype)
-    conv_out, conv_new = causal_conv1d_step(u0, state.conv,
-                                            params["conv_w"])
+    p = _view(params, x, _SSM_SPLITS)
+    x = p.x
+    h, conv = (p.local(t) for t in state)
+    u0 = x @ p["w_in"].to(x.dtype)
+    conv_out, conv_new = causal_conv1d_step(u0, conv, p["conv_w"])
     u = F.silu(conv_out)                                      # [B, 1, Di]
-    da, dbu, cmat = _ssm_inputs(params, spec, u)
-    h_new = da[:, 0] * state.h + dbu[:, 0]                    # [B, Di, N]
+    da, dbu, cmat = _ssm_inputs(p, spec, u)
+    h_new = da[:, 0] * h + dbu[:, 0]                          # [B, Di, N]
     y = torch.einsum("bdn,bn->bd", h_new, cmat[:, 0])
-    y = y + params["d_skip"] * u[:, 0].to(torch.float32)
-    out = y[:, None].to(x.dtype) @ params["w_out"].to(x.dtype)
-    return out, SsmState(h_new, conv_new)
+    y = y + p["d_skip"] * u[:, 0].to(torch.float32)
+    out = y[:, None].to(x.dtype) @ p["w_out"].to(x.dtype)
+    return p.out(out), SsmState(p.state(h_new, 1), p.state(conv_new, 2))

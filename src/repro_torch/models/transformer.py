@@ -34,7 +34,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..distributed.act_sharding import constrain
+from ..distributed.act_sharding import constrain, current_mesh
 from ..distributed.tp import VocabParallelNll, gathered, matmul
 from ..kernels.dispatch import is_dtensor
 from . import ssm as ssm_mod
@@ -185,13 +185,15 @@ def apply_block_train(p, cfg: ArchConfig, bt: str, x: torch.Tensor,
 
 def init_block_cache(cfg: ArchConfig, bt: str, batch: int, max_seq: int,
                      device="cuda") -> dict:
-    dt = _dtype(cfg)
+    """A block's empty decode cache; inside ``use_mesh`` its KV caches and
+    recurrent states are DTensors (``sharding.cache_shardings``)."""
+    dt, mesh = _dtype(cfg), current_mesh()
     if bt == "mlstm":
         return {"mlstm": ssm_mod.mlstm_state_init(batch, mlstm_spec(cfg), dt,
-                                                  device)}
+                                                  device, mesh)}
     if bt == "slstm":
         return {"slstm": ssm_mod.slstm_state_init(batch, slstm_spec(cfg),
-                                                  device)}
+                                                  device, mesh)}
     spec = attn_spec(cfg)
     if bt == "cross":        # filled once at prefill from the states
         sk = cfg.vision_tokens or cfg.encoder_seq
@@ -201,7 +203,8 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, max_seq: int,
     c = {"kv": init_kv_cache(batch, spec.plan, spec.head_dim, max_seq, dt,
                              bits=cfg.kv_cache_bits, device=device)}
     if bt == "hymba":
-        c["ssm"] = ssm_mod.ssm_state_init(batch, ssm_spec(cfg), dt, device)
+        c["ssm"] = ssm_mod.ssm_state_init(batch, ssm_spec(cfg), dt, device,
+                                          mesh)
     return c
 
 
@@ -300,6 +303,7 @@ def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     params = gathered(params)
     x = _lookup(params["tok_emb"], tokens)
     if cfg.meta_tokens:
+        x = constrain(x, "btd")    # a vocab-split lookup summed first
         meta = params["meta"].to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
     return x

@@ -1953,3 +1953,47 @@ def test_moe_products_and_fsdp_gather_on_the_card_equal_the_cpu(cuda):
         np.testing.assert_allclose(card["gw"], card["want_gw"], rtol=1e-6)
         assert card["staged"]["staged"] > 0 and not cpu["staged"].get(
             "staged")
+
+
+#: the recurrent families over two ranks: reduced configs in bf16; logits
+#: against one process within chip_smoke.py's TP_BF16_TOL (row-parallel
+#: bf16 partial sums summed across ranks), mha within its
+#: TRAIN_BWD_BF16_RTOL of max |plain|
+SSM_CARD_CASES = {"xlstm": ("xlstm-350m", {}),
+                  "hymba": ("hymba-1.5b", {}),
+                  "hymba-int8": ("hymba-1.5b", {"quantize_dense": True})}
+SSM_TP_BF16_TOL, SSM_MHA_RTOL = 0.25, 1e-2
+
+
+def test_recurrent_families_over_ranks_on_the_card(cuda):
+    """Reduced xlstm-350m (mLSTM and sLSTM) and hymba-1.5b (selective SSM
+    beside attention; quantize_dense off and on) in bf16 on a (1, 2) mesh
+    of two gloo ranks sharing the card: forward, prefill and three decode
+    steps within SSM_TP_BF16_TOL of one process on the same weights, the
+    same launches a rank as one process (hymba: 1 mha a layer a prefill
+    or forward, 3 int_matmul a layer a forward call with quantize_dense),
+    on the rank's 8 of 16 query heads; every launch on a rank equal to its
+    plain version on the rank's operands (int_matmul exactly, mha within
+    SSM_MHA_RTOL)."""
+    toks = np.random.RandomState(3).randint(0, 512, (2, 19)).astype(
+        np.int32)
+    layers = get_config("hymba-1.5b").reduced().n_layers
+    for r in _card_ranks("card_ssm_tp_body", SSM_CARD_CASES, toks, 16):
+        assert not r["jax"]
+        for name in SSM_CARD_CASES:
+            got = r[name]
+            for key, want in got["one"]["logits"].items():
+                err = float(np.abs(got["ranks"]["logits"][key] - want).max())
+                assert np.isfinite(want).all() and err <= SSM_TP_BF16_TOL, \
+                    (name, key, err)
+            assert got["ranks"]["counts"] == got["one"]["counts"], name
+        assert r["xlstm"]["ranks"]["counts"] == {}
+        assert r["hymba"]["ranks"]["counts"] == {"mha": 2 * layers}
+        assert r["hymba-int8"]["ranks"]["counts"] == {
+            "mha": 2 * layers, "int_matmul": 5 * 3 * layers}
+        for name in ("hymba", "hymba-int8"):
+            assert r[name]["errs"]["mha"] <= SSM_MHA_RTOL
+            assert r[name]["checked"]["mha"] == 2 * layers
+            assert all(q[1] == 8 for q, _ in r[name]["shapes"]["mha"])
+        assert r["hymba-int8"]["errs"]["int_matmul"] == 0.0
+        assert r["hymba-int8"]["checked"]["int_matmul"] == 5 * 3 * layers

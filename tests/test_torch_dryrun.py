@@ -10,10 +10,11 @@
   a row-parallel one's all-reduce bytes equal to its output's; and what
   the dry-run takes from ``MemTracker`` (a private API): the peak of live
   storages;
-* ``launch/dryrun.py``: the 80 cells' statuses (36 traced, 16 skipped,
-  28 not ported), and the CLI in a subprocess on a fake (2, 2) mesh with
+* ``launch/dryrun.py``: the 80 cells' statuses (52 traced, 16 skipped,
+  12 not ported), and the CLI in a subprocess on a fake (2, 2) mesh with
   the reduced configs: ``ok``, ``skipped`` and ``not_ported`` entries with
-  the reference's keys, rendered by the roofline CLI.
+  the reference's keys (xlstm-350m's and hymba-1.5b's decode cells
+  among the ``ok``), rendered by the roofline CLI.
 
 The fake default group is process-global, so everything that makes one
 runs in a subprocess of its own.
@@ -82,14 +83,14 @@ def test_table_keeps_every_status():
     results = {"qwen3-8b|train_4k|1pod": _entry(),
                "qwen3-8b|long_500k|1pod": {"status": "skipped",
                                            "reason": "quadratic"},
-               "xlstm-350m|train_4k|1pod": {"status": "not_ported",
-                                            "reason": "item 12d"},
+               "whisper-tiny|train_4k|1pod": {"status": "not_ported",
+                                              "reason": "item 12d"},
                "qwen3-8b|train_4k|2pod": {"status": "error"},
                "qwen3-8b|train_4k|1pod|mesh64x4": _entry()}
     rows = roofline.build_table(results, "1pod")
     assert [r["status"] for r in rows] == ["skipped", "ok", "not_ported"]
     text = roofline.render_markdown(rows, "1pod")
-    assert "| xlstm-350m | train_4k | — | — | — | not_ported |" in text
+    assert "| whisper-tiny | train_4k | — | — | — | not_ported |" in text
     assert "h100-sxm" in text
     assert [r["status"] for r in roofline.build_table(results, "2pod")] \
         == ["error"]
@@ -103,8 +104,8 @@ def test_cell_statuses():
             counts[entry["status"] if entry else "ok"] += 1
             if entry and entry["status"] == "not_ported":
                 assert "item 12d" in entry["reason"]
-    # x 2 meshes: 36 ok, 16 skipped, 28 not ported
-    assert counts == {"ok": 18, "skipped": 8, "not_ported": 14}
+    # x 2 meshes: 52 ok, 16 skipped, 12 not ported
+    assert counts == {"ok": 26, "skipped": 8, "not_ported": 6}
 
 
 OPTRACE = r"""
@@ -164,11 +165,16 @@ def test_op_trace_counts_what_one_rank_runs():
 
 def test_dryrun_cli_on_a_small_fake_mesh(tmp_path):
     results = tmp_path / "results.json"
+    # the recurrent archs at their decode cells: their train_4k and
+    # prefill_32k cells loop over 4,096 and 32,768 sLSTM steps
     code = ("import sys; from repro_torch.launch import dryrun, roofline; "
-            "[dryrun.main(['--arch', a, '--device', 'cpu', '--reduced', "
-            "'--mesh-shape', '2,2', '--single-pod-only', '--results', "
-            "sys.argv[1]]) for a in ('qwen3-8b', 'xlstm-350m', "
-            "'whisper-tiny')]")
+            "run = lambda a, *x: dryrun.main(['--arch', a, '--device', "
+            "'cpu', '--reduced', '--mesh-shape', '2,2', '--single-pod-only', "
+            "'--results', sys.argv[1], *x]); "
+            "[run(a) for a in ('qwen3-8b', 'llama-3.2-vision-11b', "
+            "'whisper-tiny')]; "
+            "[run(a, '--shape', s) for a in ('xlstm-350m', 'hymba-1.5b') "
+            "for s in ('decode_32k', 'long_500k')]")
     _run(code, str(results))
     entries = json.loads(results.read_text())
     status = {k.split("|")[0] + "|" + k.split("|")[1]: e["status"]
@@ -176,15 +182,22 @@ def test_dryrun_cli_on_a_small_fake_mesh(tmp_path):
     assert status == {
         "qwen3-8b|train_4k": "ok", "qwen3-8b|prefill_32k": "ok",
         "qwen3-8b|decode_32k": "ok", "qwen3-8b|long_500k": "skipped",
-        **{f"xlstm-350m|{s}": "not_ported" for s in SHAPES},
-        **{f"whisper-tiny|{s}": "not_ported" for s in SHAPES
-           if s != "long_500k"},
-        "whisper-tiny|long_500k": "skipped"}
+        **{f"{a}|{s}": "not_ported" for a in ("llama-3.2-vision-11b",
+                                               "whisper-tiny")
+           for s in SHAPES if s != "long_500k"},
+        "llama-3.2-vision-11b|long_500k": "skipped",
+        "whisper-tiny|long_500k": "skipped",
+        **{f"{a}|{s}": "ok" for a in ("xlstm-350m", "hymba-1.5b")
+           for s in ("decode_32k", "long_500k")}}
+    for cell in ("qwen3-8b|train_4k", "xlstm-350m|decode_32k",
+                 "xlstm-350m|long_500k", "hymba-1.5b|decode_32k",
+                 "hymba-1.5b|long_500k"):
+        for key in ("mesh", "n_devices", "trace_s", "flops",
+                    "bytes_accessed", "argument_bytes", "output_bytes",
+                    "temp_bytes", "peak_bytes", "collectives", "corrected",
+                    "analytic", "hlo_ops"):
+            assert key in entries[f"{cell}|1pod|mesh2x2"], (cell, key)
     ok = entries["qwen3-8b|train_4k|1pod|mesh2x2"]
-    for key in ("mesh", "n_devices", "trace_s", "flops", "bytes_accessed",
-                "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
-                "collectives", "corrected", "analytic", "hlo_ops"):
-        assert key in ok, key
     assert ok["n_devices"] == 4 and ok["mesh"] == "data=2 x model=2"
     assert ok["corrected"]["flops"] > 0 and ok["peak_bytes"] > 0
     assert ok["corrected"]["collective_counts"]["all-reduce"] > 0

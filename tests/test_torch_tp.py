@@ -235,7 +235,7 @@ def test_input_specs_match_the_reference(shape):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family
-                                  not in ("dense", "moe")])
+                                  not in ("dense", "moe", "ssm", "hybrid")])
 def test_families_beyond_dense_refuse_sharded_parameters(arch):
     from types import SimpleNamespace
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))

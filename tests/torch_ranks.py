@@ -738,3 +738,181 @@ def card_moe_body(rank: int) -> dict:
             "want_gw": 3 * gy[:, :64][..., rank * 16:(rank + 1) * 16]}
         collectives.reset_traffic()
     return out
+
+
+# -- the recurrent families on sharded parameters (tests/test_torch_ssm_tp.py)
+
+def grad_step(model, params, batch: dict, lr: float, mesh=None) -> dict:
+    """One AdamW step (``make_train_step``'s parts): the loss, every
+    gradient leaf laid out as its parameter and then whole, the grad norm
+    and what the update moved every parameter by, whole."""
+    from repro_torch.distributed.sharding import (opt_state_shardings,
+                                                  place_opt_state)
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import loop
+    params.trainable_()
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    if mesh is not None:
+        state = place_opt_state(state, mesh, opt_state_shardings(mesh,
+                                                                 params))
+    loss, grads = loop.value_and_grad(model, params, batch)
+    grads = loop.to_param_layout(grads, params)
+    out = {"loss": float(_full(loss)),
+           "grads": {n: _full(g) for n, g in grads.items()}}
+    before = {n: _full(p) for n, p in params.named_parameters()}
+    params, _, gnorm = opt.update(grads, state, params)
+    out["grad_norm"] = float(_full(gnorm))
+    out["update"] = {n: _full(p) - before[n]
+                     for n, p in params.named_parameters()}
+    return out
+
+
+def _layouts(cache) -> list:
+    """Each layer's cache as {group: {field: (placements, local shape)}}
+    (plain tensors: "plain")."""
+    out = []
+    for layer in cache:
+        entry = {}
+        for group, value in layer.items():
+            entry[group] = {
+                f: ([str(p) for p in t.placements],
+                    tuple(t.to_local().shape)) if hasattr(t, "placements")
+                else "plain"
+                for f, t in zip(value._fields, value)
+                if isinstance(t, torch.Tensor)}
+        out.append(entry)
+    return out
+
+
+def ssm_tp_body(rank: int, cases: dict, shape: tuple, batch: dict,
+                lr: float) -> dict:
+    """Each case of ``cases`` (name -> (arch, reduced overrides, the
+    reference's tree, tokens, prompt, max_seq, quantize_dense modes to
+    serve, whether to train)) on a ``shape`` ("data", "model") mesh of
+    gloo ranks: serving (:func:`lm_serve_outputs`) in each mode, with the
+    layouts of ``init_cache``'s states, of prefill's and of
+    ``cache_shardings``' specs; one AdamW step (:func:`grad_step`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import cache_shardings, placements
+    from repro_torch.models.api import Model, params_from_jax
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    res = {"jax": "jax" in sys.modules}
+    with use_mesh(mesh):
+        for name, (arch, over, tree, toks, prompt, max_seq, quants,
+                   train) in cases.items():
+            out = res[name] = {}
+            for quant in quants:
+                cfg = get_config(arch).reduced(quantize_dense=quant, **over)
+                model = Model(cfg, "cpu")
+                params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+                out[f"serve/{quant}"] = lm_serve_outputs(
+                    model, params, toks, prompt, max_seq)
+            if quants:
+                with torch.no_grad():
+                    _, cache = model.prefill(
+                        params, {"tokens": toks[:, :prompt]},
+                        max_seq=max_seq)
+                    empty = model.init_cache(toks.shape[0], max_seq)
+                out["layouts"] = {
+                    "prefill": _layouts(cache), "init": _layouts(empty),
+                    "specs": [{g: {f: [str(p) for p in placements(s, mesh)]
+                                   for f, s in specs.items()}
+                               for g, specs in layer.items()}
+                              for layer in cache_shardings(mesh, cache)]}
+                out["local"] = {
+                    n: (tuple(p.to_local().shape),
+                        [str(q) for q in p.placements])
+                    for n, p in params.named_parameters()
+                    if n.startswith(("layers.0.", "layers.7."))}
+            if train:
+                cfg = get_config(arch).reduced(**over)
+                model = Model(cfg, "cpu")
+                params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+                out["train"] = grad_step(model, params, batch, lr, mesh)
+    return res
+
+
+class LaunchChecks:
+    """Wraps the CUDA wrappers of ``ops`` in the kernel registry: every
+    launch is held against the op's plain version on the same operands
+    (the rank's own shards; a plain version counts no launch):
+    ``int_matmul`` by its largest absolute difference, ``mha`` by its
+    largest over max |plain|."""
+
+    def __init__(self, ops=("int_matmul", "mha")):
+        from repro_torch.kernels import dispatch
+        self.dispatch, self.ops = dispatch, ops
+        self.errs, self.checked, self.shapes = {}, {}, {}
+
+    def __enter__(self):
+        self.saved = {op: self.dispatch.get_op(op) for op in self.ops}
+        for op, entry in self.saved.items():
+            def wrapped(*args, _entry=entry, _op=op, **kwargs):
+                out = _entry.cuda(*args, **kwargs)
+                with torch.no_grad():
+                    want = _entry.plain(*args, **kwargs)
+                    got, want = (t[0] if isinstance(t, tuple) else t
+                                 for t in (out, want))
+                    err = float((got.double() - want.double()).abs().max())
+                    if _op != "int_matmul":
+                        err /= max(float(want.double().abs().max()), 1e-30)
+                self.errs[_op] = max(self.errs.get(_op, 0.0), err)
+                self.checked[_op] = self.checked.get(_op, 0) + 1
+                self.shapes.setdefault(_op, set()).add(
+                    tuple(tuple(a.shape) for a in args[:2]))
+                return out
+            self.dispatch._OPS[op] = dataclasses.replace(entry, cuda=wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        self.dispatch._OPS.update(self.saved)
+
+
+def _card_serve(model, params, toks, prompt: int) -> dict:
+    """Forward, prefill and teacher-forced decode logits (whole, float32)
+    and the launches they made."""
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launch_counts()
+    out = {}
+    with torch.no_grad():
+        out["forward"] = _full(model.forward(params, {"tokens": toks}))
+        logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                      max_seq=toks.shape[1] + 1)
+        out["prefill"] = _full(logits)
+        for i in range(prompt, toks.shape[1]):
+            logits, cache = model.decode_step(params, toks[:, i:i + 1],
+                                              cache)
+            out[f"decode{i - prompt}"] = _full(logits)
+    torch.cuda.synchronize()
+    return {"logits": out, "counts": dict(dispatch.launch_counts)}
+
+
+def card_ssm_tp_body(rank: int, cases: dict, toks: np.ndarray,
+                     prompt: int) -> dict:
+    """Each case (name -> (arch, reduced overrides)) in bf16 on the card:
+    one process on its own (seeded weights), then on a (1, 2) ("data",
+    "model") mesh of the two ranks (``Model.init_placed``, the same
+    weights): their logits, launches, and every ``int_matmul`` and ``mha``
+    launch held against its plain version (:class:`LaunchChecks`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    out = {"jax": "jax" in sys.modules}
+    for name, (arch, over) in cases.items():
+        cfg = get_config(arch).reduced(dtype="bfloat16", **over)
+        model = Model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        with LaunchChecks() as one_checks:
+            one = _card_serve(model, params, toks, prompt)
+        del params
+        with use_mesh(mesh):
+            params = model.init_placed(mesh, torch.Generator(
+                device="cuda").manual_seed(0))
+            with LaunchChecks() as checks:
+                got = _card_serve(model, params, toks, prompt)
+        out[name] = {"one": one, "ranks": got, "errs": checks.errs,
+                     "checked": checks.checked, "one_errs": one_checks.errs,
+                     "shapes": {op: sorted(s)
+                                for op, s in checks.shapes.items()}}
+    return out
