@@ -283,11 +283,14 @@ Phases, in order; any failure exits non-zero:
                   ms a prefill and a decode token against one process (a
                   run of its own), and the collectives' share of a decode
                   run (every redistribution synchronised and timed);
-              (b) one granite-3-8b train step at full width, 4 of 40
-                  layers, 8 x 1024 tokens: loss and grad norm against one
-                  process (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL);
+              (b) one granite-3-8b train step at full width,
+                  TP_TRAIN_LAYERS of 40 layers, 8 x 1024 tokens: loss and
+                  grad norm against one process (TRAIN_LOSS_ATOL,
+                  TRAIN_GRAD_RTOL);
               (c) its params saved from both ranks, restored into one
-                  process bit for bit (a digest a leaf), one more step;
+                  process bit for bit (each rank's shard of a leaf against
+                  the same cut of the restored leaf, by digest), one more
+                  step;
               (d) mha, mha_bwd and int_matmul launch on each rank exactly
                   as in the one-process runs, on the rank's heads and
                   weight shards, and each launch in (a) and (b) equals its
@@ -314,7 +317,7 @@ Phases, in order; any failure exits non-zero:
                   bf16, 64 experts of which 60 real, 32 a rank: expert
                   parallel over "model"; the shared expert tensor
                   parallel) on MOE_RANKS ranks, a (data 1, model 2) mesh:
-                  2 prompts of 512 tokens, FAM_NEW greedy decode tokens,
+                  2 prompts of 512 tokens, MOE_NEW greedy decode tokens,
                   quantize_dense on and off; logits against one process
                   on the same weights fed the same tokens and the ranks'
                   routing (a top-k flip between the runs' bf16 streams
@@ -386,6 +389,53 @@ Phases, in order; any failure exits non-zero:
                   decode_32k on both production meshes and on (1, 2), with
                   phase 15 (e); their parameter bytes a rank on (1, 2)
                   equal to (a)'s and (b)'s ranks'
+ 18. VLM and audio over ranks  the vlm and audio families on sharded
+              parameters, on phase 17's ranks after its runs (one
+              spawn): X_RANKS ranks share the card (gloo) on a (data 1,
+              model 2) mesh, the weights drawn a
+              layer at a time and placed (Model.init_placed; whisper whole,
+              then placed), every cross block's gates at X_GATE, each
+              rank's launch counts zeroed just before each run and every
+              launch on a rank held against its plain version on the
+              rank's operands (KernelChecks):
+              (a) llama-3.2-vision-11b at full width, X_VLM_LAYERS of 40
+                  layers (two units: layers 4 and 9 gated cross blocks),
+                  vision states [2, 1601, 4096] bf16: phase 15's 2 prompts
+                  of 512 tokens, X_NEW greedy decode tokens, quantize_dense
+                  on and off; logits within TP_BF16_TOL of one process on
+                  the same weights fed the same tokens (on: and the ranks'
+                  int8 activations), greedy tokens equal where that run's
+                  top-2 margin exceeds it; every quantized linear's int8
+                  activations equal to the one-process quantization of its
+                  gathered input; launches a rank = one process's (mha on
+                  16 of 32 query heads a layer a prefill and a cross block
+                  a decode step, int_matmul on [4096, 7168] / [7168, 4096]
+                  shards); the collectives of one prefill and one decode
+                  call counted (OpTrace): all-reduces only, 2 a layer and 1
+                  for the vocab-split lookup; ms a prefill and a decode
+                  token against one process, the collectives' ms and share
+                  of a quantize-off serve run (every one synchronised and
+                  timed);
+              (b) whisper-tiny at full width and depth (4 + 4 layers, 8 of
+                  16 padded heads a rank, 1500 frames [2, 1500, 384] bf16)
+                  the same way, 2 prompts of X_AUDIO_PROMPT_LEN tokens; 2
+                  all-reduces an encoder layer, 3 a decoder layer, 1 for
+                  the lookup;
+              (c) one AdamW step of whisper-tiny at full depth on
+                  X_TP_TRAIN_BATCH x X_TRAIN_SEQ tokens and of the VLM at
+                  X_VLM_TRAIN_LAYERS (one unit) on X_TP_TRAIN_BATCH x
+                  X_VLM_TRAIN_SEQ tokens with its vision states: loss and
+                  grad norm against one process (TRAIN_LOSS_ATOL,
+                  TRAIN_GRAD_RTOL), launches equal; the ranks' state
+                  restored into one process, each rank's shards equal bit
+                  for bit to the same cuts of the restored leaves (no
+                  gather);
+              (d) the dry-run of both archs' decode_32k on both production
+                  meshes and on (1, 2), with phase 15 (e); their parameter
+                  bytes a rank on (1, 2) equal to (b)'s ranks' (whisper)
+                  and to the 40-layer model's bytes a rank derived from
+                  (a)'s shards (the VLM: the top-level leaves and 4 times
+                  a unit's layers)
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -510,11 +560,12 @@ TRAIN_BWD_BF16_RTOL, TRAIN_BWD_F32_RTOL, TRAIN_LSE_ATOL = 1e-2, 1e-4, 1e-4
 #: DP_STEP_RTOL of the leaf's update norm; the compressed run's bound is
 #: the reference's (tests/test_distributed.py).  (b)-(d) on four ranks,
 #: reduced configs; the hierarchical bound is tests/test_collectives.py's.
-#: DP_STEPS cut from 5 to 3 beside phase 16 (the script's time limit):
-#: the checks are as before (step 1, the ranks bit-identical after every
-#: step, the compressed run's last loss below its first), but steps 4-5
-#: of each run and their timings run no more
-DP_RANKS, DP_LAYERS, DP_STEPS = 2, 4, 3
+#: DP_STEPS cut from 5 to 3 beside phase 16 and to 2 beside phase 18 (the
+#: script's time limit; it took 968.9 s with 3): the checks are as before
+#: (step 1, the ranks bit-identical after every step, the compressed
+#: run's last loss below its first: 11.2980 against 11.3199 at step 2),
+#: but steps 3-5 of each run run no more, and a step's ms is step 2's
+DP_RANKS, DP_LAYERS, DP_STEPS = 2, 4, 2
 DP_STEP_RTOL, DP_EF_LOSS_GAP, DP_POD_RTOL = 0.1, 0.35, 1e-4
 DP_SMALL_RANKS, DP_SMALL_STEPS, DP_SMALL_BATCH, DP_SMALL_SEQ = 4, 3, 8, 16
 #: the pipeline at tests/test_pipeline.py's size and bounds
@@ -546,10 +597,12 @@ DP_TIMEOUT = 600.0
 #: the dry-run's cells (TP_DRY_SHAPES on both production meshes, and
 #: decode_32k on (1, TP_RANKS)), in processes of their own beside the
 #: data's set-up before phase 14, where no timed phase runs
-#: TP_NEW cut from 8 to 4 beside phase 16 (the script's time limit): the
-#: checks are as before, on prefill and 4 decode steps, not 8
-TP_RANKS, TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 2, 512, 4
-TP_INT8_CALLS, TP_TRAIN_LAYERS, TP_TIMEOUT = 6, 4, 600.0
+#: TP_NEW cut from 8 to 4 beside phase 16 and to 2 beside phase 18 (the
+#: script's time limit; it took 1081.8 s with phase 18 and 4), and
+#: TP_TRAIN_LAYERS from 4 to 2 beside phase 18: the checks are as before,
+#: on prefill and 2 decode steps, not 8, and a step of 2 layers, not 4
+TP_RANKS, TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 2, 2, 512, 2
+TP_INT8_CALLS, TP_TRAIN_LAYERS, TP_TIMEOUT = 6, 2, 600.0
 TP_BF16_TOL = 0.25
 TP_DRY_SHAPES = ("decode_32k", "prefill_32k", "train_4k")
 TP_DRY_TIMEOUT = 600.0
@@ -559,7 +612,7 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "phase15"
 #: card over gloo on a ("data"=1, "model"=MOE_RANKS) mesh.  (a) FAM_MOE at
 #: full width and depth (its 64 experts, 60 real, 32 a rank; the shared
 #: expert tensor parallel), phase 15's TP_PROMPTS prompts of TP_PROMPT_LEN
-#: tokens, then FAM_NEW greedy decode tokens, quantize_dense on and off,
+#: tokens, then MOE_NEW greedy decode tokens, quantize_dense on and off,
 #: within TP_BF16_TOL of one process (each rank's experts combine into a
 #: bf16 partial, summed over "model": one more bf16 rounding a layer than
 #: phase 15's wo, over 24 layers).  (b) its train step at MOE_TRAIN_LAYERS of
@@ -576,9 +629,15 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "phase15"
 #: data ranks (cut from FAM_NEW for the same reason).  DBRX_LAYERS cut from
 #: 2 to 1 beside phase 17 (the script took 1329.9 s on a slower host, its
 #: phases before 17 ~1200 s of it): every check runs as before on the one
-#: layer's routers, gathers and logits; the second layer's no longer run
-MOE_RANKS, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2, 4, 1024
-DBRX_MESH, DBRX_LAYERS, DBRX_PROMPTS, DBRX_NEW = (2, 2), 1, 2, 2
+#: layer's routers, gathers and logits; the second layer's no longer run.
+#: MOE_NEW (FAM_NEW before) cut from 4 to 2, DBRX_NEW from 2 to 1 and
+#: MOE_TRAIN_LAYERS from 2 to 1 beside phase 18 (the script took 1081.8 s
+#: with it, then 968.9 s): every check runs as before on the prefill, the
+#: decode steps and the layer left; (a)'s decode steps 3-4, (b)'s second
+#: layer and (c)'s second decode step no longer run
+MOE_RANKS, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 1, 4, 1024
+MOE_NEW = 2
+DBRX_MESH, DBRX_LAYERS, DBRX_PROMPTS, DBRX_NEW = (2, 2), 1, 2, 1
 MOE_TIMEOUT = 600.0
 MOE_DIR = Path(__file__).resolve().parent / "build" / "phase16"
 
@@ -599,11 +658,37 @@ MOE_DIR = Path(__file__).resolve().parent / "build" / "phase16"
 #: (4 before), and the serve ms come from the checked runs (quantize on:
 #: every int8 activation gathered and checked inside them), so the other
 #: 28 and 16 layers no longer train here, decode steps 3-4 no longer run
-#: and no serve run goes unchecked
-SSM_RANKS, SSM_NEW, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 2, 2, 2, 1024
+#: and no serve run goes unchecked.  SSM_NEW cut from 2 to 1 beside phase
+#: 18 (the script took 1082.3 s with 2 on a slower host): the second
+#: decode step no longer runs
+SSM_RANKS, SSM_NEW, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 2, 1, 2, 1024
 SSM_TRAIN_LAYERS = {"hymba-1.5b": 4, "xlstm-350m": 8}
 SSM_TIMEOUT = 600.0
 SSM_DIR = Path(__file__).resolve().parent / "build" / "phase17"
+
+#: phase 18, the VLM and audio families on sharded parameters: phase 17's
+#: X_RANKS ranks (one spawn: each spawn's ranks take ~15 s to start) share
+#: the card over gloo on a ("data"=1, "model"=X_RANKS) mesh,
+#: every cross block's gates at X_GATE (init leaves them 0, and tanh(0)
+#: shuts the cross path).  (a) X_VLM at full width, X_VLM_LAYERS of its 40
+#: layers: two units of 4 self-attention blocks and a gated cross block
+#: (layers 4 and 9), so both block types run; the depth is cut for the
+#: script's time limit.  Its vision states [TP_PROMPTS, 1601, 4096] bf16
+#: drawn from SEED, phase 15's TP_PROMPTS prompts of TP_PROMPT_LEN tokens,
+#: then X_NEW greedy decode tokens, quantize_dense on and off, within
+#: TP_BF16_TOL of one process (the row-parallel products' bf16 partial
+#: sums summed over "model", as phase 15's wo).  (b) X_AUDIO at full
+#: width and depth over 1500 frames [TP_PROMPTS, 1500, 384] bf16, the
+#: same way on prompts of X_AUDIO_PROMPT_LEN tokens.  (c) one AdamW step
+#: each (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL): whisper at full depth on
+#: X_TP_TRAIN_BATCH x X_TRAIN_SEQ tokens (its decoder's context), the VLM
+#: at X_VLM_TRAIN_LAYERS (one unit) on X_TP_TRAIN_BATCH x X_VLM_TRAIN_SEQ
+#: tokens with its vision states
+X_RANKS = SSM_RANKS         # phase 18 runs on phase 17's ranks
+X_NEW, X_VLM_LAYERS, X_AUDIO_PROMPT_LEN = 2, 10, 256
+X_VLM_TRAIN_LAYERS, X_VLM_TRAIN_SEQ, X_TP_TRAIN_BATCH = 5, 1024, 2
+X_TIMEOUT = 600.0
+X_DIR = Path(__file__).resolve().parent / "build" / "phase18"
 
 #: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
 #: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
@@ -669,10 +754,11 @@ LM_F32_ATOL, LM_QUANT_ATOL = 1e-4, 0.3
 #: weights: qwen2-moe-a2.7b and hymba-1.5b served as qwen3-8b is (LM_REQUESTS
 #: over LM_SLOTS, prompts drawn from LM_PROMPT_MIN-MAX, FAM_NEW new tokens:
 #: cut from 16 to 8, then to 4 beside phase 17 (the script took 1329.9 s on
-#: a slower host, its phases before 17 ~1200 s of it), to keep the script
-#: inside its time limit, so decode steps 5-16 of a request, in phases 11,
-#: 12 and 16 (a), run no more: hymba's window of 1024 is passed either way,
-#: its meta tokens included, and every check runs as before),
+#: a slower host, its phases before 17 ~1200 s of it), then to 2 beside
+#: phase 18 (1082.3 s on a slower host), to keep the script inside its
+#: time limit, so decode steps 3-16 of a request, in phases 11 and 12, run
+#: no more: hymba's window of 1024 is passed either way, its meta tokens
+#: included, and every check runs as before),
 #: xlstm-350m on prompts of 64-token multiples (its mLSTM's chunk contract:
 #: a prompt longer than 64 tokens must be a multiple of 64), dbrx-132b cut
 #: to FAM_DBRX_LAYERS of 40 layers (40 would be 264 GB of bf16) on one
@@ -681,7 +767,7 @@ FAM_MOE, FAM_HYMBA, FAM_XLSTM, FAM_DBRX = ("qwen2-moe-a2.7b", "hymba-1.5b",
                                            "xlstm-350m", "dbrx-132b")
 FAM_DBRX_LAYERS, FAM_DBRX_PROMPT, FAM_DBRX_NEW = 4, 512, 8
 FAM_XLSTM_CHUNK = 64
-FAM_NEW = 4
+FAM_NEW = 2
 #: (e), card against CPU on each family reduced to float32: hymba with 4
 #: layers (layer 1 slides its 32-token window; both layers of the default
 #: 2 are global), batches of 2 x 64 tokens so the window bites.  One
@@ -4116,16 +4202,52 @@ def _local_param_bytes(params) -> int:
                for p in params.parameters())
 
 
-def _digest_params(params) -> dict:
-    """name -> sha256 of each leaf's whole value (a DTensor gathered)."""
-    import hashlib
-    from repro_torch.distributed.tp import full_tensor
+def _shard_digests(params) -> dict:
+    """name -> (the cuts that take this rank's shard of the leaf from its
+    whole value: (dim, parts, index) a split mesh dim, in mesh order; the
+    sha256 of the shard's bits): a sharded state's digest with no
+    gather."""
     out = {}
     for name, p in params.named_parameters():
-        t = full_tensor(p.detach()).contiguous()
-        out[name] = hashlib.sha256(t.view(torch_dtype_bits(t)).cpu().numpy()
-                                   .tobytes()).hexdigest()
+        t, cuts = p.detach(), []
+        if hasattr(t, "placements"):
+            mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+            cuts = [(pl.dim, mesh.size(i), coord[i])
+                    for i, pl in enumerate(t.placements) if pl.is_shard()]
+            t = t.to_local()
+        out[name] = (cuts, _sha256(t))
     return out
+
+
+def _slice_digests(params, shards: dict) -> dict:
+    """The sha256 of each whole leaf of ``params`` cut as ``shards`` (a
+    rank's :func:`_shard_digests`) says."""
+    out = {}
+    for name, p in params.named_parameters():
+        t = p.detach()
+        for dim, parts, index in shards[name][0]:
+            t = t.chunk(parts, dim=dim)[index]
+        out[name] = _sha256(t)
+    return out
+
+
+def _restore_mismatch(saved: list, restored: list) -> list:
+    """The leaves whose restored cuts (:func:`_slice_digests`, one dict a
+    rank) differ from a rank's shards (:func:`_shard_digests`, one a
+    rank), or that one side lacks."""
+    out = set()
+    for shards, got in zip(saved, restored):
+        want = {n: d for n, (_, d) in shards.items()}
+        out |= {n for n in want.keys() | got.keys()
+                if want.get(n) != got.get(n)}
+    return sorted(out)
+
+
+def _sha256(t) -> str:
+    import hashlib
+    t = t.contiguous()
+    return hashlib.sha256(t.view(torch_dtype_bits(t)).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def torch_dtype_bits(t):
@@ -4240,9 +4362,10 @@ def tp_prompts(vocab: int) -> np.ndarray:
 
 
 def tp_serve(torch, dispatch, model, params, prompts, tokens=None,
-             new: int = TP_NEW) -> dict:
-    """Prefill ``prompts`` then ``new`` decode steps, greedy (or fed
-    ``tokens`` [new, B]): last logits each step (float32, whole),
+             new: int = TP_NEW, extras=None) -> dict:
+    """Prefill ``prompts`` (the batch's ``extras`` beside them: the VLM's
+    vision states, whisper's frames) then ``new`` decode steps, greedy (or
+    fed ``tokens`` [new, B]): last logits each step (float32, whole),
     tokens, ms, launch counts."""
     from repro_torch.distributed.tp import full_tensor
 
@@ -4252,7 +4375,8 @@ def tp_serve(torch, dispatch, model, params, prompts, tokens=None,
     dispatch.reset_launch_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, cache = model.prefill(params, {"tokens": prompts},
+        logits, cache = model.prefill(params, {"tokens": prompts,
+                                               **(extras or {})},
                                       max_seq=prompts.shape[1] + new)
         out = [whole(logits)]
         torch.cuda.synchronize()
@@ -4433,7 +4557,7 @@ def tp_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
                         "step_ms": timed_step(torch, step, params, state,
                                               batch)}
         checkpoint.save(ckpt_dir, 1, params)
-        res["saved"] = _digest_params(params)
+        res["saved"] = _shard_digests(params)
     return res
 
 
@@ -4452,50 +4576,59 @@ def tp_train_batch(vocab: int) -> dict:
             .astype(np.int32) for k in ("tokens", "targets")}
 
 
-#: phase 15 (e)'s, 16 (d)'s and 17 (d)'s dry-run cells beside qwen3-8b's
-#: TP_DRY_SHAPES: (arch, shape), each also on (1, TP_RANKS)
+#: phase 15 (e)'s, 16 (d)'s, 17 (d)'s and 18 (d)'s dry-run cells beside
+#: qwen3-8b's TP_DRY_SHAPES: (arch, shape), each also on (1, TP_RANKS)
 DRY_CELLS = ((FAM_MOE, "decode_32k"), (FAM_XLSTM, "long_500k"),
-             (FAM_HYMBA, "decode_32k"))
+             (FAM_HYMBA, "decode_32k"), (X_VLM, "decode_32k"),
+             (X_AUDIO, "decode_32k"))
 
 
 def tp_dryrun_start(out_dir: Path) -> list:
-    """Start phase 15 (e)'s, 16 (d)'s and 17 (d)'s dry-run, qwen3-8b's
-    TP_DRY_SHAPES and DRY_CELLS on fake CUDA tensors, in two processes
-    of their own (each owns a fake process group), one a production mesh:
-    1pod, then qwen3-8b's decode_32k and DRY_CELLS on (1, TP_RANKS); 2pod.
-    Each writes its own results."""
+    """Start phase 15 (e)'s and 16-18 (d)'s dry-run on fake CUDA tensors
+    in four processes of their own (each owns a fake process group in
+    turn): qwen3-8b's train_4k on the 1pod mesh; the same on 2pod;
+    DRY_CELLS on both; qwen3-8b's other TP_DRY_SHAPES on both, then its
+    decode_32k and DRY_CELLS on (1, TP_RANKS).  Two processes, one a
+    production mesh, kept the script waiting 58.6 s after the data's
+    set-up once phase 18 added its cells.  Each writes its own
+    results."""
     out_dir.mkdir(parents=True, exist_ok=True)
     code = ("import sys; from repro_torch.launch import dryrun; "
-            "res, flag, mesh, lm, cells = sys.argv[1:6]; "
-            "cells = [c.split(':') for c in cells.split(',')]; "
-            "run = lambda arch, shape, *x: dryrun.main(['--arch', arch, "
-            "'--shape', shape, '--device', 'cuda', '--results', res, flag, "
-            "*x]); "
-            "[run(lm, s) for s in sys.argv[6:]]; [run(*c) for c in cells]; "
-            "mesh and [run(*c, '--mesh-shape', mesh) "
-            "for c in [(lm, 'decode_32k'), *cells]]")
-    cells = ",".join(f"{a}:{s}" for a, s in DRY_CELLS)
+            "[dryrun.main(['--device', 'cuda', '--results', sys.argv[1], "
+            "*run.split()]) for run in sys.argv[2:]]")
+    lm = [f"--arch {LM_ARCH} --shape {s}" for s in TP_DRY_SHAPES]
+    cells = [f"--arch {a} --shape {s}" for a, s in DRY_CELLS]
+    train, rest = lm[TP_DRY_SHAPES.index("train_4k")], [
+        c for c in lm if not c.endswith("train_4k")]
+    groups = {
+        "train_1pod": [f"{train} --single-pod-only"],
+        "train_2pod": [f"{train} --multi-pod-only"],
+        "cells": cells,
+        "rest": rest + [f"{c} --single-pod-only --mesh-shape 1,{TP_RANKS}"
+                        for c in (f"--arch {LM_ARCH} --shape decode_32k",
+                                  *cells)]}
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
     started = []
-    for pods, flag, extra in (("1pod", "--single-pod-only", f"1,{TP_RANKS}"),
-                              ("2pod", "--multi-pod-only", "")):
-        results = out_dir / f"dryrun_{pods}.json"
+    for name, runs in groups.items():
+        results = out_dir / f"dryrun_{name}.json"
         if results.exists():
             results.unlink()
-        log = open(out_dir / f"dryrun_{pods}.log", "w")
-        proc = subprocess.Popen(
-            [sys.executable, "-c", code, str(results), flag, extra, LM_ARCH,
-             cells, *TP_DRY_SHAPES], env=env, stdout=log,
-            stderr=subprocess.STDOUT)
+        log = open(out_dir / f"dryrun_{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, "-c", code, str(results),
+                                 *runs], env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
         started.append((proc, results, log))
     return started
 
 
 def tp_dryrun_finish(started: list, tp: dict, moe: dict, ssm: dict,
-                     smi: str) -> dict:
-    """Wait for phase 15 (e), 16 (d) and 17 (d), check their cells and
-    print their roofline rows."""
+                     xtp: dict, smi: str) -> dict:
+    """Wait for phase 15 (e) and 16-18 (d), check their cells and print
+    their roofline rows.  The VLM's ranks hold X_VLM_LAYERS of its 40
+    layers: its bytes a rank of the whole model are theirs of the
+    top-level leaves and 40 / X_VLM_LAYERS times their layers' (every
+    unit alike)."""
     from repro_torch.launch import roofline
     t0 = time.perf_counter()
     entries = {}
@@ -4528,18 +4661,26 @@ def tp_dryrun_finish(started: list, tp: dict, moe: dict, ssm: dict,
     for mesh in ("1pod", "2pod"):
         say(roofline.render_markdown(roofline.build_table(entries, mesh),
                                      mesh))
+    from repro_torch.configs.base import get_config
+    scale = get_config(X_VLM).n_layers // X_VLM_LAYERS
     measured = {LM_ARCH: [r["param_bytes"] for r in tp["ranks"]],
                 FAM_MOE: [r["param_bytes"] for r in moe["ranks"]],
                 **{a: [r[a, "param_bytes"] for r in ssm["ranks"]]
-                   for a in (FAM_XLSTM, FAM_HYMBA)}}
+                   for a in (FAM_XLSTM, FAM_HYMBA)},
+                X_AUDIO: [r[X_AUDIO, "param_bytes"] for r in xtp["ranks"]],
+                X_VLM: [r[X_VLM, "param_bytes"]
+                        + (scale - 1) * r[X_VLM, "layer_bytes"]
+                        for r in xtp["ranks"]]}
     for arch, shape in ((LM_ARCH, "decode_32k"), *DRY_CELLS):
         key = f"{arch}|{shape}|1pod|mesh1x{TP_RANKS}"
         want = entries[key]["param_bytes"]
-        say(f"tp (e) / moe (d) / ssm (d): {arch}'s parameter bytes a rank on "
-            f"(1, {TP_RANKS}): dry-run {want:,}, measured {measured[arch]} "
-            f"on {smi}")
+        how = (f" (the ranks' {X_VLM_LAYERS} layers' shards x {scale} "
+               f"with the top-level leaves)" if arch == X_VLM else "")
+        say(f"tp (e) / moe, ssm, x (d): {arch}'s parameter bytes a rank on "
+            f"(1, {TP_RANKS}): dry-run {want:,}, measured {measured[arch]}"
+            f"{how} on {smi}")
         if any(b != want for b in measured[arch]):
-            fail(f"tp (e) / moe (d) / ssm (d): {arch}: the dry-run's "
+            fail(f"tp (e) / moe, ssm, x (d): {arch}: the dry-run's "
                  f"{want:,} parameter bytes a rank != the ranks' "
                  f"{measured[arch]}")
     return {"cells": len(entries)}
@@ -4598,7 +4739,8 @@ def tp_one_process(torch, dispatch, tp: dict, ckpt_dir: str,
                                           batch)}
     # (c) the ranks' checkpoint into one process, then one more step
     params.load_(checkpoint.restore(ckpt_dir, 1, params))
-    out["restored"] = _digest_params(params)
+    out["restored"] = [_slice_digests(params, r["saved"])
+                       for r in tp["ranks"]]
     _, _, m = step(params, opt.init(params), tp_train_batch(tcfg.vocab_size))
     out["after_restore_loss"] = float(m["loss"])
     del params, tmodel, opt
@@ -4763,15 +4905,15 @@ def check_tp(tp: dict, one: dict, smi: str) -> None:
         f"{got['shapes']} on {smi}")
     if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
         bad.append("tp (b): the sharded step disagrees with one process")
-    differ = [n for n in one["restored"]
-              if one["restored"][n] != ranks[0]["saved"].get(n)]
-    if differ or one["restored"].keys() != ranks[0]["saved"].keys():
+    differ = _restore_mismatch([r["saved"] for r in ranks], one["restored"])
+    if differ:
         bad.append(f"tp (c): {len(differ)} leaves differ after the "
                    f"restore (first {differ[:3]})")
     if not np.isfinite(one["after_restore_loss"]):
         bad.append("tp (c): the step after the restore is not finite")
-    say(f"tp (c): {len(one['restored'])} leaves restored into one process "
-        f"bit for bit; the next step's loss {one['after_restore_loss']:.5f}")
+    say(f"tp (c): {len(one['restored'][0])} leaves restored into one "
+        f"process, each rank's shards bit for bit; the next step's loss "
+        f"{one['after_restore_loss']:.5f}")
     say(f"tp: parameter bytes a rank {[r['param_bytes'] for r in ranks]} "
         f"against {one['param_bytes']:,} in one process; serving peak "
         f"{[r['peak_serve'] / 2 ** 30 for r in ranks]} GiB a rank")
@@ -4948,7 +5090,7 @@ def moe_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
                     as i8, ExpertShapes() as es, \
                     RouteRecord(decisions=rank == 0) as rr:
                 run = tp_serve(torch, dispatch, m, params, prompts,
-                               new=FAM_NEW)
+                               new=MOE_NEW)
             if i8.records:
                 torch.save(i8.records, int8_path)
             if rr.made:
@@ -4960,13 +5102,13 @@ def moe_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
                        local_experts=sorted({e for e, _ in es.calls}),
                        expert_calls=len(es.calls),
                        expert_bytes_a_token=sum(
-                           b for _, b in es.calls[prefill_calls:]) / FAM_NEW)
+                           b for _, b in es.calls[prefill_calls:]) / MOE_NEW)
             del i8
             if not quant:
                 with MoeCollectiveTimer(torch) as ct:
                     t0 = time.perf_counter()
                     tp_serve(torch, dispatch, m, params, prompts,
-                             tokens=run["tokens"], new=FAM_NEW)
+                             tokens=run["tokens"], new=MOE_NEW)
                     wall = time.perf_counter() - t0
                 run["coll_share"] = ct.seconds / wall
                 run["coll_calls"] = ct.calls
@@ -4995,7 +5137,7 @@ def moe_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
                         "step_ms": (time.perf_counter() - t0) * 1e3,
                         **kc.report()}
         checkpoint.save(ckpt_dir, 1, params)
-        res["saved"] = _digest_params(params)
+        res["saved"] = _shard_digests(params)
         res["peak_train"] = torch.cuda.max_memory_allocated()
     return res
 
@@ -5075,10 +5217,10 @@ def moe_one_process(torch, dispatch, moe: dict, ckpt_dir: str,
                             weights_only=True)
         tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1)
         out["own", quant] = tp_serve(torch, dispatch, m, params, prompts,
-                                     tokens=tokens, new=FAM_NEW)
+                                     tokens=tokens, new=MOE_NEW)
         with Int8Feed(records, quant) as f8, RouteRecord(decide=decide):
             run = tp_serve(torch, dispatch, m, params, prompts,
-                           tokens=tokens, new=FAM_NEW)
+                           tokens=tokens, new=MOE_NEW)
         run["flips"] = f8.flips if quant else []
         out["serve", quant] = run
         Path(f"{int8_path}.route{int(quant)}").unlink()
@@ -5099,7 +5241,8 @@ def moe_one_process(torch, dispatch, moe: dict, ckpt_dir: str,
                     "counts": dict(dispatch.launch_counts),
                     "step_ms": (time.perf_counter() - t0) * 1e3}
     params.load_(checkpoint.restore(ckpt_dir, 1, params))
-    out["restored"] = _digest_params(params)
+    out["restored"] = [_slice_digests(params, r["saved"])
+                       for r in moe["ranks"]]
     out["peak"] = torch.cuda.max_memory_allocated()
     del params, tmodel, opt
     torch.cuda.empty_cache()
@@ -5214,13 +5357,13 @@ def check_moe(moe: dict, one: dict, smi: str) -> None:
             if not np.array_equal(r["serve", quant]["logits"], got["logits"]):
                 bad.append(f"moe (a) {mode}: the ranks' logits differ")
         err = float(np.abs(got["logits"] - want["logits"]).max())
-        sure, agree = _greedy(want["logits"][:FAM_NEW], got["tokens"],
+        sure, agree = _greedy(want["logits"][:MOE_NEW], got["tokens"],
                               TP_BF16_TOL)
         own = one["own", quant]
         gap = float(np.abs(got["logits"] - own["logits"]).max())
-        osure, oagree = _greedy(own["logits"][:FAM_NEW], got["tokens"],
+        osure, oagree = _greedy(own["logits"][:MOE_NEW], got["tokens"],
                                 TP_BF16_TOL)
-        say(f"moe (a) {FAM_MOE} {mode}: logits (prefill + {FAM_NEW} decode "
+        say(f"moe (a) {FAM_MOE} {mode}: logits (prefill + {MOE_NEW} decode "
             f"steps) max |sharded - one process fed their routing"
             f"{' and int8' if quant else ''}| {err:.4g} (tolerance "
             f"{TP_BF16_TOL}); greedy tokens equal at "
@@ -5305,13 +5448,12 @@ def check_moe(moe: dict, one: dict, smi: str) -> None:
         f"{one['peak'] / 2 ** 30:.1f} GiB in one process on {smi}")
     if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
         bad.append("moe (b): the sharded step disagrees with one process")
-    differ = [n for n in one["restored"]
-              if one["restored"][n] != ranks[0]["saved"].get(n)]
-    if differ or one["restored"].keys() != ranks[0]["saved"].keys():
+    differ = _restore_mismatch([r["saved"] for r in ranks], one["restored"])
+    if differ:
         bad.append(f"moe (b): {len(differ)} leaves differ after the restore "
                    f"(first {differ[:3]})")
     say(f"moe (b): the ranks' state restored into one process, "
-        f"{len(one['restored'])} leaves bit for bit")
+        f"{len(one['restored'][0])} leaves, each rank's shards bit for bit")
 
     # (c) dbrx with FSDP
     d0, d1 = db[0]["serve"], one["dbrx"]
@@ -5497,7 +5639,7 @@ def ssm_rank(rank: int, ckpt_dir: str, int8_path: str) -> dict:
                 "counts": dict(dispatch.launch_counts),
                 "step_ms": (time.perf_counter() - t0) * 1e3, **kc.report()}
             checkpoint.save(f"{ckpt_dir}/{arch}", 1, params)
-            res[arch, "saved"] = _digest_params(params)
+            res[arch, "saved"] = _shard_digests(params)
             del params, opt, step
             torch.cuda.empty_cache()
         res["peak_train"] = torch.cuda.max_memory_allocated()
@@ -5556,48 +5698,64 @@ def ssm_one_process(torch, dispatch, ranks: list, ckpt_dir: str,
                               "counts": dict(dispatch.launch_counts),
                               "step_ms": (time.perf_counter() - t0) * 1e3}
         params.load_(checkpoint.restore(f"{ckpt_dir}/{arch}", 1, params))
-        out[arch, "restored"] = _digest_params(params)
+        out[arch, "restored"] = [_slice_digests(params, r[arch, "saved"])
+                                 for r in ranks]
         del params, opt, step, model
         torch.cuda.empty_cache()
     out["peak"] = torch.cuda.max_memory_allocated()
     return out
 
 
+def ssm_x_rank(rank: int, ssm_args: tuple, x_args: tuple) -> tuple:
+    """Phase 17's rank body, then phase 18's, in the ranks one spawn
+    makes (each spawn's processes take ~15 s to start on the card)."""
+    return ssm_rank(rank, *ssm_args), x_rank(rank, *x_args)
+
+
 def ssm_on_card(torch, dispatch, smi: str) -> dict:
     """Phase 17, checks (a)-(c) (the module docstring); (d) runs with
-    phase 15 (e)."""
+    phase 15 (e).  Its ranks then run phase 18 (a)-(c) (``x_rank``),
+    whose results stay in ``"x_ranks"`` for :func:`x_on_card`."""
     import shutil
     from repro_torch.launch.mesh import backend_for, spawn_ranks
     t_phase = time.perf_counter()
     ckpt, int8_path = SSM_DIR / "ckpt", SSM_DIR / "int8.pt"
     shutil.rmtree(ckpt, ignore_errors=True)
     SSM_DIR.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(X_DIR, ignore_errors=True)
+    (X_DIR / "int8").mkdir(parents=True)
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        say(f"ssm: {SSM_RANKS} ranks share the card over "
+        say(f"ssm, xtp: {SSM_RANKS} ranks share the card over "
             f"{backend_for('cuda', SSM_RANKS)}, a (data=1, model="
             f"{SSM_RANKS}) mesh")
         t0 = time.perf_counter()
-        ranks = spawn_ranks(ssm_rank, SSM_RANKS, device="cuda",
-                            timeout=SSM_TIMEOUT,
-                            args=(str(ckpt), str(int8_path)))
+        ranks = spawn_ranks(ssm_x_rank, SSM_RANKS, device="cuda",
+                            timeout=SSM_TIMEOUT + X_TIMEOUT,
+                            args=((str(ckpt), str(int8_path)),
+                                  (str(X_DIR / "ckpt"), str(X_DIR / "int8"))))
         ranks_s = time.perf_counter() - t0
     finally:
         if conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
-    ssm = {"ranks": ranks}
+    ssm = {"ranks": [r for r, _ in ranks], "x_ranks": [x for _, x in ranks]}
+    x_s = max(x["seconds"]["all"] for x in ssm["x_ranks"])
+    ssm["x_ranks_s"] = x_s
     t0 = time.perf_counter()
-    one = ssm_one_process(torch, dispatch, ranks, str(ckpt), str(int8_path))
+    one = ssm_one_process(torch, dispatch, ssm["ranks"], str(ckpt),
+                          str(int8_path))
     one_s = time.perf_counter() - t0
     shutil.rmtree(ckpt, ignore_errors=True)
     int8_path.unlink()
     check_ssm(ssm, one, smi)
-    ssm["wall_s"] = time.perf_counter() - t_phase
+    ssm["wall_s"] = time.perf_counter() - t_phase - x_s
     say(f"ssm: phase 17 (a)-(c) in {ssm['wall_s']:.1f} s (ranks "
-        f"{ranks_s:.1f} s, one process {one_s:.1f} s) on {smi}")
+        f"{ranks_s - x_s:.1f} s, their start included; one process "
+        f"{one_s:.1f} s; phase 18's {x_s:.1f} s on the same ranks left "
+        f"out) on {smi}")
     return ssm
 
 
@@ -5723,13 +5881,14 @@ def check_ssm(ssm: dict, one: dict, smi: str) -> None:
         if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
             bad.append(f"ssm (c) {arch}: the sharded step disagrees with one "
                        f"process")
-        saved, restored = ranks[0][arch, "saved"], one[arch, "restored"]
-        differ = [n for n in restored if restored[n] != saved.get(n)]
-        if differ or restored.keys() != saved.keys():
+        differ = _restore_mismatch([r[arch, "saved"] for r in ranks],
+                                   one[arch, "restored"])
+        if differ:
             bad.append(f"ssm (c) {arch}: {len(differ)} leaves differ after "
                        f"the restore (first {differ[:3]})")
         say(f"ssm (c) {arch}: the ranks' state restored into one process, "
-            f"{len(restored)} leaves bit for bit; parameter bytes a rank "
+            f"{len(one[arch, 'restored'][0])} leaves, each rank's shards bit "
+            f"for bit; parameter bytes a rank "
             f"{[r[arch, 'param_bytes'] for r in ranks]} against "
             f"{one[arch, 'param_bytes']:,} in one process, drawn in "
             f"{[round(r[arch, 'init_s'], 1) for r in ranks]} s")
@@ -5753,6 +5912,448 @@ def ssm_kernel_errs(ssm: dict) -> dict:
     r0 = ssm["ranks"][0]
     for arch, quants in SSM_ARCHS:
         for part in [r0[arch, "serve", q] for q in quants] + [
+                r0[arch, "train"]]:
+            add_counts(counts, part["counts"])
+    return {"errs": errs, "counts": counts}
+
+
+# -- phase 18: the VLM and audio families on sharded parameters ----------------
+
+def x_tp_cfg(arch: str, layers=None):
+    """Phase 18's config of ``arch``: the VLM at ``layers`` (X_VLM_LAYERS
+    unless given), whisper whole unless ``layers`` is given."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if arch == X_VLM:
+        layers = layers or X_VLM_LAYERS
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def x_extras(torch, cfg, batch: int) -> dict:
+    """The batch's vision states or frames for ``batch`` rows, bf16 on the
+    card, drawn from SEED (the same on every rank and in one process)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    if cfg.family == "vlm":
+        name, shape = "vision", (batch, cfg.vision_tokens, cfg.vision_dim)
+    else:
+        name, shape = "frames", (batch, cfg.encoder_seq, cfg.d_model)
+    return {name: torch.randn(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16)}
+
+
+def x_prompts(cfg) -> np.ndarray:
+    """Phase 15's prompts, whisper's cut to X_AUDIO_PROMPT_LEN tokens."""
+    p = tp_prompts(cfg.vocab_size)
+    return p if cfg.family == "vlm" else p[:, :X_AUDIO_PROMPT_LEN]
+
+
+def x_train_batch(torch, cfg, seq: int) -> dict:
+    rng = np.random.RandomState(SEED + 5)
+    return {**{k: rng.randint(0, cfg.vocab_size, (X_TP_TRAIN_BATCH, seq))
+               .astype(np.int32) for k in ("tokens", "targets")},
+            **x_extras(torch, cfg, X_TP_TRAIN_BATCH)}
+
+
+#: phase 18's training steps: (arch, layers, tokens a sequence)
+X_TRAINS = ((X_AUDIO, None, X_TRAIN_SEQ),
+            (X_VLM, X_VLM_TRAIN_LAYERS, X_VLM_TRAIN_SEQ))
+
+
+def x_all_reduces(cfg, call: str) -> int:
+    """The layout's all-reduces a prefill or decode call: one a
+    row-parallel product (2 a VLM layer, self- or cross-attention; 2 a
+    whisper encoder layer, 3 a decoder layer) and one for the vocab-split
+    lookup."""
+    if cfg.family == "vlm":
+        return 1 + 2 * cfg.n_layers
+    enc = 0 if call == "decode" else 2 * cfg.encoder_layers
+    return 1 + enc + 3 * cfg.n_layers
+
+
+def x_collective_counts(torch, model, params, prompts, extras) -> dict:
+    """The collectives one rank runs in a prefill of ``prompts`` and one
+    decode step (a run of its own, after the checked and timed ones):
+    OpTrace's counts by kind (DTensor's functional collectives) and the
+    calls of the port's own collectives."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.hlo_analysis import OpTrace
+    out = {}
+    with torch.no_grad():
+        collectives.reset_traffic()
+        with OpTrace() as t:
+            _, cache = model.prefill(params, {"tokens": prompts, **extras},
+                                     max_seq=prompts.shape[1] + 1)
+        out["prefill"] = t.totals()["collective_counts"]
+        out["prefill_port"] = collectives.traffic["calls"]
+        collectives.reset_traffic()
+        with OpTrace() as t:
+            model.decode_step(params, torch.as_tensor(prompts[:, -1:]),
+                              cache)
+        out["decode"] = t.totals()["collective_counts"]
+        out["decode_port"] = collectives.traffic["calls"]
+    torch.cuda.synchronize()
+    return out
+
+
+def x_rank(rank: int, ckpt_dir: str, int8_dir: str) -> dict:
+    """Phase 18 (a)-(c) on one of X_RANKS ranks of a ("data"=1, "model"=2)
+    mesh: the VLM and whisper served with quantize_dense on and off, each
+    once checked (every kernel launch and quantized linear; rank 0 writes
+    the int8 activations for the one-process run), off once more with
+    the collectives timed and once with them counted; then one AdamW step
+    of each, its kernels checked, its params saved."""
+    import torch
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    t_rank = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, X_RANKS), ("data", "model"), "cuda")
+    res = {"jax": "jax" in sys.modules, "seconds": {}}
+    secs = res["seconds"]
+    with use_mesh(mesh):
+        for arch in (X_VLM, X_AUDIO):
+            cfg = x_tp_cfg(arch)
+            t0 = time.perf_counter()
+            params = Model(cfg, "cuda").init_placed(mesh, torch.Generator(
+                device="cuda").manual_seed(SEED))
+            open_gates(torch, params, X_GATE)
+            torch.cuda.synchronize()
+            res[arch, "init_s"] = time.perf_counter() - t0
+            res[arch, "param_bytes"] = _local_param_bytes(params)
+            if arch == X_VLM:
+                res[arch, "layer_bytes"] = _local_param_bytes(
+                    params["layers"])
+            prompts, extras = x_prompts(cfg), x_extras(torch, cfg,
+                                                       TP_PROMPTS)
+            for quant in (True, False):
+                t_sec = time.perf_counter()
+                m = Model(dataclasses.replace(cfg, quantize_dense=quant),
+                          "cuda")
+                tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1,
+                         extras=extras)
+                with KernelChecks(torch, dispatch, ("mha", "int_matmul")) \
+                        as kc, Int8Check(TP_INT8_CALLS,
+                                         record=quant and rank == 0) as i8:
+                    run = tp_serve(torch, dispatch, m, params, prompts,
+                                   new=X_NEW, extras=extras)
+                if i8.records:
+                    torch.save(i8.records, f"{int8_dir}/{arch}.pt")
+                run.update(kc.report(), int8_calls=i8.calls,
+                           int8_diff=i8.diff, int8_elements=i8.elements,
+                           int8_gathered=i8.gathered,
+                           int8_gathered_diff=i8.gathered_diff)
+                del i8
+                if not quant:
+                    with SsmCollectiveTimer(torch) as ct:
+                        t0 = time.perf_counter()
+                        tp_serve(torch, dispatch, m, params, prompts,
+                                 tokens=run["tokens"], new=X_NEW,
+                                 extras=extras)
+                        wall = time.perf_counter() - t0
+                    run["coll_s"], run["coll_wall_s"] = ct.seconds, wall
+                    run["coll_share"] = ct.seconds / wall
+                    run["coll_calls"] = ct.calls
+                    run["timed_counts"] = dict(dispatch.launch_counts)
+                    run["collectives"] = x_collective_counts(
+                        torch, m, params, prompts, extras)
+                res[arch, "serve", quant] = run
+                secs[f"{arch} serve {'on' if quant else 'off'}"] = \
+                    time.perf_counter() - t_sec
+            del params, m, extras
+            torch.cuda.empty_cache()
+        res["peak_serve"] = torch.cuda.max_memory_allocated()
+
+        for arch, layers, seq in X_TRAINS:
+            t_sec = time.perf_counter()
+            cfg = x_tp_cfg(arch, layers)
+            model = Model(cfg, "cuda")
+            params = model.init_placed(mesh, torch.Generator(
+                device="cuda").manual_seed(SEED)).trainable_()
+            open_gates(torch, params, X_GATE)
+            opt = AdamW(lr=TRAIN_LR)
+            step = make_train_step(model, opt)
+            batch = x_train_batch(torch, cfg, seq)
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            with KernelChecks(torch, dispatch, ("mha", "mha_bwd")) as kc:
+                params, _, m = step(params, opt.init(params), batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+            res[arch, "train"] = {
+                "loss": loss, "grad_norm": float(m["grad_norm"]),
+                "counts": dict(dispatch.launch_counts),
+                "step_ms": (time.perf_counter() - t0) * 1e3, **kc.report()}
+            t1 = time.perf_counter()
+            checkpoint.save(f"{ckpt_dir}/{arch}", 1, params)
+            res[arch, "saved"] = _shard_digests(params)
+            del params, opt, step, batch
+            torch.cuda.empty_cache()
+            secs[f"{arch} train"] = t1 - t_sec
+            secs[f"{arch} save"] = time.perf_counter() - t1
+        res["peak_train"] = torch.cuda.max_memory_allocated()
+    secs["all"] = time.perf_counter() - t_rank
+    return res
+
+
+def x_one_process(torch, dispatch, ranks: list, ckpt_dir: str,
+                  int8_dir: str) -> dict:
+    """The one-process runs phase 18 holds the ranks against: each arch
+    fed the ranks' tokens (with quantize_dense on also fed their int8
+    activations), its AdamW step, the ranks' checkpoint restored."""
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import make_train_step
+    r0, out = ranks[0], {"seconds": {}}
+    secs = out["seconds"]
+    for arch in (X_VLM, X_AUDIO):
+        t_sec = time.perf_counter()
+        cfg = x_tp_cfg(arch)
+        params = Model(cfg, "cuda").init(torch.Generator(
+            device="cuda").manual_seed(SEED))
+        open_gates(torch, params, X_GATE)
+        out[arch, "param_bytes"] = _local_param_bytes(params)
+        prompts, extras = x_prompts(cfg), x_extras(torch, cfg, TP_PROMPTS)
+        for quant in (True, False):
+            m = Model(dataclasses.replace(cfg, quantize_dense=quant), "cuda")
+            tokens = r0[arch, "serve", quant]["tokens"]
+            tp_serve(torch, dispatch, m, params, prompts[:, :16], new=1,
+                     extras=extras)
+            out[arch, "serve", quant] = tp_serve(
+                torch, dispatch, m, params, prompts, tokens=tokens,
+                new=X_NEW, extras=extras)
+            if quant:
+                records = torch.load(f"{int8_dir}/{arch}.pt",
+                                     weights_only=True)
+                with Int8Feed(records, True) as f8:
+                    run = tp_serve(torch, dispatch, m, params, prompts,
+                                   tokens=tokens, new=X_NEW, extras=extras)
+                run["flips"] = f8.flips
+                out[arch, "int8"] = run
+                del records
+        del params, m, extras
+        torch.cuda.empty_cache()
+        secs[f"{arch} serve"] = time.perf_counter() - t_sec
+    for arch, layers, seq in X_TRAINS:
+        t_sec = time.perf_counter()
+        cfg = x_tp_cfg(arch, layers)
+        model = Model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            SEED)).trainable_()
+        open_gates(torch, params, X_GATE)
+        opt = AdamW(lr=TRAIN_LR)
+        step = make_train_step(model, opt)
+        batch = x_train_batch(torch, cfg, seq)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt.init(params), batch)
+        loss = float(m["loss"])
+        out[arch, "train"] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                              "counts": dict(dispatch.launch_counts),
+                              "step_ms": (time.perf_counter() - t0) * 1e3}
+        params.load_(checkpoint.restore(f"{ckpt_dir}/{arch}", 1, params))
+        out[arch, "restored"] = [_slice_digests(params, r[arch, "saved"])
+                                 for r in ranks]
+        del params, opt, step, model, batch
+        torch.cuda.empty_cache()
+        secs[f"{arch} train"] = time.perf_counter() - t_sec
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def x_on_card(torch, dispatch, ssm: dict, smi: str) -> dict:
+    """Phase 18, checks (a)-(c) (the module docstring), on what phase 17's
+    ranks ran of it (``ssm["x_ranks"]``); (d) runs with phase 15 (e)."""
+    import shutil
+    xtp = {"ranks": ssm["x_ranks"]}
+    t0 = time.perf_counter()
+    one = x_one_process(torch, dispatch, xtp["ranks"], str(X_DIR / "ckpt"),
+                        str(X_DIR / "int8"))
+    one_s = time.perf_counter() - t0
+    shutil.rmtree(X_DIR, ignore_errors=True)
+    check_x(xtp, one, smi)
+    xtp["wall_s"] = ssm["x_ranks_s"] + time.perf_counter() - t0
+    say(f"xtp: phase 18 (a)-(c) in {xtp['wall_s']:.1f} s (ranks "
+        f"{ssm['x_ranks_s']:.1f} s, on phase 17's ranks; one process "
+        f"{one_s:.1f} s) on {smi}")
+    return xtp
+
+
+def check_x(xtp: dict, one: dict, smi: str) -> None:
+    """Phase 18 (a)-(c) against the one-process runs: every number
+    printed, then every failed check listed at once."""
+    ranks, bad = xtp["ranks"], []
+    if any(r["jax"] for r in ranks):
+        bad.append("xtp: a rank imported JAX")
+    for r in ranks:
+        for arch in (X_VLM, X_AUDIO):
+            for part in [r[arch, "serve", q] for q in (True, False)] + [
+                    r[arch, "train"]]:
+                bad += [f"xtp kernels: {o}" for o in part["kernel_over"]]
+    for arch in (X_VLM, X_AUDIO):
+        cfg = x_tp_cfg(arch)
+        tag = "(a)" if arch == X_VLM else "(b)"
+        for quant in (True, False):
+            mode = "quantize_dense on" if quant else "off"
+            got = ranks[0][arch, "serve", quant]
+            # quantize_dense on: the one-process run fed the ranks' int8
+            want = one[arch, "int8"] if quant else one[arch, "serve", quant]
+            for r in ranks[1:]:
+                if not np.array_equal(r[arch, "serve", quant]["logits"],
+                                      got["logits"]):
+                    bad.append(f"xtp {tag} {mode}: the ranks' logits differ")
+            err = float(np.abs(got["logits"] - want["logits"]).max())
+            sure, agree = _greedy(want["logits"][:X_NEW], got["tokens"],
+                                  TP_BF16_TOL)
+            say(f"xtp {tag} {arch} at {cfg.n_layers} layers, {mode}: logits "
+                f"(prefill + {X_NEW} decode steps) max |sharded - one "
+                f"process{' fed their int8' if quant else ''}| {err:.4g} "
+                f"(tolerance {TP_BF16_TOL}); greedy tokens equal at "
+                f"{int((agree & sure).sum())} of {int(sure.sum())} "
+                f"positions whose top-2 margin exceeds it "
+                f"({int(agree.sum())} of {agree.size} in all)")
+            if err > TP_BF16_TOL or not np.all(agree[sure]):
+                bad.append(f"xtp {tag} {arch} {mode}: sharded serving "
+                           f"disagrees with one process")
+            ref = one[arch, "serve", quant]
+            want_counts = x_counts(dataclasses.replace(
+                cfg, quantize_dense=quant), 1, X_NEW)
+            for r in ranks:
+                c = r[arch, "serve", quant]
+                if c["counts"] != ref["counts"] \
+                        or c.get("timed_counts", c["counts"]) != c["counts"]:
+                    bad.append(f"xtp {tag} {mode}: rank launches "
+                               f"{c['counts']} (collective-timed run "
+                               f"{c.get('timed_counts')}) != one process "
+                               f"{ref['counts']}")
+            if got["counts"] != want_counts:
+                bad.append(f"xtp {tag} {mode}: launches {got['counts']}, "
+                           f"not {want_counts}")
+            line = (f"xtp {tag} {arch} {mode}: prefill "
+                    f"{got['prefill_ms']:.1f} ms against "
+                    f"{ref['prefill_ms']:.1f} ms in one process; "
+                    f"{got['decode_ms']:.1f} ms a decode token against "
+                    f"{ref['decode_ms']:.1f} ms (the ranks' checked run"
+                    f"{', every int8 activation gathered' if quant else ''}"
+                    f"); launches a rank {got['counts']} (= one process); "
+                    f"every launch against its plain version on the rank's "
+                    f"operands: {got['kernel_checked']}, errors "
+                    f"{got['kernel_errs']} (int_matmul exact, mha <= "
+                    f"{TRAIN_BWD_BF16_RTOL} of max |plain|); shapes "
+                    f"{got['shapes']}")
+            if not quant:
+                line += (f"; the collectives {got['coll_s'] * 1e3:.1f} ms "
+                         f"of a {got['coll_wall_s'] * 1e3:.1f} ms serve run "
+                         f"({got['coll_share']:.1%}, {got['coll_calls']} "
+                         f"timed, every one synchronised)")
+            say(line + f" on {smi}")
+        heads = 32 if arch == X_VLM else 16       # padded query heads
+        on = ranks[0][arch, "serve", True]
+        calls = one[arch, "serve", True]["counts"].get("int_matmul", 0)
+        flips = one[arch, "int8"]["flips"]
+        say(f"xtp {tag} quantize_dense on: int8 activations of all "
+            f"{on['int8_calls']} quantized linears ({on['int8_elements']:,} "
+            f"elements) against one-process quantization of the gathered "
+            f"inputs: {on['int8_diff']} differ; int32 products of the "
+            f"first {on['int8_gathered']} against int_matmul on the "
+            f"gathered operands: {on['int8_gathered_diff']} differ; the "
+            f"one-process run quantizing its own activations differs from "
+            f"the ranks' in {sum(flips):,} int8 elements over {len(flips)} "
+            f"calls, and is fed theirs")
+        if on["int8_calls"] != calls or on["int8_diff"] \
+                or on["int8_gathered"] != TP_INT8_CALLS \
+                or on["int8_gathered_diff"] or len(flips) != calls:
+            bad.append(f"xtp {tag}: sharded int8 activations or int_matmul "
+                       f"outputs differ from one process on the same "
+                       f"inputs")
+        for shapes in on["shapes"].get("mha", ()):
+            if shapes[0][1] != heads // X_RANKS:
+                bad.append(f"xtp {tag}: mha ran on {shapes}, not on the "
+                           f"rank's {heads // X_RANKS} heads")
+        hidden = cfg.d_ff // X_RANKS
+        for (_, b) in on["shapes"].get("int_matmul", ()):
+            if b not in ((cfg.d_model, hidden), (hidden, cfg.d_model)):
+                bad.append(f"xtp {tag}: int_matmul ran on a weight {b}, not "
+                           f"a shard")
+        coll = ranks[0][arch, "serve", False]["collectives"]
+        for call in ("prefill", "decode"):
+            want_c = {"all-reduce": x_all_reduces(cfg, call)}
+            say(f"xtp {tag} {arch}: the collectives of one {call} call a "
+                f"rank {coll[call]} (the layout's {want_c}), "
+                f"{coll[call + '_port']} of the port's own")
+            for r in ranks:
+                c = r[arch, "serve", False]["collectives"]
+                if c[call] != want_c or c[call + "_port"]:
+                    bad.append(f"xtp {tag} {call}: collectives {c[call]} and "
+                               f"{c[call + '_port']} of the port's own, not "
+                               f"{want_c}")
+    for arch, layers, seq in X_TRAINS:
+        cfg = x_tp_cfg(arch, layers)
+        got, want = ranks[0][arch, "train"], one[arch, "train"]
+        for r in ranks:
+            if r[arch, "train"]["counts"] != want["counts"]:
+                bad.append(f"xtp (c) {arch}: rank launches "
+                           f"{r[arch, 'train']['counts']} != one process "
+                           f"{want['counts']}")
+        dloss = abs(got["loss"] - want["loss"])
+        dnorm = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        say(f"xtp (c) {arch} at {cfg.n_layers} layers, one AdamW step on "
+            f"{X_TP_TRAIN_BATCH} x {seq} tokens: loss {got['loss']:.5f} "
+            f"against {want['loss']:.5f} (|d| {dloss:.3g}, tolerance "
+            f"{TRAIN_LOSS_ATOL}), grad norm {got['grad_norm']:.5f} against "
+            f"{want['grad_norm']:.5f} (rel {dnorm:.3g}, tolerance "
+            f"{TRAIN_GRAD_RTOL}); {got['step_ms']:.0f} ms a step (the first) "
+            f"against {want['step_ms']:.0f} ms; launches a rank "
+            f"{got['counts']}; every launch against its plain version on the "
+            f"rank's operands: {got['kernel_checked']}, errors "
+            f"{got['kernel_errs']} on {smi}")
+        if dloss > TRAIN_LOSS_ATOL or dnorm > TRAIN_GRAD_RTOL:
+            bad.append(f"xtp (c) {arch}: the sharded step disagrees with one "
+                       f"process")
+        differ = _restore_mismatch([r[arch, "saved"] for r in ranks],
+                                   one[arch, "restored"])
+        if differ:
+            bad.append(f"xtp (c) {arch}: {len(differ)} leaves differ after "
+                       f"the restore (first {differ[:3]})")
+        say(f"xtp (c) {arch}: the ranks' state restored into one process, "
+            f"{len(one[arch, 'restored'][0])} leaves, each rank's shards bit "
+            f"for bit")
+    for arch in (X_VLM, X_AUDIO):
+        say(f"xtp {arch}: parameter bytes a rank "
+            f"{[r[arch, 'param_bytes'] for r in ranks]} against "
+            f"{one[arch, 'param_bytes']:,} in one process, drawn in "
+            f"{[round(r[arch, 'init_s'], 1) for r in ranks]} s")
+    say(f"xtp: seconds on rank 0 "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['seconds'].items()} }, in "
+        f"one process { {k: round(v, 1) for k, v in one['seconds'].items()} }")
+    say(f"xtp: peaks a rank serving {[r['peak_serve'] / 2 ** 30 for r in ranks]}"
+        f" GiB, training {[r['peak_train'] / 2 ** 30 for r in ranks]} GiB; "
+        f"one process {one['peak'] / 2 ** 30:.1f} GiB on {smi}")
+    if bad:
+        fail("; ".join(bad))
+
+
+def x_kernel_errs(xtp: dict) -> dict:
+    """Phase 18's launches on rank 0 (serving and training) and the
+    largest kernel-against-plain errors over the ranks."""
+    errs, counts = {}, {}
+    for r in xtp["ranks"]:
+        for arch in (X_VLM, X_AUDIO):
+            for part in [r[arch, "serve", q] for q in (True, False)] + [
+                    r[arch, "train"]]:
+                for k, e in part["kernel_errs"].items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+    r0 = xtp["ranks"][0]
+    for arch in (X_VLM, X_AUDIO):
+        for part in [r0[arch, "serve", q] for q in (True, False)] + [
                 r0[arch, "train"]]:
             add_counts(counts, part["counts"])
     return {"errs": errs, "counts": counts}
@@ -6636,6 +7237,11 @@ def main() -> int:
     # likewise while this process holds nothing on the card
     ssm = ssm_on_card(torch, dispatch, smi)
 
+    # -- 18. the VLM and audio families on sharded parameters ---------------
+    # its ranks ran in phase 17's spawn; its one-process part likewise
+    # while this process holds nothing on the card
+    xtp = x_on_card(torch, dispatch, ssm, smi)
+
     # -- 13. data-parallel training over ranks sharing the card -------------
     # while this process holds nothing on the card
     dp = dp_on_card(torch, smi)
@@ -6649,7 +7255,7 @@ def main() -> int:
         f"generate; taken when under half of MemAvailable)")
     dry = tp_dryrun_start(TP_DIR / "dryrun")   # 15 (e), beside set-up only
     pim_sets = pim_data(n_dtr, n_emb, mem_avail)
-    tp_dry = tp_dryrun_finish(dry, tp, moe, ssm, smi)
+    tp_dry = tp_dryrun_finish(dry, tp, moe, ssm, xtp, smi)
     pim = pim_on_card(torch, pim_sets, smi)
 
     # -- 3. kernels against their plain versions, on the card ----------------
@@ -7226,6 +7832,16 @@ def main() -> int:
                                                   sk["errs"].get(op))
             if op != "int_matmul":
                 k["ssm_max_rel_err"] = sk["errs"][op]
+    xk = x_kernel_errs(xtp)    # phase 18's launches on rank 0, errors
+    for k in kernels:
+        op = {"flash_attention": "mha", "flash_attention_bwd": "mha_bwd"}.get(
+            k["name"], k["name"])
+        if op in xk["counts"]:
+            k["x_launches_a_rank"] = xk["counts"][op]
+            k["x_max_abs_err"] = xk["errs"].get(f"{op} abs",
+                                                xk["errs"].get(op))
+            if op != "int_matmul":
+                k["x_max_rel_err"] = xk["errs"][op]
     ranked = {}     # phase 14's launches on rank 0, and its checks' errors
     for rec in pim["ranks"][0]["fits"].values():
         add_counts(ranked, rec["counts"])
@@ -7300,6 +7916,16 @@ def main() -> int:
         **{f"{arch} train_step_ms": s0[arch, "train"]["step_ms"]
            for arch, _ in SSM_ARCHS},
         "wall_s": ssm["wall_s"]}))
+    x0 = xtp["ranks"][0]
+    say("xtp: " + json.dumps({
+        **{f"{arch} serve {'on' if q else 'off'}": {
+            k: x0[arch, "serve", q][k] for k in ("prefill_ms", "decode_ms")}
+           for arch in (X_VLM, X_AUDIO) for q in (True, False)},
+        **{f"{arch} coll_share": x0[arch, "serve", False]["coll_share"]
+           for arch in (X_VLM, X_AUDIO)},
+        **{f"{arch} train_step_ms": x0[arch, "train"]["step_ms"]
+           for arch in (X_VLM, X_AUDIO)},
+        "wall_s": xtp["wall_s"]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -379,10 +379,11 @@ def place_batch(batch: dict, mesh) -> dict:
 
 
 def cache_tensor(shape: tuple, fill: float, dtype, device, mesh=None):
-    """A decode-cache tensor ``[B, Hkv, ...]`` filled with ``fill``: plain
-    on ``device``, or on ``mesh`` a DTensor over (data axes, "model") by
-    :func:`cache_shardings`' rule for KV caches, of which each rank
-    allocates its shard alone."""
+    """A decode-cache tensor ``[B, Hkv, ...]`` filled with ``fill`` (a KV
+    cache's ``k`` and ``v`` and their scales, a cross block's ``ck`` and
+    ``cv``): plain on ``device``, or on ``mesh`` a DTensor over (data
+    axes, "model") by :func:`cache_shardings`' rule for these names, of
+    which each rank allocates its shard alone."""
     if mesh is None:
         return torch.full(shape, fill, dtype=dtype, device=device)
     from torch.distributed.tensor import full

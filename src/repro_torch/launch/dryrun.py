@@ -18,9 +18,8 @@ data axes; the trace counts what rank 0 runs (``launch/hlo_analysis.py``)
 and ``MemTracker`` the peak of its live storages.
 
 Cells are checked with ``supports`` first, as in the reference: a
-full-attention arch's ``long_500k`` is ``skipped``.  The families that do
-not run on sharded parameters yet record ``not_ported`` with the ROADMAP
-item as the reason.
+full-attention arch's ``long_500k`` is ``skipped``; every other cell of
+every family is traced.
 
 Usage::
 
@@ -46,9 +45,9 @@ from ..configs.shapes import SHAPES, shape_for, supports
 from ..distributed.act_sharding import use_mesh
 from ..distributed.sharding import (opt_state_shardings, place_batch,
                                     place_opt_state)
-from ..models.api import TP_FAMILIES, Model, input_specs
+from ..models.api import Model, input_specs
 from ..optim.adam import AdamW
-from ..train.loop import DP_TODO, make_train_step
+from ..train.loop import make_train_step
 from .analytic import model_flops
 from .hlo_analysis import OpTrace
 from .mesh import describe, make_mesh, make_production_mesh
@@ -138,8 +137,12 @@ def build_step(arch: str, shape_name: str, mesh, cfg_overrides=None,
         return prefill_fn, (params, batch)
 
     # decode: one new token against a full seq_len KV cache
-    cache = [{**c, "kv": c["kv"]._replace(length=s - 1)} if "kv" in c
-             else c for c in model.init_cache(b, s)]
+    cache = model.init_cache(b, s)
+    if isinstance(cache, dict):          # the encoder-decoder's
+        cache["length"] = s - 1
+    else:
+        cache = [{**c, "kv": c["kv"]._replace(length=s - 1)} if "kv" in c
+                 else c for c in cache]
 
     def serve_step(params, toks, cache):
         with torch.no_grad():
@@ -197,16 +200,10 @@ def peak_bytes(tracker) -> int:
 
 def cell_status(arch: str, shape_name: str):
     """The entry of a cell that is not traced: ``skipped`` where
-    ``supports`` says so (checked first, as the reference does),
-    ``not_ported`` for a family that does not run on sharded parameters
-    yet; None for a cell to trace."""
-    cfg = get_config(arch)
-    ok, reason = supports(cfg, shape_name)
-    if not ok:
-        return {"status": "skipped", "reason": reason}
-    if cfg.family not in TP_FAMILIES:
-        return {"status": "not_ported", "reason": DP_TODO}
-    return None
+    ``supports`` says so, as the reference does; None for a cell to
+    trace."""
+    ok, reason = supports(get_config(arch), shape_name)
+    return None if ok else {"status": "skipped", "reason": reason}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -301,7 +298,7 @@ def main(argv=None):
         pods = [False]
 
     results = load_results(args.results)
-    counts = {"ok": 0, "error": 0, "skipped": 0, "not_ported": 0}
+    counts = {"ok": 0, "error": 0, "skipped": 0}
     for multi_pod in pods:
         for arch in archs:
             for shape in shapes:
@@ -309,7 +306,7 @@ def main(argv=None):
                 if mesh_shape:
                     key += f"|mesh{mesh_shape[0]}x{mesh_shape[1]}"
                 if not args.force and results.get(key, {}).get(
-                        "status") in ("ok", "skipped", "not_ported"):
+                        "status") in ("ok", "skipped"):
                     print(f"[cached] {key}: {results[key]['status']}")
                     counts[results[key]["status"]] += 1
                     continue
@@ -318,8 +315,7 @@ def main(argv=None):
                                  path=args.results, reduced=args.reduced)
                 counts[entry["status"]] += 1
     print(f"\ndone: {counts['ok']} ok, {counts['error']} failed, "
-          f"{counts['skipped']} skipped, {counts['not_ported']} not ported "
-          f"(results in {args.results})")
+          f"{counts['skipped']} skipped (results in {args.results})")
     return counts
 
 

@@ -181,7 +181,7 @@ def build_table(results: dict, mesh: str = "1pod",
         if m != mesh:
             continue
         status = entry.get("status")
-        if status in ("skipped", "not_ported"):
+        if status == "skipped":
             rows.append({"arch": arch, "shape": shape, "status": status,
                          "reason": entry.get("reason", "")[:60]})
             continue

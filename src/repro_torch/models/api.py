@@ -40,12 +40,6 @@ from ..systems.base import resolve_device
 from . import encdec, transformer
 from .layers import Params, leaf_shapes
 
-#: the families that run on parameters sharded over "model" (the MoE's
-#: experts split over it: expert parallel; dbrx's FSDP over the data axes;
-#: the recurrent mixers on their channels and heads, ``models/ssm.py``)
-TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
 class Model:
     """The LM of ``cfg`` on ``device`` (``"cuda"`` unless the caller asks
     for ``"cpu"``; ``"cuda"`` without a GPU raises)."""
@@ -81,13 +75,12 @@ class Model:
 
     # -- sharded parameters -----------------------------------------------------
     def param_specs(self, mesh, tree) -> dict:
-        """The reference's specs of ``tree``'s leaves on ``mesh``: FSDP
-        for a config that asks for it, else tensor-parallel (the backbone
-        replicated where ``tp_dense`` is off)."""
-        if self.cfg.family not in TP_FAMILIES:
-            from ..train.loop import DP_TODO
-            raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family})"
-                                      f": {DP_TODO}")
+        """The reference's specs of ``tree``'s leaves on ``mesh``, every
+        family's: FSDP for a config that asks for it, else tensor-parallel
+        (the backbone replicated where ``tp_dense`` is off; the MoE's
+        experts over "model"; the recurrent mixers on their channels and
+        heads; the cross blocks and the encoder-decoder's ``enc`` and
+        ``dec`` layers as a decoder LM's attention and MLP)."""
         if self.cfg.fsdp:
             return param_shardings_fsdp(mesh, tree)
         return param_shardings(mesh, tree, tp_dense=self.cfg.tp_dense)
@@ -103,7 +96,9 @@ class Model:
         """``place(init(generator), mesh)``, each layer laid out as soon as
         it is drawn: a rank holds the whole of one layer at a time beside
         its shards (dbrx-132b's 264 GB never whole), and the values are
-        ``init``'s."""
+        ``init``'s.  The encoder-decoder is drawn whole, then placed:
+        whisper-tiny's 68M parameters (its heads and vocab padded) fit
+        beside any rank's shards."""
         if self.is_encdec:
             return self.place(self.init(generator), mesh)
         gen = generator or torch.Generator(device=self.device).manual_seed(0)
@@ -179,8 +174,8 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int):
         """Empty decode caches on the model's device; inside ``use_mesh``
-        a decoder LM's are laid out by ``cache_shardings`` (the recurrent
-        states by ``state_spec``)."""
+        laid out by ``cache_shardings`` (the recurrent states by
+        ``state_spec``)."""
         if self.is_encdec:
             return encdec.init_dec_cache(self.cfg, batch, max_seq,
                                          self.device)

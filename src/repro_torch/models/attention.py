@@ -255,7 +255,8 @@ def attention_decode(params, spec: AttnSpec, x: torch.Tensor,
 
 def cross_queries(params, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
     """Cross-attention's queries of ``x`` [B, S, d]: [B, Hq, S, D], with
-    the bias and the query norm where the spec has them."""
+    the bias and the query norm where the spec has them; on sharded
+    parameters each rank's heads (``"bhsd"``)."""
     b, s, _ = x.shape
     q = matmul(x, params["wq"])
     if spec.qkv_bias:
@@ -263,7 +264,7 @@ def cross_queries(params, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
     q = q.reshape(b, s, spec.plan.n_q, spec.head_dim).transpose(1, 2)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"], spec.norm_eps)
-    return q
+    return constrain(q, "bhsd")
 
 
 def cross_kv(params, spec: AttnSpec, kv_states: torch.Tensor,
@@ -271,7 +272,8 @@ def cross_kv(params, spec: AttnSpec, kv_states: torch.Tensor,
     """Cross-attention's keys and values of ``kv_states`` [B, Skv, kv_dim]
     in ``dtype``: [B, Hkv, Skv, D] each, contiguous, as a decode step's
     attention reads them from the cache (no key norm: the reference's
-    cache has none)."""
+    cache has none).  On sharded parameters each rank projects the whole
+    states (rows over the data axes) onto its own heads: no collective."""
     b, sk, _ = kv_states.shape
     kv = kv_states.to(dtype)
     k = matmul(kv, params["wk"])
@@ -280,8 +282,8 @@ def cross_kv(params, spec: AttnSpec, kv_states: torch.Tensor,
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)
     shape = (b, sk, spec.plan.n_kv, spec.head_dim)
-    return (k.reshape(shape).transpose(1, 2).contiguous(),
-            v.reshape(shape).transpose(1, 2).contiguous())
+    return tuple(constrain(t.reshape(shape).transpose(1, 2), "bhsd")
+                 .contiguous() for t in (k, v))
 
 
 def cross_attention(params, spec: AttnSpec, x: torch.Tensor,

@@ -23,6 +23,17 @@ built once per cache (the reference rebuilds it on every step).  Prefill
 and decode project the cross queries as the forward does, with the bias
 and the norm a spec may have; the reference's prefill and decode skip
 both, which whisper-tiny does not have.
+
+On sharded parameters (inside ``use_mesh``) the layout is the decoder
+LM's: heads, the MLP's hidden units and the vocab over "model", the
+batch over the data axes.  The stream is constrained whole over "model"
+(``"btd"``) after the embedding and before every layer, as ``lm_forward``
+does, the vocab-split token lookup summed there (``transformer._lookup``:
+the table never moves), and the logits stay split over the vocab
+(``"btv"``), so the loss takes ``VocabParallelNll``.  The frames' rows
+lie over the data axes, whole over "model": each rank projects the
+encoder's states onto its own cross heads.  The decode cache's tensors
+are laid out by ``sharding.cache_tensor`` and written shard by shard.
 """
 from __future__ import annotations
 
@@ -31,11 +42,14 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed.act_sharding import constrain, current_mesh
+from ..distributed.sharding import cache_tensor
+from ..distributed.tp import matmul
 from .attention import (AttnSpec, _project_qkv, attend, cross_attention,
                         cross_kv, cross_queries, init_attention)
 from .layers import (Params, dense_init, embed_init, init_mlp, layer_norm,
                      mlp, sinusoidal_positions)
-from .transformer import _dtype, attn_spec, token_nll
+from .transformer import _dtype, _lookup, attn_spec, token_nll
 
 
 def _ln_params(d: int, dt: torch.dtype, device) -> Params:
@@ -102,13 +116,13 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames + pos[None].to(frames.dtype)
     spec = attn_spec(cfg)
     for p in params["enc"]:
-        x = _enc_layer(p, cfg, spec, x)
+        x = _enc_layer(p, cfg, spec, constrain(x, "btd"))
     return _ln(x, params["enc_ln"], cfg.norm_eps)
 
 
 def _dec_embed(cfg: ArchConfig, params, tokens: torch.Tensor,
                offset: int = 0) -> torch.Tensor:
-    x = params["tok_emb"][tokens.long()]
+    x = constrain(_lookup(params["tok_emb"], tokens), "btd")
     s = tokens.shape[1]
     pos = _positions(offset + s, cfg.d_model, x.device)[offset:]
     return x + pos[None].to(x.dtype)
@@ -126,7 +140,7 @@ def _dec_layer(p, cfg: ArchConfig, x: torch.Tensor,
 
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = _ln(x, params["dec_ln"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    return constrain(matmul(x, params["lm_head"]), "btv")
 
 
 def decoder_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
@@ -135,6 +149,7 @@ def decoder_forward(cfg: ArchConfig, params, tokens: torch.Tensor,
     x = _dec_embed(cfg, params, tokens)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for p in params["dec"]:
+        x = constrain(x, "btd")
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _dec_layer, p, cfg, x, enc_states, use_reentrant=False,
@@ -156,11 +171,13 @@ def encdec_loss(cfg: ArchConfig, params, frames: torch.Tensor,
 
 def init_dec_cache(cfg: ArchConfig, batch: int, max_seq: int,
                    device="cuda") -> dict:
-    spec = attn_spec(cfg)
+    """An empty decode cache; inside ``use_mesh`` its tensors are DTensors
+    over (data axes, "model") (``sharding.cache_tensor``)."""
+    spec, mesh = attn_spec(cfg), current_mesh()
 
     def zeros(seq: int) -> list:        # one tensor a decoder layer
-        return [torch.zeros((batch, spec.plan.n_kv, seq, spec.head_dim),
-                            dtype=_dtype(cfg), device=device)
+        return [cache_tensor((batch, spec.plan.n_kv, seq, spec.head_dim), 0,
+                             _dtype(cfg), device, mesh)
                 for _ in range(cfg.n_layers)]
     return {"k": zeros(max_seq), "v": zeros(max_seq),
             "ck": zeros(cfg.encoder_seq), "cv": zeros(cfg.encoder_seq),
@@ -177,6 +194,7 @@ def encdec_prefill(cfg: ArchConfig, params, frames: torch.Tensor,
     cache = {**init_dec_cache(cfg, b, max_seq, tokens.device), "length": s}
     x = _dec_embed(cfg, params, tokens)
     for i, p in enumerate(params["dec"]):
+        x = constrain(x, "btd")
         q, k, v = _project_qkv(p["self"], spec, _ln(x, p["ln1"], eps), None)
         cache["k"][i][:, :, :s] = k
         cache["v"][i][:, :, :s] = v
@@ -199,9 +217,10 @@ def encdec_decode_step(cfg: ArchConfig, params, tokens: torch.Tensor,
     if length >= cache["pos"].shape[0]:
         raise ValueError(f"decode cache full: {length} of "
                          f"{cache['pos'].shape[0]} positions")
-    x = params["tok_emb"][tokens.long()]
+    x = constrain(_lookup(params["tok_emb"], tokens), "btd")
     x = x + cache["pos"][length:length + 1][None].to(x.dtype)
     for i, p in enumerate(params["dec"]):
+        x = constrain(x, "btd")
         k_l, v_l = cache["k"][i], cache["v"][i]
         q, k, v = _project_qkv(p["self"], spec, _ln(x, p["ln1"], eps), None)
         k_l[:, :, length:length + 1] = k.to(k_l.dtype)

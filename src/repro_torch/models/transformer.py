@@ -35,6 +35,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..distributed.act_sharding import constrain, current_mesh
+from ..distributed.sharding import cache_tensor
 from ..distributed.tp import VocabParallelNll, gathered, matmul
 from ..kernels.dispatch import is_dtensor
 from . import ssm as ssm_mod
@@ -198,8 +199,8 @@ def init_block_cache(cfg: ArchConfig, bt: str, batch: int, max_seq: int,
     if bt == "cross":        # filled once at prefill from the states
         sk = cfg.vision_tokens or cfg.encoder_seq
         shape = (batch, spec.plan.n_kv, sk, spec.head_dim)
-        return {"ck": torch.zeros(shape, dtype=dt, device=device),
-                "cv": torch.zeros(shape, dtype=dt, device=device)}
+        return {name: cache_tensor(shape, 0, dt, device, mesh)
+                for name in ("ck", "cv")}
     c = {"kv": init_kv_cache(batch, spec.plan, spec.head_dim, max_seq, dt,
                              bits=cfg.kv_cache_bits, device=device)}
     if bt == "hymba":

@@ -22,10 +22,11 @@ On a mesh with a "model" axis the model runs on sharded parameters
 instead: ``Model.place`` lays them out (tensor-parallel), the step runs
 inside ``act_sharding.use_mesh``, and ``make_train_step`` itself trains
 them, each gradient reduced to its parameter's layout
-(:func:`to_param_layout`) before the update.  That covers the dense,
-moe, ssm and hybrid families (the MoE's experts over "model", dbrx's FSDP
-leaves over the data axes, the recurrent mixers on their channels and
-heads); the others raise :data:`DP_TODO`.
+(:func:`to_param_layout`) before the update.  That covers every family:
+dense, moe (the experts over "model", dbrx's FSDP leaves over the data
+axes), ssm and hybrid (the recurrent mixers on their channels and heads),
+vlm (the gated cross blocks on their heads) and audio (the
+encoder-decoder's layers as a decoder LM's).
 """
 from __future__ import annotations
 
@@ -39,11 +40,6 @@ from ..distributed.collectives import (all_reduce, divide, group_over,
 from ..distributed.sharding import axis_sizes, dp_axes
 from ..models.api import stacked_groups
 from ..optim.grad_compression import ef_compress_psum_stacked
-
-#: what of the model on sharded parameters is not ported
-DP_TODO = ("tensor-parallel execution of the vlm and audio families "
-           "(sharded parameters beyond the dense, moe, ssm and hybrid "
-           "families) is not ported yet: ROADMAP queue 1 item 12d")
 
 
 def value_and_grad(model, params, batch: dict):

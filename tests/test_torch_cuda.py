@@ -1997,3 +1997,51 @@ def test_recurrent_families_over_ranks_on_the_card(cuda):
             assert all(q[1] == 8 for q, _ in r[name]["shapes"]["mha"])
         assert r["hymba-int8"]["errs"]["int_matmul"] == 0.0
         assert r["hymba-int8"]["checked"]["int_matmul"] == 5 * 3 * layers
+
+
+#: the VLM and audio families over two ranks: reduced configs, every cross
+#: block's gates open (init shuts them); float32 ranks against the CPU run
+#: of the same weights within X_F32_ATOL (the float32 kernels and cuBLAS
+#: against the CPU's orders), bf16 ranks against one process on the card
+#: within SSM_TP_BF16_TOL
+X_CARD_CASES = {"vlm": ("llama-3.2-vision-11b", "float32"),
+                "audio": ("whisper-tiny", "float32"),
+                "vlm-bf16": ("llama-3.2-vision-11b", "bfloat16"),
+                "audio-bf16": ("whisper-tiny", "bfloat16")}
+X_CARD_GATES = {"gate_attn": 0.5, "gate_mlp": 1.0}
+X_F32_ATOL = 1e-3
+
+
+def test_vlm_and_audio_over_ranks_on_the_card(cuda):
+    """Reduced llama-3.2-vision-11b (4 attention blocks and a gated cross
+    block over 16 vision states) and whisper-tiny (2 + 2 layers over 32
+    frames) on a (1, 2) mesh of two gloo ranks sharing the card: forward,
+    prefill and three decode steps, in float32 within X_F32_ATOL of the
+    CPU run of the same weights and in bf16 within SSM_TP_BF16_TOL of one
+    process on the card; the same launches a rank as one process, mha on
+    the rank's 8 of 16 padded query heads (one a layer a prefill or
+    forward, one a cross block a decode step), each within SSM_MHA_RTOL
+    of its plain version on the rank's operands."""
+    toks = np.random.RandomState(3).randint(0, 512, (2, 19)).astype(
+        np.int32)
+    for r in _card_ranks("card_vlm_audio_tp_body", X_CARD_CASES, toks, 16,
+                         X_CARD_GATES):
+        assert not r["jax"]
+        for name, (arch, dtype) in X_CARD_CASES.items():
+            got = r[name]
+            want, tol = ((got["cpu"], X_F32_ATOL) if dtype == "float32"
+                         else (got["one"], SSM_TP_BF16_TOL))
+            for key, w in want["logits"].items():
+                err = float(np.abs(got["ranks"]["logits"][key] - w).max())
+                assert np.isfinite(w).all() and err <= tol, (name, key, err)
+            assert got["ranks"]["counts"] == got["one"]["counts"], name
+            cfg = get_config(arch).reduced()
+            if cfg.family == "vlm":
+                mha = 2 * cfg.n_layers + 3
+            else:
+                mha = 2 * (cfg.encoder_layers + 2 * cfg.n_layers) \
+                    + 3 * cfg.n_layers
+            assert got["ranks"]["counts"] == {"mha": mha}, name
+            assert got["errs"]["mha"] <= SSM_MHA_RTOL, name
+            assert got["checked"]["mha"] == mha, name
+            assert all(q[1] == 8 for q, _ in got["shapes"]["mha"]), name

@@ -10,11 +10,12 @@
   a row-parallel one's all-reduce bytes equal to its output's; and what
   the dry-run takes from ``MemTracker`` (a private API): the peak of live
   storages;
-* ``launch/dryrun.py``: the 80 cells' statuses (52 traced, 16 skipped,
-  12 not ported), and the CLI in a subprocess on a fake (2, 2) mesh with
-  the reduced configs: ``ok``, ``skipped`` and ``not_ported`` entries with
-  the reference's keys (xlstm-350m's and hymba-1.5b's decode cells
-  among the ``ok``), rendered by the roofline CLI.
+* ``launch/dryrun.py``: the 80 cells' statuses (64 traced, 16 skipped),
+  and the CLI in a subprocess on a fake (2, 2) mesh with the reduced
+  configs: ``ok`` and ``skipped`` entries with the reference's keys
+  (xlstm-350m's and hymba-1.5b's decode cells and every cell of
+  llama-3.2-vision-11b and whisper-tiny but long_500k among the ``ok``),
+  rendered by the roofline CLI.
 
 The fake default group is process-global, so everything that makes one
 runs in a subprocess of its own.
@@ -83,29 +84,29 @@ def test_table_keeps_every_status():
     results = {"qwen3-8b|train_4k|1pod": _entry(),
                "qwen3-8b|long_500k|1pod": {"status": "skipped",
                                            "reason": "quadratic"},
-               "whisper-tiny|train_4k|1pod": {"status": "not_ported",
-                                              "reason": "item 12d"},
+               "whisper-tiny|long_500k|1pod": {"status": "skipped",
+                                               "reason": "quadratic"},
                "qwen3-8b|train_4k|2pod": {"status": "error"},
                "qwen3-8b|train_4k|1pod|mesh64x4": _entry()}
     rows = roofline.build_table(results, "1pod")
-    assert [r["status"] for r in rows] == ["skipped", "ok", "not_ported"]
+    assert [r["status"] for r in rows] == ["skipped", "ok", "skipped"]
     text = roofline.render_markdown(rows, "1pod")
-    assert "| whisper-tiny | train_4k | — | — | — | not_ported |" in text
+    assert "| whisper-tiny | long_500k | — | — | — | skipped |" in text
     assert "h100-sxm" in text
     assert [r["status"] for r in roofline.build_table(results, "2pod")] \
         == ["error"]
 
 
 def test_cell_statuses():
-    counts = {"ok": 0, "skipped": 0, "not_ported": 0}
+    counts = {"ok": 0, "skipped": 0}
     for arch in ARCH_IDS:
         for shape in SHAPES:
             entry = dryrun.cell_status(arch, shape)
             counts[entry["status"] if entry else "ok"] += 1
-            if entry and entry["status"] == "not_ported":
-                assert "item 12d" in entry["reason"]
-    # x 2 meshes: 52 ok, 16 skipped, 12 not ported
-    assert counts == {"ok": 26, "skipped": 8, "not_ported": 6}
+            if entry:
+                assert shape == "long_500k", (arch, entry)
+    # x 2 meshes: 64 ok, 16 skipped
+    assert counts == {"ok": 32, "skipped": 8}
 
 
 OPTRACE = r"""
@@ -182,8 +183,8 @@ def test_dryrun_cli_on_a_small_fake_mesh(tmp_path):
     assert status == {
         "qwen3-8b|train_4k": "ok", "qwen3-8b|prefill_32k": "ok",
         "qwen3-8b|decode_32k": "ok", "qwen3-8b|long_500k": "skipped",
-        **{f"{a}|{s}": "not_ported" for a in ("llama-3.2-vision-11b",
-                                               "whisper-tiny")
+        **{f"{a}|{s}": "ok" for a in ("llama-3.2-vision-11b",
+                                       "whisper-tiny")
            for s in SHAPES if s != "long_500k"},
         "llama-3.2-vision-11b|long_500k": "skipped",
         "whisper-tiny|long_500k": "skipped",
@@ -191,7 +192,10 @@ def test_dryrun_cli_on_a_small_fake_mesh(tmp_path):
            for s in ("decode_32k", "long_500k")}}
     for cell in ("qwen3-8b|train_4k", "xlstm-350m|decode_32k",
                  "xlstm-350m|long_500k", "hymba-1.5b|decode_32k",
-                 "hymba-1.5b|long_500k"):
+                 "hymba-1.5b|long_500k",
+                 *(f"{a}|{s}" for a in ("llama-3.2-vision-11b",
+                                        "whisper-tiny")
+                   for s in SHAPES if s != "long_500k")):
         for key in ("mesh", "n_devices", "trace_s", "flops",
                     "bytes_accessed", "argument_bytes", "output_bytes",
                     "temp_bytes", "peak_bytes", "collectives", "corrected",

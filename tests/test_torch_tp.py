@@ -25,8 +25,8 @@ no JAX) place them on a ``("data", "model")`` mesh by the reference's
 
 Then, without ranks: the shape helpers the dry-run needs
 (``Model.param_shapes``, ``input_specs``, ``count_params``,
-``AdamW.init_shapes``) against the reference's, and what stays unported
-raising.
+``AdamW.init_shapes``) against the reference's, and the VLM's and
+whisper's parameter layouts.
 """
 import concurrent.futures
 import sys
@@ -237,7 +237,23 @@ def test_input_specs_match_the_reference(shape):
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family
                                   not in ("dense", "moe", "ssm", "hybrid")])
 def test_families_beyond_dense_refuse_sharded_parameters(arch):
+    """The families beyond the decoder LMs' (the VLM's gated cross blocks,
+    whisper's encoder-decoder) lay their parameters out over "model" as
+    the decoder LM's attention and MLP; their norms, gates and LayerNorm
+    weights and biases replicated (``tests/test_torch_vlm_audio_tp.py``
+    runs them)."""
     from types import SimpleNamespace
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        Model(get_config(arch).reduced(), "cpu").param_specs(mesh, {})
+    model = Model(get_config(arch).reduced(), "cpu")
+    specs = model.param_specs(mesh, model.param_shapes())
+    assert specs.keys() == model.param_shapes().keys()
+    assert specs["tok_emb"] == ("model", None)
+    block = "layers.4.cross" if arch == "llama-3.2-vision-11b" \
+        else "dec.0.cross"
+    for name in ("wq", "wk", "wv"):
+        assert specs[f"{block}.{name}"] == (None, "model"), name
+    assert specs[f"{block}.wo"] == ("model", None)
+    for name, spec in specs.items():
+        if name.split(".")[-1] in ("gate_attn", "gate_mlp", "norm1",
+                                   "norm2", "w", "b"):
+            assert spec == (), name

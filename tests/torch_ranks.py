@@ -435,15 +435,18 @@ class QuantRecorder:
 
 
 def lm_serve_outputs(model, params, toks: np.ndarray, prompt: int,
-                     max_seq: int) -> dict:
+                     max_seq: int, extras=None) -> dict:
     """The forward's logits over ``toks``, prefill's over its first
     ``prompt`` tokens and one decode step for each later token, whole,
-    and the int8 pieces of the quantized linears' first calls."""
-    out = {}
+    and the int8 pieces of the quantized linears' first calls; the
+    forward's and prefill's batches hold ``extras`` beside the tokens
+    (the VLM's vision states, whisper's frames)."""
+    out, extras = {}, extras or {}
     with torch.no_grad(), QuantRecorder() as rec:
-        out["forward"] = _full(model.forward(params, {"tokens": toks}))
-        logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
-                                      max_seq=max_seq)
+        out["forward"] = _full(model.forward(params, {"tokens": toks,
+                                                      **extras}))
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :prompt], **extras}, max_seq=max_seq)
         out["prefill"] = _full(logits)
         for i in range(prompt, toks.shape[1]):
             logits, cache = model.decode_step(params, toks[:, i:i + 1],
@@ -833,6 +836,130 @@ def ssm_tp_body(rank: int, cases: dict, shape: tuple, batch: dict,
     return res
 
 
+# -- the VLM and audio families on sharded parameters
+# (tests/test_torch_vlm_audio_tp.py)
+
+def _placed(t) -> tuple:
+    """A cache tensor's (placements, local shape); "plain" for a tensor
+    not on the mesh."""
+    if not hasattr(t, "placements"):
+        return "plain"
+    return [str(p) for p in t.placements], tuple(t.to_local().shape)
+
+
+def x_layouts(cache) -> dict:
+    """The attention caches' layouts: ``{(layer, name): (placements,
+    local shape)}`` of a decoder LM's per-layer ``kv`` (``k``, ``v``) and
+    cross blocks' ``ck`` and ``cv``, or of the encoder-decoder's per-layer
+    lists."""
+    if isinstance(cache, dict):
+        return {(i, name): _placed(t) for name in ("k", "v", "ck", "cv")
+                for i, t in enumerate(cache[name])}
+    out = {}
+    for i, layer in enumerate(cache):
+        for group, value in layer.items():
+            if group == "kv":
+                out.update({(i, f): _placed(getattr(value, f))
+                            for f in ("k", "v")})
+            else:
+                out[i, group] = _placed(value)
+    return out
+
+
+def x_spec_layouts(specs, mesh) -> dict:
+    """:func:`x_layouts`' keys of ``cache_shardings``' specs, as
+    placements."""
+    from repro_torch.distributed.sharding import placements
+
+    def pl(spec):
+        return [str(p) for p in placements(spec, mesh)]
+    if isinstance(specs, dict):
+        return {(i, name): pl(s) for name in ("k", "v", "ck", "cv")
+                for i, s in enumerate(specs[name])}
+    out = {}
+    for i, layer in enumerate(specs):
+        for group, value in layer.items():
+            if group == "kv":
+                out.update({(i, f): pl(value[f]) for f in ("k", "v")})
+            else:
+                out[i, group] = pl(value)
+    return out
+
+
+def x_collectives(model, params, toks: np.ndarray, prompt: int,
+                  max_seq: int, extras: dict) -> dict:
+    """The collectives one rank runs in a forward, a prefill and one
+    decode step (``OpTrace``'s counts by kind, and the port's own
+    collectives' calls), and whether ``tok_emb`` kept its layout."""
+    from repro_torch.launch.hlo_analysis import OpTrace
+    out = {}
+    tok_emb = params["tok_emb"]
+    before = ([str(p) for p in tok_emb.placements],
+              tok_emb.to_local().data_ptr())
+    with torch.no_grad():
+        for name in ("forward", "prefill", "decode"):
+            collectives.reset_traffic()
+            with OpTrace() as trace:
+                if name == "forward":
+                    model.forward(params, {"tokens": toks, **extras})
+                elif name == "prefill":
+                    _, cache = model.prefill(
+                        params, {"tokens": toks[:, :prompt], **extras},
+                        max_seq=max_seq)
+                else:
+                    model.decode_step(params, toks[:, prompt:prompt + 1],
+                                      cache)
+            out[name] = dict(trace.totals()["collective_counts"])
+            out[name + "/port"] = collectives.traffic["calls"]
+    out["tok_emb_kept"] = before == (
+        [str(p) for p in tok_emb.placements], tok_emb.to_local().data_ptr())
+    return out
+
+
+def vlm_audio_tp_body(rank: int, cases: dict, shape: tuple,
+                      lr: float) -> dict:
+    """Each case (name -> (arch, the reference's tree, tokens, prompt,
+    max_seq, extras, the training batch, quantize_dense modes to serve))
+    on a ``shape`` ("data", "model") mesh of gloo ranks: serving
+    (:func:`lm_serve_outputs`) in each mode; the collectives of a
+    forward, a prefill and a decode step; the layouts of ``init_cache``'s,
+    prefill's and ``cache_shardings``' attention caches; one AdamW step
+    (:func:`grad_step`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import cache_shardings
+    from repro_torch.models.api import Model, params_from_jax
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    res = {"jax": "jax" in sys.modules}
+    with use_mesh(mesh):
+        for name, (arch, tree, toks, prompt, max_seq, extras, batch,
+                   quants) in cases.items():
+            out = res[name] = {}
+            for quant in quants:
+                cfg = get_config(arch).reduced(quantize_dense=quant)
+                model = Model(cfg, "cpu")
+                params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+                out[f"serve/{quant}"] = lm_serve_outputs(
+                    model, params, toks, prompt, max_seq, extras)
+            cfg = get_config(arch).reduced()
+            model = Model(cfg, "cpu")
+            params = model.place(params_from_jax(cfg, tree, "cpu"), mesh)
+            out["collectives"] = x_collectives(model, params, toks, prompt,
+                                               max_seq, extras)
+            with torch.no_grad():
+                _, cache = model.prefill(
+                    params, {"tokens": toks[:, :prompt], **extras},
+                    max_seq=max_seq)
+            out["layouts"] = {
+                "prefill": x_layouts(cache),
+                "init": x_layouts(model.init_cache(toks.shape[0], max_seq)),
+                "specs": x_spec_layouts(cache_shardings(mesh, cache), mesh)}
+            out["local"] = {n: (tuple(p.to_local().shape),
+                                [str(q) for q in p.placements])
+                            for n, p in params.named_parameters()}
+            out["train"] = grad_step(model, params, batch, lr, mesh)
+    return res
+
+
 class LaunchChecks:
     """Wraps the CUDA wrappers of ``ops`` in the kernel registry: every
     launch is held against the op's plain version on the same operands
@@ -869,22 +996,26 @@ class LaunchChecks:
         self.dispatch._OPS.update(self.saved)
 
 
-def _card_serve(model, params, toks, prompt: int) -> dict:
+def _card_serve(model, params, toks, prompt: int, extras=None) -> dict:
     """Forward, prefill and teacher-forced decode logits (whole, float32)
-    and the launches they made."""
+    and the launches they made; the forward's and prefill's batches hold
+    ``extras`` beside the tokens (on the model's device)."""
     from repro_torch.kernels import dispatch
     dispatch.reset_launch_counts()
-    out = {}
+    out, extras = {}, extras or {}
     with torch.no_grad():
-        out["forward"] = _full(model.forward(params, {"tokens": toks}))
-        logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
-                                      max_seq=toks.shape[1] + 1)
+        out["forward"] = _full(model.forward(params, {"tokens": toks,
+                                                      **extras}))
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :prompt], **extras},
+            max_seq=toks.shape[1] + 1)
         out["prefill"] = _full(logits)
         for i in range(prompt, toks.shape[1]):
             logits, cache = model.decode_step(params, toks[:, i:i + 1],
                                               cache)
             out[f"decode{i - prompt}"] = _full(logits)
-    torch.cuda.synchronize()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
     return {"logits": out, "counts": dict(dispatch.launch_counts)}
 
 
@@ -913,6 +1044,53 @@ def card_ssm_tp_body(rank: int, cases: dict, toks: np.ndarray,
                 got = _card_serve(model, params, toks, prompt)
         out[name] = {"one": one, "ranks": got, "errs": checks.errs,
                      "checked": checks.checked, "one_errs": one_checks.errs,
+                     "shapes": {op: sorted(s)
+                                for op, s in checks.shapes.items()}}
+    return out
+
+
+def card_vlm_audio_tp_body(rank: int, cases: dict, toks: np.ndarray,
+                           prompt: int, gates: dict) -> dict:
+    """Each case (name -> (arch, dtype)) reduced, its weights drawn on the
+    CPU from one seed and every cross block's gates at ``gates``: one
+    process on the CPU in float32 (the "cpu" run), one process on the card
+    in ``dtype``, then the two ranks on a (1, 2) ("data", "model") mesh on
+    the card (``Model.place``, the same weights): their logits, launches,
+    and every ``int_matmul`` and ``mha`` launch on a rank held against its
+    plain version (:class:`LaunchChecks`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    out = {"jax": "jax" in sys.modules}
+    for name, (arch, dtype) in cases.items():
+        cfg = get_config(arch).reduced()
+        params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                if n.rsplit(".", 1)[-1] in gates:
+                    p.fill_(gates[n.rsplit(".", 1)[-1]])
+        rng = np.random.RandomState(5)
+        if cfg.family == "vlm":
+            key, shape = "vision", (toks.shape[0], cfg.vision_tokens,
+                                    cfg.vision_dim)
+        else:
+            key, shape = "frames", (toks.shape[0], cfg.encoder_seq,
+                                    cfg.d_model)
+        states = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+        cpu = _card_serve(Model(cfg, "cpu"), params, toks, prompt,
+                          {key: states})
+        card_cfg = dataclasses.replace(cfg, dtype=dtype)
+        model = Model(card_cfg, "cuda")
+        params = params.to(device="cuda", dtype=getattr(torch, dtype))
+        extras = {key: states.to("cuda", getattr(torch, dtype))}
+        with LaunchChecks():
+            one = _card_serve(model, params, toks, prompt, extras)
+        with use_mesh(mesh):
+            placed = model.place(params, mesh)
+            with LaunchChecks() as checks:
+                got = _card_serve(model, placed, toks, prompt, extras)
+        out[name] = {"cpu": cpu, "one": one, "ranks": got,
+                     "errs": checks.errs, "checked": checks.checked,
                      "shapes": {op: sorted(s)
                                 for op, s in checks.shapes.items()}}
     return out
