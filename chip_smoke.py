@@ -47,7 +47,7 @@ Phases, in order; any failure exits non-zero:
               - qwen3-8b served at full width and depth (36 layers, bf16,
                 quantize_dense on, seeded random weights) through Model
                 and ServeEngine: 8 requests over 4 slots, prompt lengths
-                drawn from 128-1024, 8 new tokens each; launch counts
+                drawn from 128-1024, LM_NEW new tokens each; launch counts
                 exactly 3 int_matmul per layer per forward call and 1
                 flash_attention per layer per prefill; the same load with
                 quantize_dense off; the busy share over decode steps;
@@ -436,6 +436,27 @@ Phases, in order; any failure exits non-zero:
                   and to the 40-layer model's bytes a rank derived from
                   (a)'s shards (the VLM: the top-level leaves and 4 times
                   a unit's layers)
+ 19. examples  the eight walkthroughs of repro_torch.examples (the
+              reference's examples/*.py), each main run in this process
+              on the default device at the reference's sizes, with the
+              launch counts zeroed just before it and held exactly after
+              it to EX_COUNTS (worked out from each example):
+              quickstart, pim_ml_sklearn, compare_systems, emb_recsys,
+              job_queue and elastic_jobs, their stdout against the
+              reference's (expected/<name>.txt, outputs.compare: every
+              number exact but where a rule of outputs.RULES says
+              otherwise); serve_lm: 8 requests done,
+              240 tokens, one flash_attention a layer a prefill (the
+              reduced qwen3-8b is float32: the CUDA-core kernel);
+              train_lm at EX_TRAIN_STEPS steps (100 of its 300: the
+              phase's time) with its checkpoint under build/phase19
+              (removed after): its loss falls,
+              flash_attention and flash_attention_bwd once a layer a
+              microbatch a step; seconds of each, and the median of the
+              train loop's own step times after the first (no checkpoint
+              in them) beside 6 x parameters x tokens at the float32 peak.
+              Together they launch every kernel but int_matmul (both LM
+              examples keep quantize_dense off, as the reference's do)
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX or the JAX package is
@@ -690,6 +711,65 @@ X_VLM_TRAIN_LAYERS, X_VLM_TRAIN_SEQ, X_TP_TRAIN_BATCH = 5, 1024, 2
 X_TIMEOUT = 600.0
 X_DIR = Path(__file__).resolve().parent / "build" / "phase18"
 
+#: phase 19, the examples: each main of repro_torch.examples at the
+#: reference's sizes, in this order; the six PIM-ML walkthroughs are held
+#: to expected/<name>.txt (outputs.compare)
+EX_PIM = ("quickstart", "pim_ml_sklearn", "compare_systems", "emb_recsys",
+          "job_queue", "elastic_jobs")
+EX_ALL = EX_PIM + ("serve_lm", "train_lm")
+#: each PIM-ML example's kernel launches, worked out from it (op names);
+#: the integer fits are bit-identical on the card and the CPU (phase 4),
+#: so data-dependent counts (KME iterations, DTR rounds, a resumed job's
+#: rework) are the reference's own runs'
+EX_COUNTS = {
+    # fx_matvec: LIN int32 500 + LOG int32 500 + LOG int32_lut_wram 500,
+    # the host-reduce fit 100, the 3-lane gang 500 (one a step for all
+    # lanes), the mixed queue's PIM job 120 (hyb, bui, bui_lut and every
+    # fp32 fit launch none); lut_sigmoid: LOG int32_lut_wram and bui_lut,
+    # 500 each; gini_split: 11 rounds (depth 10) on PIM and 11 on the
+    # host; kmeans_assign: the int16 fit's two restarts, 45 + 28 Lloyd
+    # iterations
+    "quickstart": {"fx_matvec": 3 * 500 + 100 + 500 + 120,
+                   "lut_sigmoid": 2 * 500, "gini_split": 2 * 11,
+                   "kmeans_assign": 45 + 28},
+    # LOG bui_lut 400 steps (LIN bui and its sweep launch none); DTR depth
+    # 8, 9 rounds; PimKMeans' two restarts, 5 + 22 iterations
+    "pim_ml_sklearn": {"lut_sigmoid": 400, "gini_split": 9,
+                       "kmeans_assign": 5 + 22},
+    # the PIM int32 fit's 200 steps; host and gpu-model fp32 launch none
+    "compare_systems": {"fx_matvec": 200},
+    # 1120 steps in all (eager, D=8, the two D=1 identity fits, the
+    # compressed D=8 fit, the registry's fp32 and int32 D=8 fits: 160
+    # each), 2 gathers a step; 2 scatter-adds an apply or flush: 160 +
+    # 20 + 160 + 160 + 20 + 20 + 20 = 560
+    "emb_recsys": {"emb_gather": 2 * 7 * 160,
+                   "emb_scatter_add": 2 * (3 * 160 + 4 * 20)},
+    # LIN int32 60 + LOG int32_lut_wram 60 steps; KME int16 20 iterations
+    # (the poisoned job fails before its first); the hyb sweep none
+    "job_queue": {"fx_matvec": 2 * 60, "lut_sigmoid": 60,
+                  "kmeans_assign": 20},
+    # act 1: the preempted job 200 + 16 (the chunk in flight at the
+    # preemption, dropped) and its uninterrupted twin 200; act 2: two
+    # tenants 120 each and the urgent job 40; act 3: the int32 job 20
+    # (fp32 launches none); act 4: 100 + 32 (4 chunks of 8 redone after
+    # the fault); act 5: 8 + 200 + 2 (the chunk the crash cut, redone)
+    "elastic_jobs": {"fx_matvec": 416 + 280 + 20 + 132 + 210},
+}
+#: serve_lm: 8 requests of 12-token prompts over 4 slots, 240 tokens
+EX_SERVE_REQUESTS, EX_SERVE_TOKENS = 8, 240
+#: train_lm's ~100M granite at 100 of its default 300 steps (one
+#: checkpoint): 300 took 59.1 s of the phase's 84.2 on an H100 at 700 W,
+#: over its 60 s; steps 101-300 and the two later checkpoints no longer
+#: run, every check does.  Its layers and microbatches, and the tokens of
+#: a step at its --batch and --seq defaults (examples/train_lm.py)
+EX_TRAIN_STEPS, EX_TRAIN_LAYERS, EX_TRAIN_MICROBATCHES = 100, 12, 2
+EX_TRAIN_TOKENS = 16 * 128
+#: the ops the examples launch between them: every kernel but int_matmul
+#: (both LM examples keep quantize_dense off, as the reference's do)
+EX_KERNELS = {"fx_matvec", "lut_sigmoid", "kmeans_assign", "gini_split",
+              "emb_gather", "emb_scatter_add", "mha", "mha_bwd"}
+EX_DIR = Path(__file__).resolve().parent / "build" / "phase19"
+
 #: phase 14, PIM-ML over ranks: PIM_RANKS ranks share the card over gloo,
 #: each owning N_CORES / PIM_RANKS cores; the fits (name: workload,
 #: version, data, reduce), each at phase 4-5's parameters; the KME inertia
@@ -713,15 +793,16 @@ PIM_DATA_DIR = Path(__file__).resolve().parent / "build" / "phase14"
 
 #: the LM serve load: the repo's serving model (launch/serve.py's default)
 #: at full width and depth, 8 requests over 4 slots, prompt lengths drawn
-#: by SEED from 128-1024, 8 new tokens each, greedy.  Cut from 32 (with
+#: by SEED from 128-1024, 4 new tokens each, greedy.  Cut from 32 (with
 #: FAM_NEW) to 16 to keep the script inside its time limit beside phase 15
-#: (a slower host took 1170.6 s of 1200 before the cut), and to 8 beside
-#: phase 16 (a slower host took 1010.4 s with 16): the launch counts, the
-#: prefill + decode check and the card against CPU check are as before,
-#: but decode steps 9-32 of a request (cache positions up to prompt + 32)
-#: run no more, and the decode medians come from 56 calls, not 248
+#: (a slower host took 1170.6 s of 1200 before the cut), to 8 beside
+#: phase 16 (a slower host took 1010.4 s with 16), and to 4 beside phase
+#: 19 (the script took 1022.3 s with 8): the launch counts, the prefill +
+#: decode check and the card against CPU check are as before, but decode
+#: steps 5-32 of a request (cache positions up to prompt + 32) run no
+#: more, and the decode medians come from 24 calls, not 248
 LM_ARCH = "qwen3-8b"
-LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 8, 2048
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MAX_SEQ = 8, 4, 4, 2048
 LM_PROMPT_MIN, LM_PROMPT_MAX = 128, 1024
 LM_PROFILE_STEPS = 8
 #: qwen3-8b's MLP linears as (K, N): up and gate, then down
@@ -1986,15 +2067,13 @@ def lm_serve_on_card(torch, dispatch, smi: str) -> dict:
     say(f"  greedy tokens equal with quantize_dense on and off: {agree} of "
         f"{on['tokens']}")
 
-    # the card's busy share over decode steps, quantize_dense on and off
+    # the card's busy share over decode steps, quantize_dense on and off,
+    # the device traced alone, as the families' are (with the host traced
+    # too, each profile took ~25-30 s to process)
     profiles = {}
     for name, cfg in (("on", cfg_q), ("off", cfg_f)):
-        m = Model(cfg, device="cuda")
-        _, cache = m.prefill(params, {"tokens": prompts[0][None]},
-                             LM_MAX_SEQ)
-        tok = np.zeros((1, 1), np.int32)
-        profiles[name] = device_profile(torch, lambda: [
-            m.decode_step(params, tok, cache) for _ in range(LM_PROFILE_STEPS)])
+        profiles[name] = family_profile(torch, Model(cfg, device="cuda"),
+                                        params, prompts[0])
         say(f"profile: {LM_PROFILE_STEPS} decode steps, quantize_dense "
             f"{name}: {profiles[name]}")
 
@@ -7166,6 +7245,106 @@ def check_pim_ranks(pim: dict, one_process: dict, smi: str) -> None:
             f"{PIM_RANKS} ranks, on {smi})")
 
 
+def examples_on_card(torch, dispatch, smi: str) -> dict:
+    """Phase 19: every example's ``main`` on the default device, each with
+    the launch counts zeroed just before it; returns the launches of each
+    and in all, and the seconds."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import outputs
+    t_phase = time.perf_counter()
+    shutil.rmtree(EX_DIR, ignore_errors=True)
+    EX_DIR.mkdir(parents=True)
+    lm_layers = get_config("qwen3-8b").reduced().n_layers
+    per_step = EX_TRAIN_LAYERS * EX_TRAIN_MICROBATCHES
+    expected = dict(EX_COUNTS, serve_lm={"mha": lm_layers
+                                         * EX_SERVE_REQUESTS},
+                    train_lm={"mha": per_step * EX_TRAIN_STEPS,
+                              "mha_bwd": per_step * EX_TRAIN_STEPS})
+    from unittest import mock
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.transformer import count_params
+    step_s = []     # the train loop's own time of each step
+
+    class StepTimes(train_launch.StragglerMonitor):
+        def observe(self, step_seconds):
+            step_s.append(step_seconds)
+            return super().observe(step_seconds)
+
+    total, secs, faults, train_ms = {}, {}, [], {}
+    for name in EX_ALL:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        argv = (["--steps", str(EX_TRAIN_STEPS), "--ckpt-dir",
+                 str(EX_DIR / "ckpt")] if name == "train_lm" else [])
+        buf = io.StringIO()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), mock.patch.object(
+                train_launch, "StragglerMonitor", StepTimes):
+            ret = module.main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts = dict(dispatch.launch_counts)
+        add_counts(total, counts)
+        out = buf.getvalue()
+        (EX_DIR / f"{name}.out").write_text(out)
+        say(f"examples: {name} in {secs[name]:.1f} s, launches {counts} "
+            f"(expected {expected[name]})")
+        if counts != expected[name]:
+            faults.append(f"{name}: launches {counts} != {expected[name]}")
+        if name in EX_PIM:
+            diff = outputs.compare(out, outputs.expected(name))
+            say(f"  {name}: {len(out.splitlines())} lines against the "
+                f"reference's: {len(diff)} differences outside the rules")
+            faults += [f"{name} {d}" for d in diff]
+        elif name == "serve_lm":
+            n_tokens = sum(len(r.output) for r in ret)
+            say(f"  serve_lm: {len(ret)} requests, {n_tokens} tokens, all "
+                f"done {all(r.done for r in ret)}: {out.splitlines()[0]}")
+            if (len(ret), n_tokens) != (EX_SERVE_REQUESTS, EX_SERVE_TOKENS) \
+                    or not all(r.done for r in ret):
+                faults.append(f"serve_lm: {len(ret)} requests, {n_tokens} "
+                              f"tokens")
+        else:
+            # the loop's step times: the step and its loss on the host,
+            # no batch drawn and no checkpoint written
+            n_params = count_params(get_config(module.ARCH).reduced(
+                **module.WIDTH))
+            train_ms = {
+                "step": statistics.median(step_s[1:]) * 1e3,
+                "first_step": step_s[0] * 1e3,
+                "wall_a_step": secs[name] / len(ret) * 1e3,
+                "gemm_bound": 6 * n_params * EX_TRAIN_TOKENS
+                / PEAK_FP32_OPS_PER_S * 1e3}
+            say(f"  train_lm: {EX_TRAIN_STEPS} steps, median "
+                f"{train_ms['step']:.2f} ms a step after the first "
+                f"({train_ms['first_step']:.1f} ms; the train loop's own "
+                f"step times, checkpoints not in them), the example's wall "
+                f"{train_ms['wall_a_step']:.1f} ms a step (build, "
+                f"checkpoint and warm-up in it); 6 x {n_params / 1e6:.1f}M "
+                f"parameters x {EX_TRAIN_TOKENS} tokens at the float32 "
+                f"peak {train_ms['gemm_bound']:.2f} ms; loss "
+                f"{ret[0]:.4f} -> {ret[-1]:.4f}; "
+                + out.strip().splitlines()[-1])
+            if not (len(ret) == EX_TRAIN_STEPS == len(step_s)
+                    and np.all(np.isfinite(ret))):
+                faults.append(f"train_lm: losses {ret[:3]}..., "
+                              f"{len(step_s)} step times")
+    shutil.rmtree(EX_DIR / "ckpt", ignore_errors=True)
+    if faults:
+        fail("examples: " + "; ".join(faults[:20]))
+    if set(total) != EX_KERNELS:
+        fail(f"examples: launched {sorted(total)}, not {sorted(EX_KERNELS)}")
+    wall = time.perf_counter() - t_phase
+    say(f"examples: phase 19 in {wall:.1f} s on {smi}; launches in all "
+        f"{total}: every ported kernel but int_matmul")
+    return {"counts": total, "secs": secs, "wall_s": wall,
+            "train_ms": train_ms}
+
+
 def tree_rounds(tree) -> int:
     """Frontier rounds a fit ran: one per depth level, plus the last
     round, which evaluates the deepest leaves and splits none."""
@@ -7703,6 +7882,9 @@ def main() -> int:
     fam_launches = dict(fam["counts"])
     add_counts(fam_launches, xfam["counts"])
 
+    # -- 19. the examples' counterparts, whole ------------------------------
+    ex = examples_on_card(torch, dispatch, smi)
+
     kernels = [
         {"name": "fx_matvec", "route": "cuda",
          "source": "src/repro_torch/csrc/fx_matvec.cu",
@@ -7842,6 +8024,10 @@ def main() -> int:
                                                 xk["errs"].get(op))
             if op != "int_matmul":
                 k["x_max_rel_err"] = xk["errs"][op]
+    for k in kernels:        # phase 19's launches, all examples together
+        op = {"flash_attention": "mha", "flash_attention_bwd": "mha_bwd",
+              "gini_counts": "gini_split"}.get(k["name"], k["name"])
+        k["examples_launches"] = ex["counts"].get(op, 0)
     ranked = {}     # phase 14's launches on rank 0, and its checks' errors
     for rec in pim["ranks"][0]["fits"].values():
         add_counts(ranked, rec["counts"])
@@ -7926,6 +8112,8 @@ def main() -> int:
         **{f"{arch} train_step_ms": x0[arch, "train"]["step_ms"]
            for arch in (X_VLM, X_AUDIO)},
         "wall_s": xtp["wall_s"]}))
+    say("examples: " + json.dumps({"secs": ex["secs"], "wall_s": ex["wall_s"],
+                                   "train_lm_ms": ex["train_ms"]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
